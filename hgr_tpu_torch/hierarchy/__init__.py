@@ -1,0 +1,3 @@
+from .tree import PAD, ROOT, Hierarchy, profiled_hierarchy, synthetic_hierarchy
+
+__all__ = ["Hierarchy", "profiled_hierarchy", "synthetic_hierarchy", "ROOT", "PAD"]

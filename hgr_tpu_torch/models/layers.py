@@ -1,0 +1,230 @@
+"""Building blocks shared by the CLIP encoders (port of
+``hgr_tpu/models/layers.py``).
+
+Two kinds of thing live here:
+
+- functions over tensors with the JAX package's numerics: master parameters
+  stay fp32 and are cast to the activation dtype at use; LayerNorm and the
+  attention softmax run in fp32 and return the input dtype; BatchNorm is
+  frozen-stats and folded into one multiply-add in the same operation order;
+- parameter holders (``Linear``, ``LayerNorm``, ``Conv2d``, ``BatchNorm2d``,
+  ``Embedding``) whose ``state_dict`` keys are the OpenAI CLIP names
+  (``weight``, ``bias``, ``running_mean``, ``running_var``). They allocate
+  uninitialised storage and draw nothing: every random value comes from an
+  explicit ``torch.Generator`` in ``init`` (see ``models/clip.py``).
+
+Layouts are torch's (linear ``[out, in]``, conv ``OIHW``, images ``NCHW``
+inside the image tower); ``models/convert.py`` maps the JAX layouts.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# ---------------------------------------------------------------------------
+# functions
+# ---------------------------------------------------------------------------
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x @ w.T + b`` in ``x``'s dtype (``w`` is ``[out, in]``)."""
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def layer_norm(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """fp32-internal LayerNorm (bf16-safe), output in the input dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps)
+    return y.to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def conv2d(
+    x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0
+) -> torch.Tensor:
+    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
+
+
+def batch_norm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Inference-mode BN on NCHW folded into one multiply-add; the fold is
+    computed in fp32 and cast, as ``hgr_tpu/models/layers.py:114-117``."""
+    inv = torch.rsqrt(var + eps) * scale
+    shift = bias - mean * inv
+    return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    return F.avg_pool2d(x, k)
+
+
+def attention_scores(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain scaled-dot-product attention over ``[B, H, T, Dh]``: the twin of
+    the fused kernel in ``ops/attention.py``.
+
+    Scores in fp32, additive fp32 ``[Tq, Tk]`` mask, fp32 softmax, then the
+    probabilities cast to ``v``'s dtype and contracted with ``v``.
+    """
+    scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        scores = scores + mask.float()
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v)
+
+
+def mha(
+    x: torch.Tensor,
+    in_proj_weight: torch.Tensor,
+    in_proj_bias: torch.Tensor,
+    out_weight: torch.Tensor,
+    out_bias: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor],
+    attn_fn,
+) -> torch.Tensor:
+    """Packed-QKV self-attention on ``[B, T, D]``.
+
+    q, k and v reach ``attn_fn`` as strided ``[B, H, T, Dh]`` views of the
+    packed ``[B, T, 3D]`` projection, and its output is read back through a
+    view: the fused kernel takes strides, so no head transpose is copied.
+    """
+    B, T, D = x.shape
+    qkv = linear(x, in_proj_weight, in_proj_bias)  # [B, T, 3D]
+
+    def heads(t):
+        return t.view(B, T, num_heads, D // num_heads).transpose(1, 2)
+
+    q, k, v = qkv.split(D, dim=-1)
+    out = attn_fn(heads(q), heads(k), heads(v), mask)  # [B, H, T, Dh]
+    out = out.transpose(1, 2).reshape(B, T, D)
+    return linear(out, out_weight, out_bias)
+
+
+def causal_mask(T: int, device=None) -> torch.Tensor:
+    """Additive causal mask, ``0`` on/below the diagonal, ``-inf`` above
+    (reference ``clip/model.py:324-330``)."""
+    m = torch.full((T, T), float("-inf"), dtype=torch.float32, device=device)
+    return torch.triu(m, diagonal=1)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    xf = x.float()
+    n = torch.sqrt(torch.sum(xf * xf, dim=dim, keepdim=True))
+    return (xf / torch.clamp_min(n, eps)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# parameter holders (OpenAI CLIP state_dict names; no random draws)
+# ---------------------------------------------------------------------------
+
+
+def _param(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape), requires_grad=False)
+
+
+def normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=g) * std)
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.weight = _param(d_out, d_in)
+        self.bias = _param(d_out)
+
+    def init(self, g: torch.Generator, std: Optional[float] = None) -> None:
+        """Normal weights (std ``d_in ** -0.5`` by default), zero bias
+        (``linear_init``)."""
+        normal_(self.weight, self.weight.shape[1] ** -0.5 if std is None else std, g)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = _param(dim)
+        self.bias = _param(dim)
+
+    def init(self) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias)
+
+
+class Conv2d(nn.Module):
+    """Bias-free conv (CLIP's ResNet convs have none)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.weight = _param(cout, cin, k, k)
+        self.stride, self.padding = stride, padding
+
+    def init(self, g: torch.Generator) -> None:
+        """He-uniform fan-in bound ``sqrt(1 / fan_in)`` (``conv_init``)."""
+        cout, cin, kh, kw = self.weight.shape
+        bound = math.sqrt(1.0 / (kh * kw * cin))
+        with torch.no_grad():
+            self.weight.copy_(
+                (torch.rand(self.weight.shape, generator=g) * 2 - 1) * bound
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.stride, self.padding)
+
+
+class BatchNorm2d(nn.Module):
+    """Frozen-stats BN: affine parameters plus running statistics."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = _param(dim)
+        self.bias = _param(dim)
+        self.register_buffer("running_mean", torch.empty(dim))
+        self.register_buffer("running_var", torch.empty(dim))
+
+    def init(self) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        nn.init.zeros_(self.running_mean)
+        nn.init.ones_(self.running_var)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return batch_norm(
+            x, self.weight, self.bias, self.running_mean, self.running_var
+        )
+
+
+class Embedding(nn.Module):
+    def __init__(self, n: int, dim: int):
+        super().__init__()
+        self.weight = _param(n, dim)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)

@@ -1,0 +1,84 @@
+"""Pre-LN residual transformer stack (port of ``hgr_tpu/models/transformer.py``).
+
+Behaviour of the reference's ``Transformer`` / ``ResidualAttentionBlock``
+(``clip/model.py:153-199``): QuickGELU MLP, packed-QKV attention, optional
+causal mask, and the reference's init scheme (``clip/model.py:302-315``).
+The JAX package stacks the blocks for ``lax.scan``; here they are a
+``ModuleList`` run by a Python loop, under the OpenAI names
+``resblocks.{i}.attn.in_proj_weight`` and so on.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .layers import LayerNorm, Linear, _param, mha, normal_, quick_gelu
+
+
+class MultiheadAttention(nn.Module):
+    """Packed-QKV parameters in ``nn.MultiheadAttention``'s layout."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.in_proj_weight = _param(3 * width, width)
+        self.in_proj_bias = _param(3 * width)
+        self.out_proj = Linear(width, width)
+
+
+class MLP(nn.Module):
+    def __init__(self, width: int):
+        super().__init__()
+        self.c_fc = Linear(width, 4 * width)
+        self.c_proj = Linear(4 * width, width)
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.attn = MultiheadAttention(width)
+        self.ln_1 = LayerNorm(width)
+        self.mlp = MLP(width)
+        self.ln_2 = LayerNorm(width)
+
+    def init(self, g: torch.Generator, layers: int) -> None:
+        """``block_init``: attention std ``w^-0.5``, projections
+        ``w^-0.5 (2L)^-0.5``, MLP input ``(2w)^-0.5``, zero biases."""
+        width = self.ln_1.weight.shape[0]
+        proj_std = (width ** -0.5) * ((2 * layers) ** -0.5)
+        normal_(self.attn.in_proj_weight, width ** -0.5, g)
+        nn.init.zeros_(self.attn.in_proj_bias)
+        self.attn.out_proj.init(g, proj_std)
+        self.mlp.c_fc.init(g, (2 * width) ** -0.5)
+        self.mlp.c_proj.init(g, proj_std)
+        self.ln_1.init()
+        self.ln_2.init()
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], attn_fn) -> torch.Tensor:
+        a = self.attn
+        x = x + mha(
+            self.ln_1(x), a.in_proj_weight, a.in_proj_bias,
+            a.out_proj.weight, a.out_proj.bias, self.heads, mask, attn_fn,
+        )
+        h = quick_gelu(self.mlp.c_fc(self.ln_2(x)))
+        return x + self.mlp.c_proj(h)
+
+
+class Transformer(nn.Module):
+    def __init__(self, width: int, layers: int, heads: int):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            ResidualAttentionBlock(width, heads) for _ in range(layers)
+        )
+
+    def init(self, g: torch.Generator) -> None:
+        for blk in self.resblocks:
+            blk.init(g, len(self.resblocks))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], attn_fn) -> torch.Tensor:
+        for blk in self.resblocks:
+            x = blk(x, mask, attn_fn)
+        return x

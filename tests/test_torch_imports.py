@@ -1,0 +1,65 @@
+"""The PyTorch port stands alone: no JAX and nothing of ``hgr_tpu``.
+
+An AST scan of every module of ``hgr_tpu_torch``, of ``chip_smoke.py`` and
+of the port's tools (``tools/*torch*.py``) finds no import of ``jax`` (or
+``jaxlib``, ``optax``, ``orbax``) and none of ``hgr_tpu`` other than
+``hgr_tpu_torch``; importing the package in a fresh interpreter leaves
+``jax`` out of ``sys.modules``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "hgr_tpu")
+FILES = (sorted((REPO / "hgr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+         + sorted((REPO / "tools").glob("*torch*.py")))
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    bad = [
+        m for m in _imported(ast.parse(path.read_text(), str(path)))
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_package_import_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "import hgr_tpu_torch, hgr_tpu_torch.driver, hgr_tpu_torch.tree_model\n"
+        "import hgr_tpu_torch.__main__\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    p = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "ok"
