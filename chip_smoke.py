@@ -9,9 +9,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. build: compile every kernel under ``hgr_tpu_torch/csrc`` with nvcc (one
    process per source, all at once) and print the build time;
 3. kernels against their plain versions on the card, at the main path's
-   shapes, with the stated tolerances; times of kernel, plain version and
-   the library yardstick (``scaled_dot_product_attention``, never called by
-   the port), and each shape's bound;
+   shapes and the edges of K1's contract (``KERNEL_CASES``), each with q/k/v
+   as strided views of the packed projection and as contiguous tensors,
+   with the stated tolerances; times of kernel, plain version and the
+   library yardstick (``scaled_dot_product_attention``, never called by the
+   port), and each case's bound;
 4. the slice at full width: RN50, the 18,278-class bank padded to 18,432,
    ``run_test`` over 8 batches of 512 synthetic images; K1's launch count
    over that run must be 12 layers x 36 chunks = 432;
@@ -40,7 +42,18 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
               torch.float32: 67e12}            # fp32 outside the tensor cores
 LEVEL_SIZES = [10, 800, 4000, 5000, 4000, 2500, 1000, 500, 250, 120, 60, 30, 8]
-KERNEL_SHAPES = [(512, 8, 32, 64), (512, 8, 77, 64), (512, 8, 20, 64)]
+# phase 3's (shape, causal settings): the bank build's T = 32, CLIP's full
+# context 77 and a short prompt 20; ViT-B/32's 50 and ViT-B/16's 197 (12
+# heads) without mask; the edges T = 256 (two passes over key tiles) and T = 1
+KERNEL_CASES = [
+    ((512, 8, 32, 64), (True, False)),
+    ((512, 8, 77, 64), (True, False)),
+    ((512, 8, 20, 64), (True, False)),
+    ((512, 8, 50, 64), (False,)),
+    ((64, 12, 197, 64), (False,)),
+    ((8, 8, 256, 64), (True, False)),
+    ((8, 8, 1, 64), (True, False)),
+]
 MAIN_SHAPE = (512, 8, 32, 64)                 # the bank build's: 512 prompts, T = 32
 # kernel vs plain, elementwise |k - p| <= atol + rtol |p|: fp32 differs only
 # in summation order; in bf16 the two may round an output (or a
@@ -61,6 +74,30 @@ def cuda_ms(fn, reps=20, warmup=3):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20, warmup=3):
+    """Mean device ms per call: ``reps`` calls captured in one CUDA graph and
+    replayed between CUDA events, so the host's cost of issuing each call
+    (Python, the wrapper's checks, the launch) is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -105,6 +142,17 @@ def attention_bound_ms(shape, dtype, causal):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def qkv_views(shape, dtype, layout, g, dev):
+    """q, k, v as ``mha`` passes them (``packed``: strided views of one
+    [B, T, 3, H, Dh] projection) or as separate contiguous [B, H, T, Dh]
+    tensors (``contiguous``), so that both stride patterns reach the kernel."""
+    B, H, T, Dh = shape
+    if layout == "packed":
+        qkv = torch.randn((B, T, 3, H, Dh), generator=g, device=dev).to(dtype)
+        return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    return [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3)]
+
+
 def phase_kernels(dev):
     """K1 against attention_scores on the card, with times and bounds."""
     import torch.nn.functional as F
@@ -114,37 +162,50 @@ def phase_kernels(dev):
 
     g = torch.Generator(device=dev).manual_seed(0)
     main = None
-    for shape in KERNEL_SHAPES:
-        B, H, T, Dh = shape
+    for shape, causals in KERNEL_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            # q, k, v as mha passes them: strided views of a packed projection
-            qkv = torch.randn((B, T, 3, H, Dh), generator=g, device=dev).to(dtype)
-            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-            for causal in (True, False):
-                mask = causal_mask(T, device=dev) if causal else None
-                got = attention(q, k, v, mask)
-                want = attention_scores(q, k, v, mask)
-                torch.cuda.synchronize()
-                atol, rtol = TOL[dtype]
-                diff = (got.float() - want.float()).abs()
-                err = float(diff.max())
-                ok = bool((diff <= atol + rtol * want.float().abs()).all())
-                ms = cuda_ms(lambda: attention(q, k, v, mask))
-                plain_ms = cuda_ms(lambda: attention_scores(q, k, v, mask))
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
-                bound, by = attention_bound_ms(shape, dtype, causal)
-                name = str(dtype).split(".")[-1]
-                log(f"[kernel] attention {shape} {name} causal={causal}: max_abs_err {err:.3e} "
-                    f"(tol {atol:g} + {rtol:g}|p|) {'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
-                    f"({by}) | {bound / ms:.1%} of bound")
-                if not ok:
-                    raise AssertionError(f"attention kernel disagrees with its plain version "
-                                         f"at {shape} {dtype} causal={causal}: {err}")
-                if shape == MAIN_SHAPE and dtype == torch.bfloat16 and causal:
-                    main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                                bound_by=by, max_abs_err=err)
+            for layout in ("packed", "contiguous"):
+                q, k, v = qkv_views(shape, dtype, layout, g, dev)
+                for causal in causals:
+                    row = check_attention(attention, attention_scores, F.scaled_dot_product_attention,
+                                          q, k, v, causal_mask(shape[2], device=dev) if causal else None)
+                    name = str(dtype).split(".")[-1]
+                    eager = row.pop("eager_ms")
+                    log(f"[kernel] attention {shape} {name} {layout} causal={causal}: max_abs_err "
+                        f"{row['max_abs_err']:.3e} (tol {TOL[dtype][0]:g} + {TOL[dtype][1]:g}|p|) ok | "
+                        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+                        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                        f"| {row['bound_ms'] / row['ms']:.1%} of bound | kernel eager "
+                        f"{eager:.4f} ms a call, host included")
+                    if shape == MAIN_SHAPE and dtype == torch.bfloat16 and layout == "packed" and causal:
+                        main = row
     return main
+
+
+def check_attention(kernel, plain, sdpa, q, k, v, mask):
+    """One case of phase 3: the kernel held to its plain version (raises
+    beyond TOL), then the three timed on the device; returns the
+    kernel-table fields and ``eager_ms``, the kernel's time a call from
+    Python, host included."""
+    got = kernel(q, k, v, mask)
+    want = plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[q.dtype]
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+        raise AssertionError(f"attention kernel disagrees with its plain version at "
+                             f"{tuple(q.shape)} {q.dtype} strides {q.stride()} "
+                             f"mask={mask is not None}: {err}")
+    causal = mask is not None
+    bound, by = attention_bound_ms(tuple(q.shape), q.dtype, causal)
+    return dict(
+        ms=graph_ms(lambda: kernel(q, k, v, mask)),
+        plain_ms=graph_ms(lambda: plain(q, k, v, mask)),
+        library_ms=graph_ms(lambda: sdpa(q, k, v, is_causal=causal)),
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        eager_ms=cuda_ms(lambda: kernel(q, k, v, mask)),
+    )
 
 
 def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=8,

@@ -5,7 +5,7 @@ Exact behavioural equivalents of the reference's eval loop
 (``main.py:136-191``):
 
 - flat Hit@{1,2,5,10,20} over the unseen (test) class subset
-  (``main.py:136-148``), as one masked top-k;
+  (``main.py:136-148``), from the target's rank in one masked pass;
 - TOR / "hit_ratio": top-1 over candidate (train) classes landing in
   {target and its ancestors} (``main.py:152-160``);
 - POR / "point_ratio" and "path_ratio": the per-ancestor-level constrained
@@ -17,9 +17,10 @@ All functions assume the grouped-loader invariant (every image in the batch
 shares one target class, reference ``main.py:152`` uses ``targets[0]``) and
 return partial sums that the caller accumulates.
 
-Top-k uses ``torch.topk``, which promises no order among equal values where
-``lax.top_k`` puts the lower index first. Only the NEG-masked (non-test)
-columns can tie there, and the target is a test class, so the counts agree.
+Hit@k ranks ties as ``lax.top_k`` does: the lower column comes first. Test
+classes do tie: two classes with the same prompt share a bank row, so their
+logits are equal. ``torch.topk`` promises no order among equal values, so
+the target's rank is counted instead (:func:`_rank_hits`).
 """
 
 from __future__ import annotations
@@ -48,13 +49,20 @@ class BatchMetrics(NamedTuple):
     num: torch.Tensor    # number of samples in the batch
 
 
-def _hits(pred: torch.Tensor, target, topk, valid) -> torch.Tensor:
-    correct = pred == target                          # [B, maxk]
+def _rank_hits(masked: torch.Tensor, col, topk, valid) -> torch.Tensor:
+    """Counts of "column ``col`` among the first k" of each row of ``masked``,
+    in ``lax.top_k``'s order (descending, the lower column first on ties).
+    The target's rank is the number of entries strictly greater than its
+    value plus the equal ones at a lower column; it is a hit when that rank
+    is below k."""
+    col = torch.as_tensor(col, device=masked.device).long()
+    t = masked.index_select(1, col.reshape(1))                         # [B, 1]
+    lower = torch.arange(masked.shape[1], device=masked.device) < col  # [N]
+    rank = torch.where(lower[None, :], masked >= t, masked > t).sum(dim=1)
+    hit = rank[:, None] < torch.tensor(list(topk), device=masked.device)[None, :]
     if valid is not None:
-        correct = correct & valid[:, None]
-    csum = torch.cumsum(correct.to(torch.int32), dim=1)
-    ks = torch.tensor([k - 1 for k in topk], device=pred.device)
-    return csum[:, ks].sum(dim=0).to(torch.float32)
+        hit = hit & valid[:, None]
+    return hit.sum(dim=0).to(torch.float32)
 
 
 def _path_point(match: torch.Tensor, chain_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,8 +93,7 @@ def flat_hits(
 ) -> torch.Tensor:
     """Counts of "target in top-k over the test subset" for each k."""
     masked = torch.where(test_mask[None, :], logits, NEG)
-    pred = torch.topk(masked, max(topk), dim=1).indices
-    return _hits(pred, target, topk, valid)
+    return _rank_hits(masked, target, topk, valid)
 
 
 def tor_hits(
@@ -175,8 +182,8 @@ def metrics_from_preds(
     ``hgr_tpu/eval/metrics.py:188-193``.
     """
     masked = torch.where(test_mask_sorted[None, :], logits_sorted, NEG)
-    pred = order[torch.topk(masked, max(topk), dim=1).indices]  # global ids
-    hits = _hits(pred, target, topk, valid)
+    # ties rank by depth-sorted position, as lax.top_k over this layout does
+    hits = _rank_hits(masked, torch.argmax((order == target).to(torch.int8)), topk, valid)
 
     tor_pred = preds_global[-1]               # [B]
     in_chain = (tor_pred[:, None] == chain[None, :]) & (chain[None, :] >= 0)

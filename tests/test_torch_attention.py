@@ -36,7 +36,7 @@ def _qkv(T, seed, B=2, H=3, Dh=64):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("T", [5, 20, 32, 77])
+@pytest.mark.parametrize("T", [1, 5, 20, 32, 50, 77, 197, 256])
 def test_attention_matches_jax(T, causal):
     q, k, v = _qkv(T, seed=T)
     jm = jnp.asarray(jax_causal_mask(T)) if causal else None

@@ -167,6 +167,73 @@ def test_metrics_match_jax(case):
     assert tm_.summarize(got_s) == pytest.approx(jm.summarize(want_s), rel=1e-6)
 
 
+TIE_RANKS = (1, 2, 5, 10, 20, 3, 1, 2)  # per image; the last image is padding
+
+
+def _tie_case(seed=5, N=18432, n_depths=4):
+    """Logits in which the target ties exactly with a lower test class.
+
+    Classes ``lower`` and ``target`` share one bank row (the same prompt),
+    so every image scores them equally: the logits are the scores of the
+    distinct bank rows, gathered by each class's row. Image b puts the tied
+    pair at places TIE_RANKS[b] and TIE_RANKS[b] + 1 of the test ranking.
+    ``lower`` comes first both by global id and by depth-sorted position.
+    """
+    rng = np.random.default_rng(seed)
+    depth = rng.integers(0, n_depths, N).astype(np.int32)
+    test = rng.random(N) < 0.5
+    target = int(np.flatnonzero(test)[-1])
+    lower = int(np.flatnonzero(test[:target] & (depth[:target] <= depth[target]))[0])
+    row_of = np.arange(N)
+    row_of[target] = lower
+    scores = rng.uniform(-1.0, 1.0, (len(TIE_RANKS), N)).astype(np.float32)
+    others = test.copy()
+    others[[lower, target]] = False
+    for b, r in enumerate(TIE_RANKS):
+        s = np.sort(scores[b, others])[::-1]
+        scores[b, lower] = s[0] + 0.5 if r == 1 else (s[r - 2] + s[r - 1]) / 2
+    logits = scores[:, row_of]
+    assert (logits[:, target] == logits[:, lower]).all()
+    valid = np.ones(len(TIE_RANKS), bool)
+    valid[-1] = False
+    return logits, depth, test, target, valid
+
+
+def test_hit_at_k_tie_order_matches_jax():
+    """Ties rank the lower column first, as lax.top_k does: on the flat
+    path by global id, on the sorted path by depth-sorted position."""
+    logits, depth, test, target, valid = _tie_case()
+    # the target sits one place behind its twin: a hit at k when rank + 1 <= k
+    want_counts = [sum(r + 1 <= k for r, ok in zip(TIE_RANKS, valid) if ok)
+                   for k in tm_.TOPK]
+    want = np.asarray(jm.flat_hits(jnp.asarray(logits), jnp.asarray(target),
+                                   jnp.asarray(test), valid=jnp.asarray(valid)))
+    got = tm_.flat_hits(T(logits), target, T(test), valid=T(valid)).numpy()
+    assert want.tolist() == want_counts == [0, 2, 4, 5, 6]
+    assert got.tolist() == want.tolist()
+
+    train = ~test
+    order = np.argsort(depth, kind="stable").astype(np.int32)
+    offsets = tuple(np.concatenate([[0], np.cumsum(np.bincount(depth))]).tolist())
+    chain_p = np.asarray([target, -1], np.int32)
+    levels = np.asarray([depth[target], 0], np.int32)
+    ls = logits[:, order]
+    ps, pv = jtopk.level_argmax_sorted(jnp.asarray(ls), offsets, jnp.asarray(train[order]))
+    want_s = jm.metrics_from_preds(
+        jnp.asarray(order)[ps], jnp.asarray(ls), jnp.asarray(order), jnp.asarray(target),
+        jnp.asarray(chain_p), jnp.asarray(np.int32(1)), jnp.asarray(levels),
+        jnp.asarray(test[order]), valid=jnp.asarray(valid))
+    tps, _ = ttopk.level_argmax_sorted(T(ls), offsets, T(train[order]))
+    order_t = T(order).long()
+    got_s = tm_.metrics_from_preds(
+        order_t[tps.long()], T(ls), order_t, target, T(chain_p).long(),
+        torch.tensor(1), T(levels).long(), T(test[order]), valid=T(valid))
+    assert np.asarray(want_s.hits).tolist() == want_counts
+    assert got_s.hits.tolist() == want_counts
+    for g, w in zip(got_s, want_s):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+
+
 def _profiled(mod):
     return mod([3, 12, 30, 40, 20], seed=1, cross_edges=12)
 

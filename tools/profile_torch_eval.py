@@ -8,7 +8,10 @@ hierarchy padded to 18,432, batch 512), warms up, then traces with
 ``torch.profiler`` (1) one class-bank build and (2) ``--batches`` eval
 steps on a device-resident batch. For each it prints the wall time, the
 device busy time and share, and the device time by kernel family and by
-kernel; with ``--trace-dir`` it also writes the Chrome traces there.
+kernel; with ``--trace-dir`` it also writes the Chrome traces there. Last,
+it times the eval step's Hit@k count (the target's rank, ties in
+``lax.top_k``'s order) beside the ``torch.topk`` it replaced, on one batch's
+masked logits.
 """
 
 from __future__ import annotations
@@ -111,7 +114,33 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = timed_ms(fn)
         report(tag, prof, wall, untraced, args.trace_dir)
+    hit_at_k_cost(tm, bank_s, images, target, valid)
     return 0
+
+
+def hit_at_k_cost(tm, bank_s, images, target, valid, reps=50) -> None:
+    """Device ms of the Hit@k count of one eval step, against torch.topk."""
+    from hgr_tpu_torch.eval.bank import bank_logits
+    from hgr_tpu_torch.eval.metrics import NEG, TOPK, _rank_hits
+    from hgr_tpu_torch.models.clip import encode_image
+
+    tb = tm._sorted_tables
+    with torch.inference_mode():
+        logits = bank_logits(encode_image(tm.model, images, dtype=tm.dtype), bank_s)
+        masked = torch.where(tb["test_s"][None, :], logits, NEG)
+        col = torch.argmax((tb["order"] == target).to(torch.int8))
+        for name, fn in (("rank count", lambda: _rank_hits(masked, col, TOPK, valid)),
+                         ("torch.topk", lambda: torch.topk(masked, max(TOPK), dim=1))):
+            fn()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            print(f"[hit@k] {name} over logits {tuple(masked.shape)}: "
+                  f"{start.elapsed_time(end) / reps:.4f} ms a batch", flush=True)
 
 
 if __name__ == "__main__":
