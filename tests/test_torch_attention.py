@@ -35,22 +35,28 @@ def _qkv(T, seed, B=2, H=3, Dh=64):
     return [rng.standard_normal((B, H, T, Dh)).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("T", [1, 5, 20, 32, 50, 77, 197, 256])
-def test_attention_matches_jax(T, causal):
-    q, k, v = _qkv(T, seed=T)
-    jm = jnp.asarray(jax_causal_mask(T)) if causal else None
-    jq, jk, jv = map(jnp.asarray, (q, k, v))
-    want_pallas = np.asarray(pallas_attention(jq, jk, jv, jm, interpret=True))
-    want_xla = np.asarray(jax_attention_scores(jq, jk, jv, jm))
+# each case also runs one length at an edge of the kernel's contract: a
+# single row, four row tiles (ViT-B/32's 50), and the two-pass range (197, 256)
+EDGE_T = {5: 1, 20: 50, 32: 197, 77: 256}
 
-    tm = causal_mask(T) if causal else None
-    tq, tk, tv = map(torch.from_numpy, (q, k, v))
-    launches = k1.attention.launches
-    for got in (attention_scores(tq, tk, tv, tm), k1.attention(tq, tk, tv, tm)):
-        np.testing.assert_allclose(got.numpy(), want_pallas, atol=ATOL)
-        np.testing.assert_allclose(got.numpy(), want_xla, atol=ATOL)
-    assert k1.attention.launches == launches, "the CPU route launches no kernel"
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [5, 20, 32, 77])
+def test_attention_matches_jax(T, causal):
+    for t in (T, EDGE_T[T]):
+        q, k, v = _qkv(t, seed=t)
+        jm = jnp.asarray(jax_causal_mask(t)) if causal else None
+        jq, jk, jv = map(jnp.asarray, (q, k, v))
+        want_pallas = np.asarray(pallas_attention(jq, jk, jv, jm, interpret=True))
+        want_xla = np.asarray(jax_attention_scores(jq, jk, jv, jm))
+
+        tm = causal_mask(t) if causal else None
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        launches = k1.attention.launches
+        for got in (attention_scores(tq, tk, tv, tm), k1.attention(tq, tk, tv, tm)):
+            np.testing.assert_allclose(got.numpy(), want_pallas, atol=ATOL)
+            np.testing.assert_allclose(got.numpy(), want_xla, atol=ATOL)
+        assert k1.attention.launches == launches, "the CPU route launches no kernel"
 
 
 def test_causal_mask_matches_jax():

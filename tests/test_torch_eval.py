@@ -164,6 +164,7 @@ def test_metrics_match_jax(case):
     if case == "hits":
         assert float(got_s.hits[0]) == float(got_s.num) == 5.0
         assert float(got_s.point) == float(got_s.path) == 5.0
+        _check_hit_at_k_tie_order()
     assert tm_.summarize(got_s) == pytest.approx(jm.summarize(want_s), rel=1e-6)
 
 
@@ -199,9 +200,9 @@ def _tie_case(seed=5, N=18432, n_depths=4):
     return logits, depth, test, target, valid
 
 
-def test_hit_at_k_tie_order_matches_jax():
-    """Ties rank the lower column first, as lax.top_k does: on the flat
-    path by global id, on the sorted path by depth-sorted position."""
+def _check_hit_at_k_tie_order():
+    """Hit@k ranks ties with the lower column first, as lax.top_k does: on
+    the flat path by global id, on the sorted path by depth-sorted position."""
     logits, depth, test, target, valid = _tie_case()
     # the target sits one place behind its twin: a hit at k when rank + 1 <= k
     want_counts = [sum(r + 1 <= k for r, ok in zip(TIE_RANKS, valid) if ok)
