@@ -2,11 +2,13 @@
 
 The JAX package ``hgr_tpu`` stays the reference; this package imports
 nothing of it (nor JAX) and keeps its own copies of what it needs. It runs
-the zero-shot evaluation path: class bank from the CLIP text tower (whose
-attention is a hand-written CUDA kernel on the card, ``csrc/attention.cu``),
-the RN50 image tower, the depth-sorted per-level argmax and the
-hierarchical metrics. Entry points run on CUDA unless the caller passes
-``device="cpu"``.
+zero-shot evaluation (the class bank from the CLIP text tower, the RN50 or
+ViT image tower, the depth-sorted per-level argmax and the hierarchical
+metrics), serving (``serve.ZeroShotClassifier``) and OM fine-tuning
+(``train``, ``driver.run_train``). Without gradients, attention on the card
+is a hand-written CUDA kernel (``csrc/attention.cu``); the train step runs
+the plain attention under autograd, as the JAX step runs XLA's. Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 
 Top-level API::
 

@@ -1,5 +1,6 @@
-"""``python -m hgr_tpu_torch --synthetic True --arch RN50 --train False``:
-zero-shot evaluation on ``cuda:{--device}``."""
+"""``python -m hgr_tpu_torch --synthetic True --arch RN50 --n_episodes 4 --epochs 1``:
+OM fine-tuning on ``cuda:{--device}``; with ``--train False``, zero-shot
+evaluation."""
 
 from .driver import main
 

@@ -114,8 +114,10 @@ class Config:
     mesh_model: int = 1
     dtype: str = "bfloat16"        # activation/compute dtype
     param_dtype: str = "float32"   # master params
-    # kept for command-line compatibility: on the card the text tower always
-    # runs the fused attention kernel (ops/attention.py), whatever this says
+    # kept for command-line compatibility: on the card every attention run
+    # without gradients (the class bank, the ViT image tower) is the fused
+    # kernel (ops/attention.py) and the train step's is the plain one,
+    # whatever this says
     pallas_attention: bool = False
     remat: bool = True             # training only
     vocab_path: str = ""

@@ -1,6 +1,7 @@
 from .pipeline import (
     GroupBatch,
     GroupedTestLoader,
+    GroupedTrainLoader,
     Prefetcher,
     SyntheticImageSource,
 )
@@ -8,6 +9,7 @@ from .pipeline import (
 __all__ = [
     "GroupBatch",
     "GroupedTestLoader",
+    "GroupedTrainLoader",
     "Prefetcher",
     "SyntheticImageSource",
 ]

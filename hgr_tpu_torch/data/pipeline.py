@@ -1,13 +1,21 @@
-"""Grouped eval data pipeline: single-class batches (port of the eval part
-of ``hgr_tpu/data/pipeline.py``).
+"""Grouped data pipeline: single-class batches for OM training and eval
+(port of ``hgr_tpu/data/pipeline.py``).
 
-Behaviour of the reference's grouped test loader
-(``dataset/imagenet_group_test.py:40-163``): every batch of every class in
-order, ``num_batches`` the sum of per-class ceil-divisions, and the final
-per-class partial batch zero-padded with a validity mask so that device
-shapes stay fixed. Images are made on the host by a thread pool behind a
-bounded prefetch queue. Sources: ``SyntheticImageSource`` only; file
-decoding, the native decoder and the process pool are not yet ported.
+Behaviour of the reference's grouped loaders (``dataset/imagenet_group.py:
+37-184``, ``dataset/imagenet_group_test.py:40-163``):
+
+- train (``GroupedTrainLoader``): shuffled class order, one class per
+  batch, ``n_episodes = num_data // batch_size + 1`` by default, and
+  per-class infinite shuffled index streams; each epoch's streams are a
+  function of (seed, epoch) alone, so ``skip_next`` can re-enter a
+  preempted epoch exactly;
+- test (``GroupedTestLoader``): every batch of every class in order,
+  ``num_batches`` the sum of per-class ceil-divisions.
+
+A class's last partial batch is zero-padded with a validity mask so that
+device shapes stay fixed. Images are made on the host by a thread pool
+behind a bounded prefetch queue. Sources: ``SyntheticImageSource`` only;
+file decoding, the native decoder and the process pool are not yet ported.
 """
 
 from __future__ import annotations
@@ -88,6 +96,18 @@ class Prefetcher:
             except queue.Empty:
                 break
         self._thread.join(timeout=join_timeout)
+        # a consumer on another thread (the driver's step producer iterates
+        # the train loader) may wait in __iter__ for the end marker that the
+        # drain above took or that the stopped producer never queued: post it
+        while True:
+            try:
+                self._q.put_nowait(self._done)
+                break
+            except queue.Full:
+                try:
+                    self._q.get_nowait()
+                except queue.Empty:
+                    pass
 
     def __iter__(self):
         while True:
@@ -97,6 +117,19 @@ class Prefetcher:
                     raise RuntimeError("data pipeline producer thread failed") from self._error
                 return
             yield item
+
+
+def _batch(source, pool, cls: str, paths: List[str], idxs: List[int], batch_size: int,
+           target: int) -> GroupBatch:
+    """Rows ``paths[idxs]`` of class ``cls``, zero-padded to ``batch_size``."""
+    imgs = list(pool.map(lambda i: source.load(cls, paths, i), idxs))
+    h, w, c = imgs[0].shape
+    out = np.zeros((batch_size, h, w, c), imgs[0].dtype)
+    valid = np.zeros(batch_size, bool)
+    for j, im in enumerate(imgs):
+        out[j] = im
+        valid[j] = True
+    return GroupBatch(images=out, target=target, valid=valid, paths=[paths[i] for i in idxs])
 
 
 class GroupedTestLoader:
@@ -140,24 +173,108 @@ class GroupedTestLoader:
         def gen():
             B = self.batch_size
             for cls, paths in self.grouped.items():
-                n = len(paths)
-                for start in range(0, n, B):
-                    idxs = list(range(start, min(start + B, n)))
-                    imgs = list(self._pool.map(
-                        lambda i: self.source.load(cls, paths, i), idxs
-                    ))
-                    h, w, c = imgs[0].shape
-                    out = np.zeros((B, h, w, c), imgs[0].dtype)
-                    valid = np.zeros(B, bool)
-                    for j, im in enumerate(imgs):
-                        out[j] = im
-                        valid[j] = True
-                    yield GroupBatch(
-                        images=out,
-                        target=self.class_ids[cls],
-                        valid=valid,
-                        paths=[paths[i] for i in idxs],
-                    )
+                for start in range(0, len(paths), B):
+                    idxs = list(range(start, min(start + B, len(paths))))
+                    yield _batch(self.source, self._pool, cls, paths, idxs, B,
+                                 self.class_ids[cls])
 
         self._live = Prefetcher(gen, depth=self._prefetch)
+        return iter(self._live)
+
+
+class GroupedTrainLoader:
+    """Infinite-per-class episodic train loader (one class per batch)."""
+
+    def __init__(
+        self,
+        grouped: Dict[str, List[str]],
+        class_ids: Dict[str, int],
+        source: SyntheticImageSource,
+        batch_size: int,
+        n_episodes: int = -1,
+        seed: int = 0,
+        num_threads: int = 8,
+        serial_batches: bool = True,
+    ):
+        # serial_batches=False is the reference's non-serial mode
+        # (imagenet_group.py:142-143): every episode draws a fresh random
+        # batch from the class instead of walking a shuffled stream
+        self.serial_batches = serial_batches
+        self.grouped = {c: p for c, p in grouped.items() if len(p) > 0}
+        self.class_ids = class_ids
+        self.source = source
+        self.batch_size = batch_size
+        self.num_data = sum(len(p) for p in self.grouped.values())
+        self.n_episodes = n_episodes if n_episodes > 0 else self.num_data // batch_size + 1
+        self._seed = seed
+        self._epoch = 0
+        self._pending_skip = 0
+        self.rng = np.random.default_rng(seed)
+        self.classes = list(self.grouped.keys())
+        self._cursors: Dict[str, List[int]] = {}
+        self._pool = ThreadPoolExecutor(max_workers=num_threads)
+        self._live: Optional[Prefetcher] = None
+
+    def _next_indices(self, cls: str) -> List[int]:
+        """Next batch of indices from the class's infinite shuffled stream;
+        a class smaller than the batch gives all its images (the reference
+        inner DataLoader's drop_last=False)."""
+        n = len(self.grouped[cls])
+        take_n = min(self.batch_size, n)
+        if not self.serial_batches:
+            return [int(i) for i in self.rng.choice(n, take_n, replace=False)]
+        buf = self._cursors.get(cls, [])
+        if len(buf) < take_n:
+            buf.extend(int(i) for i in self.rng.permutation(n))
+        take = buf[:take_n]
+        self._cursors[cls] = buf[take_n:]
+        return take
+
+    def _episode_classes(self) -> Iterator[str]:
+        while True:
+            for g in self.rng.permutation(len(self.classes)):
+                yield self.classes[int(g)]
+
+    def close(self) -> None:
+        """Stop a live producer, then the decode threads."""
+        if self._live is not None:
+            self._live.stop()
+            self._live = None
+        self._pool.shutdown(wait=True)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the next ``__iter__``'s streams to ``epoch``: the class order
+        and the per-class index streams derive from ``(seed, epoch)`` alone,
+        so epoch e's batches are the same in any process. Without a call,
+        epochs advance 0, 1, 2, ... per ``__iter__``."""
+        self._epoch = int(epoch)
+
+    def skip_next(self, k: int) -> None:
+        """Advance the next ``__iter__`` by ``k`` episodes without making a
+        single image: the streams move exactly as if the batches had been
+        served (mid-epoch resume, the driver's ``--resume``)."""
+        self._pending_skip = max(0, int(k))
+
+    def __len__(self) -> int:
+        return self.n_episodes
+
+    def __iter__(self) -> Iterator[GroupBatch]:
+        if self._live is not None:  # a re-entered loop must not share the producer
+            self._live.stop()
+        self.rng = np.random.default_rng([self._seed, self._epoch])
+        self._cursors = {}
+        self._epoch += 1
+        class_iter = self._episode_classes()
+        skip, self._pending_skip = self._pending_skip, 0
+        for _ in range(skip):
+            self._next_indices(next(class_iter))
+        remaining = self.n_episodes - skip
+
+        def gen():
+            for _ in range(remaining):
+                cls = next(class_iter)
+                yield _batch(self.source, self._pool, cls, self.grouped[cls],
+                             self._next_indices(cls), self.batch_size, self.class_ids[cls])
+
+        self._live = Prefetcher(gen)
         return iter(self._live)

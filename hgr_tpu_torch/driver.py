@@ -1,24 +1,34 @@
-"""Top-level driver for zero-shot evaluation (port of
-``hgr_tpu/driver.py:36-254``).
+"""Top-level driver: OM fine-tuning and zero-shot evaluation (port of
+``hgr_tpu/driver.py:36-254``, ``:337-629``).
 
-Equivalent of the reference's ``test()`` (``main.py:104-222``) on one CUDA
-device: build the class bank with the text tower (through the fused
-attention kernel), sort it by depth, then run every single-class image batch
-through the RN50 tower and the depth-sorted metrics. Paths the port does not
-run yet (training, CoOp, checkpoint loading, multi-device meshes, real
-image files) raise instead of being ignored.
+Equivalents of the reference's ``train()`` (``main.py:72-101``), ``test()``
+(``main.py:104-222``) and ``main()`` (``main.py:225-267``) on one CUDA
+device, with synthetic hierarchies and images:
+
+- ``run_test`` builds the class bank with the text tower (through the fused
+  attention kernel), sorts it by depth, then runs every single-class image
+  batch through the image tower and the depth-sorted metrics;
+- ``run_train`` runs the OM (or hierarchical) train step over grouped
+  single-class batches, checkpoints every epoch, and resumes, mid-epoch
+  too, with ``--resume``.
+
+Paths the port does not run yet raise instead of being ignored: flat
+training, CoOp, checkpoint loading (``--load``, ``--fetch``), multi-device
+meshes, profiler traces, real image files, decode processes and caches,
+and k-shot subsampling (``require_ported``).
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from .config import Config
-from .data import GroupedTestLoader, SyntheticImageSource
+from .data import GroupedTestLoader, GroupedTrainLoader, Prefetcher, SyntheticImageSource
 from .eval.metrics import accumulate, summarize, zeros_metrics
 from .hierarchy import Hierarchy, synthetic_hierarchy
 from .tree_model import TreeModel
@@ -32,11 +42,10 @@ class NotYetPorted(NotImplementedError):
 def require_ported(config: Config) -> None:
     """Raise for every option that selects a path the port does not run."""
     refused = {
-        "--train True": config.train,
+        "--training_method flat": config.train and config.training_method == "flat",
         "--coop": config.coop,
         "--load": config.load,
         "--fetch": config.fetch,
-        "--resume": config.resume,
         "--mesh_data/--mesh_model": config.mesh_data not in (-1, 1) or config.mesh_model != 1,
         "a non-synthetic image source (--synthetic False)": not config.synthetic,
         "--num_proc_workers": config.num_proc_workers > 0,
@@ -143,11 +152,157 @@ def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[s
     return summary
 
 
-def main(argv=None) -> Dict[str, float]:
+def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
+    """OM fine-tuning (reference ``train()`` + driver, ``main.py:72-101,
+    225-258``); returns the final TrainState."""
+    from .train import (
+        NegativeSampler,
+        ScheduleBuilder,
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    require_ported(config)
+    grouped = grouped_split(config, splits[config.data_train])
+    loader = GroupedTrainLoader(
+        grouped,
+        {c: tm.hier.name_to_id[c] for c in grouped},
+        SyntheticImageSource(tm.clip_cfg.image_resolution),
+        config.batch_size,
+        n_episodes=config.n_episodes,
+        seed=config.seed,
+        num_threads=config.num_workers,
+        serial_batches=config.serial_batches,
+    )
+    steps_per_epoch = loader.n_episodes
+    tx = make_optimizer(config, config.epochs * steps_per_epoch)
+    state = init_train_state(tm.model, tm.layer_weight, tx)
+    resume_meta = None
+    if config.resume:
+        from .utils.checkpoint import latest_epoch, read_ckpt_meta, restore_checkpoint
+
+        # --resume without --from_epoch takes the newest clip_{N}, so a
+        # preempted worker re-runs its original command as it was
+        epoch = config.from_epoch if config.from_epoch >= 0 else latest_epoch(config.save_path)
+        if epoch is None:
+            logger.log_text("resume: no checkpoint found; starting fresh")
+        else:
+            ckpt = os.path.join(config.save_path, f"clip_{epoch}")
+            state = restore_checkpoint(ckpt, state)
+            config.from_epoch = epoch
+            resume_meta = read_ckpt_meta(config.save_path, epoch)
+            logger.log_text(f"resumed full state from {ckpt} (step {state.step})")
+    step_fn = make_train_step(config, tx, dtype=tm.dtype)
+
+    sampler = NegativeSampler(tm.hier, tm.train_index, config.num_compare, k=config.k,
+                              seed=config.seed, exclu_bro=config.exclu_bro)
+    builder = ScheduleBuilder(tm.hier, sampler, config.out_ratio, config.in_ratio,
+                              config.num_compare, method=config.training_method,
+                              strategy=config.sample_strategy)
+    node_tokens = torch.as_tensor(tm.node_tokens, device=tm.device).long()
+
+    # mid-epoch resume: when the sidecar says the saved epoch stopped part
+    # way (steps_done < steps_per_epoch) and the geometry matches, re-enter
+    # that epoch at the saved step instead of skipping its remaining data
+    resume_skip = 0
+    if (resume_meta is not None
+            and resume_meta.get("steps_per_epoch") == steps_per_epoch
+            and 0 < resume_meta.get("steps_done", steps_per_epoch) < steps_per_epoch):
+        resume_skip = int(resume_meta["steps_done"])
+        config.from_epoch -= 1
+        logger.log_text(
+            f"resume: re-entering epoch {config.from_epoch + 1} at step "
+            f"{resume_skip}/{steps_per_epoch} (mid-epoch preemption)"
+        )
+    pending_skip = {"steps": resume_skip}
+
+    def prefetch_steps():
+        """Batches and their pair schedules, made in a background thread so
+        that schedule building overlaps the device step."""
+        skip = pending_skip.pop("steps", 0)  # the first epoch only
+        if skip:
+            loader.skip_next(skip)
+        for batch in loader:
+            yield batch.images, builder.build(batch.target)
+
+    logger.log_config(config)
+    try:
+        return _epoch_loop(config, tm, splits, logger, state, step_fn, sampler,
+                           loader, node_tokens, prefetch_steps, steps_per_epoch, resume_skip)
+    finally:
+        loader.close()
+
+
+def _epoch_loop(config, tm, splits, logger, state, step_fn, sampler, loader, node_tokens,
+                prefetch_steps, steps_per_epoch, resume_skip=0):
+    from .train import sched_to_device
+    from .utils.checkpoint import AsyncCheckpointSaver
+    from .utils.preempt import GracefulShutdown
+
+    dev = tm.device
+    with AsyncCheckpointSaver(keep=config.keep_checkpoints) as saver, \
+            GracefulShutdown() as shutdown:
+        for epoch in range(config.from_epoch + 1, config.epochs):
+            epoch_t0 = time.time()
+            # the loader's streams follow the absolute epoch, so a restarted
+            # process re-enters a preempted epoch on the same batches
+            loader.set_epoch(epoch)
+            if config.sample_strategy in ("simi", "near_simi"):
+                # refresh the similarity-ranking bank once per epoch (the
+                # reference re-encodes per step inside no_grad)
+                bank = tm.update_classifier()
+                sampler.set_class_feats(bank[: tm.hier.num_nodes].float().cpu().numpy())
+            skip_base = resume_skip if epoch == config.from_epoch + 1 else 0
+            steps_done = skip_base
+            steps = Prefetcher(prefetch_steps, depth=2)
+            try:
+                for i, (images, sched_host) in enumerate(steps):
+                    state, loss = step_fn(state, torch.from_numpy(images).to(dev), node_tokens,
+                                          sched_to_device(sched_host, dev))
+                    if i % config.print_freq == 0:
+                        logger.log_train(epoch, skip_base + i, steps_per_epoch, float(loss))
+                    steps_done = skip_base + i + 1
+                    if shutdown.requested:
+                        # SIGTERM: stop at this step boundary; the checkpoint
+                        # below still runs, then the run exits for --resume
+                        break
+            finally:
+                steps.stop()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            epoch_dt = time.time() - epoch_t0
+            steps_run = steps_done - skip_base
+            logger.log_jsonl({
+                "event": "epoch_perf",
+                "epoch": epoch,
+                "steps": steps_run,
+                "step_ms": round(epoch_dt / max(steps_run, 1) * 1e3, 1),
+                "imgs_per_sec": round(steps_run * config.batch_size / max(epoch_dt, 1e-9), 1),
+            })
+            saver.save(config.save_path, epoch, state,
+                       meta={"steps_done": steps_done, "steps_per_epoch": steps_per_epoch})
+            logger.log_text(f"Model saved. epoch={epoch}")
+            if shutdown.requested:
+                logger.log_text(
+                    f"preempted (SIGTERM): saved epoch={epoch} after {steps_done}/"
+                    f"{steps_per_epoch} steps; --resume True re-enters this epoch at "
+                    "the saved step"
+                )
+                break
+            if config.test_after_train:
+                run_test(config, tm, splits, logger)
+    return state
+
+
+def main(argv=None) -> Any:
     config = Config.from_args(argv)
     hier, splits = build_hierarchy(config)
     print("Creating models", flush=True)
     tm = build_model(config, hier, splits)
     logger = RunLogger(config.save_path)
+    if config.train:
+        print("Training.", flush=True)
+        return run_train(config, tm, splits, logger)
     print("Direct testing.", flush=True)
     return run_test(config, tm, splits, logger)

@@ -1,5 +1,6 @@
 """CLIP encoders of the port: ``clip`` (container, init, encode functions),
-``resnet``, ``transformer``, ``text_encoder``, ``layers`` and ``convert``.
+``resnet``, ``vit``, ``transformer``, ``text_encoder``, ``layers`` and
+``convert``.
 
 Import the submodules directly; this package module imports nothing, so
 that ``ops.attention`` can take its plain twin from ``models.layers``

@@ -5,7 +5,9 @@
 one to one. ``clip_init`` draws every parameter from an explicit
 ``torch.Generator`` with the distributions of the JAX ``*_init`` functions
 (not their bits). ``encode_image`` takes NHWC images, raw uint8 or float,
-as the JAX function does.
+as the JAX function does. The image tower is the modified ResNet or, when
+``vision_patch_size > 0``, the ViT; only the ViT takes ``attn_fn`` and
+``remat``, as in JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .layers import Embedding, LayerNorm, _param, l2_normalize, normal_
 from .resnet import ModifiedResNet
 from .text_encoder import text_encoder_apply
 from .transformer import Transformer
+from .vit import VisionTransformer
 
 
 @dataclass(frozen=True)
@@ -31,7 +34,7 @@ class CLIPConfig:
     image_resolution: int = 224
     vision_layers: Tuple[int, ...] = (3, 4, 6, 3)
     vision_width: int = 64
-    vision_patch_size: int = 0  # 0 => ResNet, >0 => ViT (not yet ported)
+    vision_patch_size: int = 0  # 0 => ResNet, >0 => ViT
     # text
     context_length: int = 77
     vocab_size: int = 49408
@@ -50,15 +53,41 @@ class CLIPConfig:
         return self.vision_width * 32 // 64
 
 
-# The ResNet configurations this slice runs (hyperparameters of the public
-# OpenAI RN50 checkpoint) and the tiny one the tests use.
+# The configurations the port runs (hyperparameters of the public OpenAI
+# checkpoints, hgr_tpu/models/clip.py:55-115) and the tiny ones the tests use.
 CONFIGS: Dict[str, CLIPConfig] = {
     "RN50": CLIPConfig(),
+    "ViT-B/32": CLIPConfig(
+        embed_dim=512,
+        vision_layers=(12,),
+        vision_width=768,
+        vision_patch_size=32,
+        transformer_width=512,
+    ),
+    "ViT-B/16": CLIPConfig(
+        embed_dim=512,
+        vision_layers=(12,),
+        vision_width=768,
+        vision_patch_size=16,
+        transformer_width=512,
+    ),
     "TEST-RN": CLIPConfig(
         embed_dim=64,
         image_resolution=32,
         vision_layers=(1, 1, 1, 1),
         vision_width=16,
+        context_length=77,
+        vocab_size=512,
+        transformer_width=32,
+        transformer_heads=2,
+        transformer_layers=2,
+    ),
+    "TEST-ViT": CLIPConfig(
+        embed_dim=64,
+        image_resolution=32,
+        vision_layers=(2,),
+        vision_width=64,
+        vision_patch_size=8,
         context_length=77,
         vocab_size=512,
         transformer_width=32,
@@ -80,13 +109,17 @@ def get_config(name: str) -> CLIPConfig:
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
-        if cfg.is_vit:
-            raise NotImplementedError("the ViT image tower is not yet ported")
         self.cfg = cfg
-        self.visual = ModifiedResNet(
-            cfg.vision_layers, cfg.embed_dim, cfg.vision_heads,
-            cfg.image_resolution, cfg.vision_width,
-        )
+        if cfg.is_vit:
+            self.visual = VisionTransformer(
+                cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
+                cfg.vision_layers[0], cfg.vision_heads, cfg.embed_dim,
+            )
+        else:
+            self.visual = ModifiedResNet(
+                cfg.vision_layers, cfg.embed_dim, cfg.vision_heads,
+                cfg.image_resolution, cfg.vision_width,
+            )
         w = cfg.transformer_width
         self.transformer = Transformer(w, cfg.transformer_layers, cfg.transformer_heads)
         self.token_embedding = Embedding(cfg.vocab_size, w)
@@ -123,6 +156,8 @@ def encode_image(
     m: CLIP,
     images: torch.Tensor,  # [B, H, W, 3] pre-normalised float, or raw uint8
     dtype: torch.dtype = torch.bfloat16,
+    attn_fn=attention,
+    remat: bool = False,
 ) -> torch.Tensor:
     if images.dtype == torch.uint8:
         # raw uint8 edge: normalise on the device in fp32, then cast
@@ -130,6 +165,8 @@ def encode_image(
         scale = 1.0 / (torch.tensor(CLIP_STD, device=images.device) * 255.0)
         images = (images.float() - mean) * scale
     x = images.to(dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
+    if m.cfg.is_vit:
+        return m.visual(x, attn_fn, remat)
     return m.visual(x)
 
 
@@ -138,8 +175,9 @@ def encode_text(
     tokens: torch.Tensor,  # [B, T] integer ids
     dtype: torch.dtype = torch.bfloat16,
     attn_fn=attention,
+    remat: bool = False,
 ) -> torch.Tensor:
-    return text_encoder_apply(m, tokens, dtype=dtype, attn_fn=attn_fn)
+    return text_encoder_apply(m, tokens, dtype=dtype, attn_fn=attn_fn, remat=remat)
 
 
 def cosine_logits(

@@ -60,13 +60,16 @@ def _blocks(sd: StateDict, prefix: str, stacked: Mapping[str, Any], n: int) -> N
         _ln(sd, f"{name}.ln_2", {k: v[i] for k, v in b["ln_2"].items()})
 
 
-def from_jax_params(params: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
-    """JAX CLIP pytree (``{"visual", "text", "logit_scale"}``) -> OpenAI
-    ``state_dict`` for a ResNet CLIP."""
-    if cfg.is_vit:
-        raise NotImplementedError("the ViT image tower is not yet ported")
-    sd: StateDict = {}
-    vis = params["visual"]
+def _vit(sd: StateDict, vis: Mapping[str, Any], cfg: CLIPConfig) -> None:
+    _conv(sd, "visual.conv1", vis["conv1"])
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        sd[f"visual.{name}"] = _t(vis[name])
+    _ln(sd, "visual.ln_pre", vis["ln_pre"])
+    _blocks(sd, "visual.transformer", vis["transformer"], cfg.vision_layers[0])
+    _ln(sd, "visual.ln_post", vis["ln_post"])
+
+
+def _resnet(sd: StateDict, vis: Mapping[str, Any], cfg: CLIPConfig) -> None:
     for i in (1, 2, 3):
         _conv(sd, f"visual.conv{i}", vis[f"conv{i}"])
         _bn(sd, f"visual.bn{i}", vis[f"bn{i}"])
@@ -85,6 +88,12 @@ def from_jax_params(params: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
     for short, full in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("c", "c_proj")):
         _linear(sd, f"visual.attnpool.{full}", ap[short])
 
+
+def from_jax_params(params: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
+    """JAX CLIP pytree (``{"visual", "text", "logit_scale"}``) -> OpenAI
+    ``state_dict`` for a ResNet or ViT CLIP."""
+    sd: StateDict = {}
+    (_vit if cfg.is_vit else _resnet)(sd, params["visual"], cfg)
     txt = params["text"]
     sd["token_embedding.weight"] = _t(txt["token_embedding"])
     sd["positional_embedding"] = _t(txt["positional_embedding"])

@@ -23,11 +23,12 @@ def text_encoder_apply(
     tokens: torch.Tensor,   # [B, T] integer ids
     dtype: torch.dtype = torch.bfloat16,
     attn_fn=attention,
+    remat: bool = False,
 ) -> torch.Tensor:
     T = tokens.shape[1]
     x = m.token_embedding(tokens).to(dtype)
     x = x + m.positional_embedding[:T].to(dtype)
-    x = m.transformer(x, causal_mask(T, device=x.device), attn_fn)
+    x = m.transformer(x, causal_mask(T, device=x.device), attn_fn, remat)
     x = m.ln_final(x)
     eot = tokens.argmax(dim=-1)  # first maximal index, as jnp.argmax
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -1,4 +1,5 @@
-"""Pre-LN residual transformer stack (port of ``hgr_tpu/models/transformer.py``).
+"""Pre-LN residual transformer stack shared by the text tower and the ViT
+(port of ``hgr_tpu/models/transformer.py``).
 
 Behaviour of the reference's ``Transformer`` / ``ResidualAttentionBlock``
 (``clip/model.py:153-199``): QuickGELU MLP, packed-QKV attention, optional
@@ -14,6 +15,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import LayerNorm, Linear, _param, mha, normal_, quick_gelu
 
@@ -78,7 +80,15 @@ class Transformer(nn.Module):
         for blk in self.resblocks:
             blk.init(g, len(self.resblocks))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], attn_fn) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor], attn_fn, remat: bool = False
+    ) -> torch.Tensor:
+        """``remat=True`` checkpoints each block, so the backward pass
+        recomputes its activations (``jax.checkpoint`` of the block body,
+        ``hgr_tpu/models/transformer.py:104-107``)."""
         for blk in self.resblocks:
-            x = blk(x, mask, attn_fn)
+            if remat:
+                x = checkpoint(blk, x, mask, attn_fn, use_reentrant=False)
+            else:
+                x = blk(x, mask, attn_fn)
         return x

@@ -6,6 +6,12 @@ launches the hand-written Hopper kernel in ``csrc/attention.cu`` (see the
 note there for what it computes and what bounds it) or raises. There is no
 fallback from CUDA to the plain version. The kernel library is compiled at
 the first CUDA call (``ops/build.py``), never at import.
+
+The kernel writes its output through raw pointers, so that output has no
+``grad_fn``: the kernel has no backward, as the Pallas kernel has none. A
+CUDA call that autograd would record raises instead of silently cutting the
+attention branch out of the gradient; the train step calls the plain
+``attention_scores``, as the JAX step calls XLA's attention.
 """
 
 from __future__ import annotations
@@ -75,6 +81,16 @@ def _check(q, k, v, mask) -> None:
             raise ValueError("mask must be contiguous")
 
 
+def refuse_autograd(q, k, v) -> None:
+    """Raise when autograd would record the call: the kernel has no
+    backward, and its output would carry no gradient to q, k and v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "the attention kernel has no backward: with gradients on, call "
+            "models.layers.attention_scores (the train step does)"
+        )
+
+
 def attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -82,6 +98,7 @@ def attention_cuda(
     ``[B, T, H, Dh]`` buffer, so merging the heads back costs no copy)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
+    refuse_autograd(q, k, v)
     _check(q, k, v, mask)
     lib = _library()
     B, H, T, Dh = q.shape

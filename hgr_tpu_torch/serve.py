@@ -1,0 +1,111 @@
+"""Serving API: batched zero-shot classification against the class bank
+(port of ``hgr_tpu/serve.py:29-106``).
+
+Build the class bank once, then classify image batches: flat top-k labels
+with cosine scores, and the hierarchical root-path prediction through the
+same depth-sorted one-pass argmax the evaluator uses.
+
+    clf = ZeroShotClassifier(tm)           # tm: a built TreeModel with weights
+    clf.refresh_bank()                     # re-encode prompts (e.g. after training)
+    ids, scores = clf.classify(images, k=5)
+    paths = clf.predict_paths(images)      # [B, n_levels] global node ids
+
+On the card the bank build, and a ViT image tower, run the fused attention
+kernel. ``classify_files`` and the CLI ``main`` decode image files, which
+the port cannot do yet (``FileImageSource``), so they raise.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .driver import NotYetPorted
+from .eval.bank import bank_logits
+from .eval.metrics import NEG
+from .models.clip import encode_image
+from .ops.bank_topk import level_argmax_sorted
+
+
+def topk_lower_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, columns) of the k largest entries of each row, in
+    ``lax.top_k``'s order: descending, the lower column first on ties, the
+    order ``eval/metrics.py:_rank_hits`` counts. ``torch.topk`` promises no
+    order among equal values; a stable descending sort keeps it."""
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+class ZeroShotClassifier:
+    """Batched zero-shot inference over a TreeModel's class bank.
+
+    ``candidates``: "test" restricts predictions to unseen classes (the
+    reference's zero-shot protocol), "train" to candidate classes, "all" to
+    every real node.
+    """
+
+    def __init__(self, tm, candidates: str = "all"):
+        self.tm = tm
+        n = tm.hier.num_nodes
+        real = np.zeros(tm.n_pad, bool)
+        real[:n] = True
+        mask = {
+            "all": real,
+            "test": tm.test_mask & real,
+            "train": tm.train_mask & real,
+        }[candidates]
+        dev = tm.device
+        self._mask_sorted = torch.as_tensor(mask[tm.depth_order], device=dev)
+        self._order = torch.as_tensor(tm.depth_order, device=dev).long()
+        self._train_sorted = torch.as_tensor(tm.train_mask[tm.depth_order], device=dev)
+        self.bank_sorted: Optional[torch.Tensor] = None
+
+    def refresh_bank(self) -> None:
+        """(Re-)encode all node prompts into the depth-sorted bank."""
+        self.bank_sorted = self.tm.sort_bank(self.tm.update_classifier())
+
+    def _logits(self, images) -> torch.Tensor:
+        if self.bank_sorted is None:
+            self.refresh_bank()
+        images = torch.as_tensor(images, device=self.tm.device)
+        feats = encode_image(self.tm.model, images, dtype=self.tm.dtype)
+        return bank_logits(feats, self.bank_sorted)
+
+    @torch.inference_mode()
+    def classify(self, images, k: int = 5) -> Tuple[np.ndarray, np.ndarray]:
+        """[B, H, W, 3] images -> (node ids [B, k] int32, cosine scores
+        [B, k] float32)."""
+        masked = torch.where(self._mask_sorted[None, :], self._logits(images), NEG)
+        vals, idx = topk_lower_first(masked, k)
+        ids = self._order[idx].to(torch.int32)
+        return ids.cpu().numpy(), vals.cpu().numpy()
+
+    @torch.inference_mode()
+    def predict_paths(self, images) -> np.ndarray:
+        """Per-level constrained argmax -> [B, n_levels] global node ids (the
+        hierarchical prediction the POR/path metrics score). Serving shows
+        the best in-level node per level; the metrics' -1 fill rule only
+        turns matches into misses and never gives a better node."""
+        preds_s, _ = level_argmax_sorted(self._logits(images), self.tm.level_offsets,
+                                         self._train_sorted)
+        paths = self._order[preds_s.long()][:-1].T  # drop the TOR slot
+        return paths.to(torch.int32).cpu().numpy()
+
+    def classify_files(self, paths: Sequence[str], k: int = 5, batch: int = 64,
+                       image_root: str = "", num_threads: int = 8,
+                       num_procs: int = 0) -> List[List[Tuple[str, float]]]:
+        raise NotYetPorted("not yet ported to hgr_tpu_torch: classify_files needs "
+                           "FileImageSource (image decoding)")
+
+
+def main(argv=None) -> None:
+    """``python -m hgr_tpu_torch.serve IMG ...`` would classify image files
+    (``hgr_tpu/serve.py:161``); the port cannot decode them yet."""
+    raise NotYetPorted("not yet ported to hgr_tpu_torch: the serving CLI needs "
+                       "FileImageSource (image decoding)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,21 @@
-"""TreeModel: the hierarchy-aware CLIP bundle for zero-shot evaluation
-(port of ``hgr_tpu/tree_model.py``).
+"""TreeModel: the hierarchy-aware CLIP bundle (port of
+``hgr_tpu/tree_model.py``).
 
 Counterpart of the reference's ``tree_model`` (``model/clip_tree.py:
 19-333``): the CLIP config and model, the hierarchy tables (built in numpy
 exactly as ``TreeModel.build`` builds them, copied to the device once), and
 the tokenised per-node prompts. It exposes the class bank
 (``update_classifier``), its depth-sorted permutation (``sort_bank``) and
-the depth-sorted eval step (``eval_step_sorted``).
+the depth-sorted eval step (``eval_step_sorted``). Both run without
+gradients on the current weights, so on the card the bank and the ViT run
+the fused attention kernel, during training too.
+
+``model`` and ``layer_weight`` (the adaptive per-depth loss weight, fp32,
+initialised ``1/|layer d| * scale``) are the train state's own tensors:
+``train.init_train_state`` takes them by reference and the train step
+updates them in place. In the reference ``layer_weight`` never trains
+(``model/clip_tree.py:74`` builds a non-leaf tensor); the JAX package, and
+so the port, train it.
 
 Prompts here are the synthetic ones (``synthetic_tokens``); the BPE
 tokenizer is not yet ported.
@@ -66,7 +75,7 @@ class TreeModel:
     test_index: np.ndarray       # ids of unseen classes (reference 'rest')
     train_mask: np.ndarray       # [N_pad] bool
     test_mask: np.ndarray        # [N_pad] bool
-    layer_weight: torch.Tensor   # [n_levels] adaptive per-depth weight
+    layer_weight: torch.Tensor   # [n_levels] fp32 adaptive per-depth weight (trainable)
     depth_order: np.ndarray      # [N_pad] sorted-pos -> global node id
     level_offsets: Tuple[int, ...]  # start offset of each depth (+ end)
     model: Optional[CLIP] = None

@@ -120,6 +120,24 @@ def test_cuda_route_refuses_other_devices():
                           torch.zeros(1, 1, 4, 64))
 
 
+def test_kernel_refuses_autograd():
+    """The kernel has no backward, so a call autograd would record raises
+    (before any launch) and names the plain attention; without gradients,
+    or with inputs that need none, it goes on. ``attention_cuda`` runs this
+    check first; ``chip_smoke.py`` makes the CUDA call itself."""
+    q = torch.zeros(1, 1, 4, 64, requires_grad=True)
+    k = torch.zeros(1, 1, 4, 64)
+    with pytest.raises(RuntimeError, match="attention_scores"):
+        k1.refuse_autograd(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k1.refuse_autograd(k, k, q)
+    k1.refuse_autograd(k, k, k)
+    with torch.no_grad():
+        k1.refuse_autograd(q, q, q)
+    with torch.inference_mode():
+        k1.refuse_autograd(q, q, q)
+
+
 def test_import_needs_no_nvcc_or_gpu(tmp_path):
     """Importing the kernel's module builds nothing and needs no nvcc or
     card; the library path is keyed by the source hash, under build/."""

@@ -2,7 +2,8 @@
 
 ``from_jax_params`` followed by the JAX package's own
 ``convert_state_dict`` must give back the JAX params exactly: that proves
-the port's OpenAI CLIP key names and layouts. The port's ``clip_init``
+the port's OpenAI CLIP key names and layouts, for the ResNet and the ViT
+towers. The port's ``clip_init``
 draws from the JAX init's distributions (not its bits).
 """
 
@@ -21,17 +22,25 @@ from hgr_tpu.models.convert import convert_state_dict  # noqa: E402
 from hgr_tpu_torch.models import clip as tclip  # noqa: E402
 from hgr_tpu_torch.models.convert import from_jax_params  # noqa: E402
 
-# RN50's depths (every bottleneck and downsample) at narrow widths
+# RN50's depths (every bottleneck and downsample) and ViT-B/32's (12 vision
+# blocks, patch 32 at 224 px) at narrow widths
+NARROW_TEXT = dict(embed_dim=64, transformer_width=32, transformer_heads=2, vocab_size=512)
 ARCHS = {
-    "TEST-RN": {},
-    "RN50-depths": dict(embed_dim=64, vision_width=16, transformer_width=32,
-                        transformer_heads=2, vocab_size=512),
+    "TEST-RN": ("TEST-RN", {}),
+    "RN50-depths": ("RN50", dict(vision_width=16, **NARROW_TEXT)),
+    "ViT-B/32-depths": ("ViT-B/32", dict(vision_width=128, **NARROW_TEXT)),
+}
+KEYS = {  # OpenAI names that must be in a converted state_dict, per tower
+    False: ("visual.attnpool.q_proj.weight", "visual.layer1.0.downsample.0.weight",
+            "visual.layer2.0.downsample.1.running_var"),
+    True: ("visual.conv1.weight", "visual.class_embedding", "visual.positional_embedding",
+           "visual.ln_pre.weight", "visual.transformer.resblocks.11.attn.in_proj_weight",
+           "visual.ln_post.bias", "visual.proj"),
 }
 
 
 def _cfgs(name):
-    base = "TEST-RN" if name == "TEST-RN" else "RN50"
-    over = ARCHS[name]
+    base, over = ARCHS[name]
     return (dataclasses.replace(jclip.get_config(base), **over),
             dataclasses.replace(tclip.get_config(base), **over))
 
@@ -57,10 +66,7 @@ def test_state_dict_keys_and_shapes_match_module(name):
         assert sd[key].shape == t.shape, key
     for key in ("transformer.resblocks.0.attn.in_proj_weight",
                 "transformer.resblocks.1.attn.out_proj.bias",
-                "visual.attnpool.q_proj.weight",
-                "visual.layer1.0.downsample.0.weight",
-                "visual.layer2.0.downsample.1.running_var",
-                "token_embedding.weight", "text_projection", "logit_scale"):
+                "token_embedding.weight", "text_projection", "logit_scale") + KEYS[jcfg.is_vit]:
         assert key in sd, key
     tcm = tclip.CLIP(tcfg)
     tcm.load_state_dict(sd, strict=True)

@@ -329,7 +329,7 @@ def test_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("flags", [
-    [],                                   # --train defaults to True
+    ["--training_method", "flat"],        # --train defaults to True
     ["--train", "False", "--coop", "True"],
     ["--train", "False", "--load", "True"],
     ["--train", "False", "--fetch", "True"],

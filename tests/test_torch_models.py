@@ -133,3 +133,49 @@ def test_bf16_text_tower_close_to_fp32(test_rn):
     assert bf16.dtype == torch.bfloat16
     cos = torch.nn.functional.cosine_similarity(f32, bf16.float(), dim=-1)
     assert float(cos.min()) > 0.99
+
+
+# ViT-B/32's depths and geometry (12 layers, patch 32 at 224 px, so T = 50)
+# at narrow widths; and the tiny TEST-ViT the learning proof trains
+VIT = {
+    "TEST-ViT": ("TEST-ViT", {}),
+    "ViT-B/32-depths": ("ViT-B/32", dict(embed_dim=64, vision_width=128, transformer_width=32,
+                                         transformer_heads=2, vocab_size=512)),
+}
+
+
+@pytest.mark.parametrize("name", list(VIT))
+def test_vit_image_tower_matches_jax(name):
+    """ViT features in fp32 against JAX, rtol 1e-4 + atol 1e-5, from raw
+    uint8 and float images."""
+    arch, over = VIT[name]
+    params, cfg, m = _pair(arch, **over)
+    for uint8 in (False, True):
+        x = _images(cfg, uint8)
+        want = np.asarray(jclip.encode_image(params, cfg, x, dtype=jnp.float32))
+        with torch.inference_mode():
+            got = tclip.encode_image(m, torch.from_numpy(x), dtype=torch.float32).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_remat_gradients_match():
+    """Checkpointed blocks (``remat=True``) give the gradients of the plain
+    forward, in both transformer towers."""
+    _, cfg, m = _pair("TEST-ViT")
+    x = torch.from_numpy(_images(cfg, False))
+    toks = torch.from_numpy(_tokens(cfg, [4, 9], 16)).long()
+    grads = []
+    for remat in (False, True):
+        for p in m.parameters():
+            p.requires_grad_(True)
+            p.grad = None
+        loss = (tclip.encode_image(m, x, dtype=torch.float32, remat=remat).square().sum()
+                + tclip.encode_text(m, toks, dtype=torch.float32, remat=remat).square().sum())
+        loss.backward()
+        grads.append({n: p.grad.clone() for n, p in m.named_parameters() if p.grad is not None})
+    for p in m.parameters():
+        p.requires_grad_(False)
+    assert set(grads[0]) == set(grads[1]) and "logit_scale" not in grads[0]
+    assert grads[0]["visual.transformer.resblocks.1.mlp.c_fc.weight"].abs().sum() > 0
+    for n, g in grads[0].items():
+        torch.testing.assert_close(grads[1][n], g, rtol=1e-6, atol=1e-7, msg=n)
