@@ -14,27 +14,41 @@ Phases, each of which fails the run (non-zero exit) on any error:
    with the stated tolerances; times of kernel, plain version and the
    library yardstick (``scaled_dot_product_attention``, never called by the
    port), and each case's bound;
-4. zero-shot eval at full width: RN50, the 18,278-class bank padded to
+4. the ancestor chains of the smoke's hierarchy, held to the JAX package's
+   with networkx by their digest (``EXPECTED_CHAINS_SHA256``);
+5. zero-shot eval at full width: RN50, the 18,278-class bank padded to
    18,432, ``run_test`` over 8 batches of 512 synthetic images; K1's launch
    count over that run must be 12 layers x 36 chunks = 432;
-5. the class bank rebuilt with the plain attention, held to the kernel's;
-6. the card against the port's CPU path (the one the CPU tests hold to the
+6. the class bank rebuilt with the plain attention, held to the kernel's;
+7. the card against the port's CPU path (the one the CPU tests hold to the
    JAX package) on a small input, in float32;
-7. ViT-B/32 eval at full width against the same bank: ``run_test`` over 2
+8. ViT-B/32 eval at full width against the same bank: ``run_test`` over 2
    batches of 512, where K1 also runs the image tower (T = 50, no mask, 12
    layers), so 432 + 12 x 2 = 456 launches; one batch's features through K1
    held to the plain attention's;
-8. OM training at full width: ``driver.run_train`` on RN50 in bf16 with
-   remat, batch 256, 256 negatives, 4 episodes, then ``run_test`` over 2
-   batches; every loss finite, the CLIP weights and ``layer_weight`` moved,
-   no K1 launch inside a train step (autograd runs the plain attention)
-   and 432 in the test after it, and ``clip_0`` restores into a fresh
-   train state; prints the steps' median time, images/s, the prompts
-   encoded per step and peak memory;
-9. one OM train step in float32 on the card against the port's CPU path
-   (small TEST-ViT config, the same weights and schedule): the loss and the
-   updated weights agree within the CPU tests' tolerances;
-10. K1's guard: a CUDA call that autograd would record raises.
+9. real inputs at RN50 width: the hierarchy as ``graph_edges_cls.json``,
+   the splits, 18,278 word-like names, a BPE merges table learned from the
+   prompts, an OpenAI-layout ``.pt`` and a decode cache of 2,048 seeded
+   rows at 224 px, all written to a temporary directory; then
+   ``build_hierarchy``, ``build_model``, ``load_torch`` and ``run_test``
+   from the cache (the bank cut to T = 32, 432 K1 launches, 2,048 images),
+   and the CLI's ``--load`` run in a subprocess, whose metrics must equal
+   the in-process run's;
+10. files and serving, where the machine can decode (it says which
+    decoder, or why it skips): the corrupt fixture's fallback,
+    ``classify_files`` over the fixtures tiled to 64 paths (432 K1
+    launches), and ``python -m hgr_tpu_torch.serve`` on three of them;
+11. OM training at full width: ``driver.run_train`` on RN50 in bf16 with
+    remat, batch 256, 256 negatives, 4 episodes, then ``run_test`` over 2
+    batches; every loss finite, the CLIP weights and ``layer_weight`` moved,
+    no K1 launch inside a train step (autograd runs the plain attention)
+    and 432 in the test after it, and ``clip_0`` restores into a fresh
+    train state; prints the steps' median time, images/s, the prompts
+    encoded per step and peak memory;
+12. one OM train step in float32 on the card against the port's CPU path
+    (small TEST-ViT config, the same weights and schedule): the loss and the
+    updated weights agree within the CPU tests' tolerances;
+13. K1's guard: a CUDA call that autograd would record raises.
 
 The second-to-last lines are the kernel table (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -77,6 +91,13 @@ KERNEL_CASES = [
     ((8, 8, 1, 64), (True, False)),
 ]
 MAIN_SHAPE = (512, 8, 32, 64)                 # the bank build's: 512 prompts, T = 32
+# sha256 of ``ancestors.tobytes()`` of profiled_hierarchy(LEVEL_SIZES, seed=0,
+# cross_edges=40): the JAX package's chains with networkx, which the port's
+# own search must reproduce on any machine (tests/test_torch_text.py)
+EXPECTED_CHAINS_SHA256 = "2a5a9b8e9cab7e26f191b66e70adcc0c5d94697024b01f6a5c2eb824444771a4"
+SYLLABLES = ("ka", "lo", "mi", "ren", "sto", "vel", "dar", "qui", "ton", "bra", "el", "fin",
+             "gor", "hal", "is", "jun", "ker", "lum", "mor", "nes", "ox", "pra", "rul", "sen",
+             "tri", "ul", "vor", "wen", "yal", "zet", "an", "cor")
 # kernel vs plain, elementwise |k - p| <= atol + rtol |p|: fp32 differs only
 # in summation order; in bf16 the two may round an output (or a
 # probability) to neighbouring bf16 values, about 2^-8 relative
@@ -85,6 +106,80 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 
 def log(*a):
     print(*a, flush=True)
+
+
+def word_names(wnids, seed=0):
+    """{wnid: name}: WordNet-like names of one to three words, each word two
+    to four syllables, drawn from ``seed`` (distinct per wnid)."""
+    rng = np.random.default_rng(seed)
+    out, used = {}, set()
+    for w in wnids:
+        while True:
+            name = " ".join("".join(rng.choice(SYLLABLES, rng.integers(2, 5)))
+                            for _ in range(rng.integers(1, 4)))
+            if name not in used:
+                used.add(name)
+                out[w] = name
+                break
+    return out
+
+
+def learn_merges(texts, n_merges, sample=2000, seed=0):
+    """A BPE merge table learned from ``texts`` (a seeded sample of at most
+    ``sample`` of them) by the plain pair-count loop: split into words as
+    the tokenizer splits, then ``n_merges`` times merge the most frequent
+    adjacent pair (ties to the larger pair)."""
+    from collections import Counter
+
+    from hgr_tpu_torch.text.bpe import _clean, _patterns, bytes_to_unicode
+
+    be = bytes_to_unicode()
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(texts), min(sample, len(texts)), replace=False)
+    words = Counter()
+    for i in sorted(pick):
+        for tok in _patterns()[0].findall(_clean(texts[i])):
+            chars = [be[b] for b in tok.encode("utf-8")]
+            words[tuple(chars[:-1]) + (chars[-1] + "</w>",)] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, c in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] += c
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        merged = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    return merges
+
+
+def write_merges(path, merges):
+    """A merges file as ``load_merges`` reads it: a header line, then one
+    pair a line, gzipped."""
+    import gzip
+
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: learned by chip_smoke.learn_merges\n")
+        f.write("\n".join(f"{a} {b}" for a, b in merges) + "\n")
+
+
+def chains_digest(hier) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(hier.ancestors).tobytes()).hexdigest()
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -553,6 +648,269 @@ def phase_train_reference(dev):
     assert rel <= 1e-5 and worst <= 0 and lw_err <= 3e-5 + 5e-3 * float(wc.abs().max())
 
 
+class SeededRows:
+    """An image source of seeded uint8 rows, keyed by (class, index): what
+    the decode cache is built from where no image files exist."""
+
+    def __init__(self, resolution):
+        self.resolution = resolution
+
+    def load(self, class_name, paths, idx):
+        import zlib
+
+        rng = np.random.default_rng([zlib.crc32(class_name.encode()), idx])
+        return rng.integers(0, 256, (self.resolution, self.resolution, 3), dtype=np.uint8)
+
+
+def phase_chains():
+    """The port's ancestor chains of the smoke's hierarchy are the JAX
+    package's with networkx (``EXPECTED_CHAINS_SHA256``)."""
+    from hgr_tpu_torch.hierarchy import profiled_hierarchy
+
+    digest = chains_digest(profiled_hierarchy(LEVEL_SIZES, seed=0, cross_edges=40))
+    log(f"[chains] sha256 of the ancestor chains {digest}: "
+        f"{'equals' if digest == EXPECTED_CHAINS_SHA256 else 'DIFFERS FROM'} the JAX package's "
+        f"(with networkx) {EXPECTED_CHAINS_SHA256}")
+    assert digest == EXPECTED_CHAINS_SHA256, "the port's ancestor chains differ from JAX's"
+
+
+def _final_eval(save_path):
+    recs = [json.loads(line) for line in open(f"{save_path}/metrics.jsonl")]
+    return [r for r in recs if r["event"] == "eval" and r["tag"] == "final"][-1]
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class=512,
+                      batch=512, n_merges=400, bank_launches=432, synthetic_ips=None):
+    """The eval path on the files a user holds, at full width: writes the
+    hierarchy's ``graph_edges_cls.json``, the splits and a hops split of 4
+    unseen test classes, a names JSON, a BPE merges table learned from the
+    prompts, an OpenAI-layout ``.pt`` with seeded weights and a decode cache
+    of 4 x ``per_class`` seeded rows; then ``build_hierarchy``,
+    ``build_model``, ``load_torch`` and ``run_test`` from the cache, and the
+    CLI's ``--load`` run on the same weights saved as ``clip_0``. Returns
+    what the serving phase needs and K1's launches in ``run_test``."""
+    import os
+    import time as _time
+
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.data import GroupedTestLoader
+    from hgr_tpu_torch.data.decode_cache import CachedImageSource, build_cache
+    from hgr_tpu_torch.hierarchy import Hierarchy, profiled_edges
+    from hgr_tpu_torch.models.clip import clip_init, get_config
+    from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.text import Tokenizer
+    from hgr_tpu_torch.train import init_train_state, make_optimizer
+    from hgr_tpu_torch.tree_model import node_prompts
+    from hgr_tpu_torch.utils.checkpoint import save_checkpoint
+    from hgr_tpu_torch.utils.logging import RunLogger
+
+    t_start = _time.time()
+    path = {k: os.path.join(work, v) for k, v in dict(
+        graph="graph_edges_cls.json", splits="splits_for_tree.json", hops="splits_for_hops.json",
+        names="names.json", vocab="bpe_learned.txt.gz", pt="openai_layout.pt",
+        manifest="zsl_test_split.json", cache="decode_cache", runs="runs").items()}
+    edges = profiled_edges(level_sizes, seed=0, cross_edges=40)
+    with open(path["graph"], "w") as f:
+        json.dump(edges, f)
+    hier = Hierarchy.from_edges(edges)
+    splits = driver.synthetic_splits(hier, 0)
+    rest = splits["rest"]
+    test4 = [rest[i * len(rest) // 4] for i in range(4)]
+    for key, obj in (("splits", splits), ("hops", {"smoke_test": test4})):
+        with open(path[key], "w") as f:
+            json.dump(obj, f)
+    names = word_names(hier.names, seed=0)
+    with open(path["names"], "w") as f:
+        json.dump(names, f)
+    write_merges(path["vocab"],
+                 learn_merges(node_prompts(hier, Config().template, names), n_merges))
+    clip_cfg = get_config(arch)
+    sd = clip_init(clip_cfg, torch.Generator().manual_seed(1)).state_dict()
+    sd = {k: v.half() for k, v in sd.items()}  # OpenAI ships fp16 tensors
+    for k in [k for k in sd if k.endswith("running_mean")]:
+        sd[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    torch.save(sd, path["pt"])
+    grouped = {c: [f"{c}/{j:04d}.JPEG" for j in range(per_class)] for c in test4}
+    with open(path["manifest"], "w") as f:
+        json.dump(grouped, f)
+    res = clip_cfg.image_resolution
+    t0 = _time.time()
+    build_cache(grouped, os.path.join(path["cache"], "zsl_test"), res, source=SeededRows(res))
+    cache_s = _time.time() - t0
+    nbytes = os.path.getsize(os.path.join(path["cache"], "zsl_test", "images.u8"))
+    log(f"[real] inputs written in {_time.time() - t_start:.1f} s: {len(edges)} edges, "
+        f"{n_merges} merges, decode cache of {4 * per_class} rows at {res} px "
+        f"({nbytes / 1e6:.1f} MB, built in {cache_s:.1f} s)")
+
+    args = ["--arch", arch, "--synthetic", "False", "--train", "False",
+            "--graph_path", path["graph"], "--split_path", path["splits"],
+            "--hops_path", path["hops"], "--data_test", "smoke_test",
+            "--vocab_path", path["vocab"], "--names_path", path["names"],
+            "--decode_cache", path["cache"], "--test_batch_size", str(batch),
+            "--folder", path["runs"], "--print_freq", "1000"]
+    cfg = Config.from_args(args)
+    hier, splits = driver.build_hierarchy(cfg)
+    assert chains_digest(hier) == EXPECTED_CHAINS_SHA256 or level_sizes != LEVEL_SIZES
+    # a spy on the path, not on what it computes: the time and the lengths
+    # of build_model's one tokenize call over the node prompts
+    seen = {}
+    real_tokenize = Tokenizer.tokenize
+
+    def tokenize_spy(self, texts, *a, **kw):
+        t0 = _time.time()
+        out = real_tokenize(self, texts, *a, **kw)
+        seen.update(ms=(_time.time() - t0) * 1e3, n=len(texts), lens=(out != 0).sum(1))
+        return out
+
+    Tokenizer.tokenize = tokenize_spy
+    try:
+        tm = driver.build_model(cfg, hier, splits, device=dev)
+    finally:
+        Tokenizer.tokenize = real_tokenize
+    lens = seen["lens"]
+    t_cut = tm.node_tokens.shape[1]
+    want_cut = max(16, -(-int(lens.max()) // 16) * 16)
+    log(f"[real] tokenize {seen['n']} prompts {seen['ms']:.1f} ms (host, in build_model); BPE "
+        f"tokens a prompt {int(lens.min())}-{int(lens.max())} (mean {lens.mean():.1f}); bank cut "
+        f"to T = {t_cut}")
+    assert t_cut == want_cut and int(lens.min()) >= 8, (t_cut, want_cut, int(lens.min()))
+    t0 = _time.time()
+    tm.load_torch(path["pt"])
+    log(f"[real] load_torch({os.path.basename(path['pt'])}) in {_time.time() - t0:.1f} s: "
+        f"{tm.clip_cfg}")
+    _sync(dev)
+    t0 = _time.time()
+    bank = tm.update_classifier()
+    _sync(dev)
+    bank_ms = (_time.time() - t0) * 1e3
+    assert bool(torch.isfinite(bank).all())
+    del bank
+    n_prompts = seen["n"]
+
+    # the main path: counts reset just before, read just after
+    attention.launches = 0
+    summary = driver.run_test(cfg, tm, splits, RunLogger(cfg.save_path, echo=False))
+    launches = attention.launches
+    log(f"[real] run_test from the decode cache: {json.dumps(summary)}")
+    log(f"[real] K1 launches during run_test: {launches} (T = {t_cut})")
+    assert launches == bank_launches, f"K1 launched {launches} times, not {bank_launches}"
+    assert summary["num_samples"] == 4 * per_class, summary["num_samples"]
+    assert all(math.isfinite(v) for v in summary.values()), summary
+
+    src = CachedImageSource(os.path.join(path["cache"], "zsl_test"), expected_resolution=res)
+    loader = GroupedTestLoader(grouped, {c: hier.name_to_id[c] for c in grouped}, src, batch,
+                               num_threads=cfg.num_workers)
+    t0 = _time.time()
+    n = sum(1 for _ in loader)
+    read_ms = (_time.time() - t0) * 1e3 / n
+    loader.close()
+    log(f"[real] bank build {bank_ms:.1f} ms ({n_prompts} prompts, T = {t_cut}); run_test "
+        f"{summary['imgs_per_sec']:.0f} images/s from the decode cache"
+        + (f" against {synthetic_ips:.0f} with the synthetic loader" if synthetic_ips else "")
+        + f"; cache read {read_ms:.1f} ms per batch of {batch} (loader alone, "
+        f"{cfg.num_workers} threads); on {torch.cuda.get_device_name(0) if dev.type == 'cuda' else 'cpu'}")
+
+    # the CLI on the same weights, saved as clip_0
+    save_checkpoint(cfg.save_path, 0, init_train_state(tm.model, tm.layer_weight,
+                                                       make_optimizer(cfg, 1)))
+    cli = args + ["--load", "True", "--from_epoch", "0"]
+    if dev.type == "cuda":
+        cli += ["--device", str(dev.index or 0)]
+    t0 = _time.time()
+    p = subprocess.run([sys.executable, "-m", "hgr_tpu_torch", *cli], capture_output=True,
+                       text=True, timeout=600)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+    got = _final_eval(cfg.save_path)
+    keys = [k for k in summary if k != "imgs_per_sec"]
+    same = all(got[k] == summary[k] for k in keys)
+    log(f"[real] CLI `python -m hgr_tpu_torch --synthetic False --train False --load True "
+        f"--from_epoch 0 ...` in {_time.time() - t0:.1f} s: metrics equal to the in-process "
+        f"run: {same} ({ {k: got[k] for k in keys} })")
+    assert same, (got, summary)
+    return dict(tm=tm, args=cli, names=names, launches=launches)
+
+
+def phase_files_and_serving(real, fixtures=None):
+    """Files through ``FileImageSource`` and serving, when this machine can
+    decode: the decoder in use and its time per image, the corrupt file's
+    fallback, ``classify_files`` over the fixtures tiled to 64 paths (K1
+    rebuilds the bank), and ``python -m hgr_tpu_torch.serve`` on three of
+    them. Returns K1's launches in ``classify_files``, or None when no
+    decoder exists (the check that needs none ran in the real-input phase)."""
+    import time as _time
+    from pathlib import Path
+
+    from hgr_tpu_torch.data import FileImageSource
+    from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.serve import ZeroShotClassifier
+
+    tm = real["tm"]
+    fixtures = Path(fixtures or Path(__file__).resolve().parent / "tests" / "torch_fixtures")
+    good = sorted(str(p) for p in fixtures.iterdir()
+                  if p.suffix in (".jpg", ".png") and p.name != "corrupt.jpg")
+    res = tm.clip_cfg.image_resolution
+    try:
+        src = FileImageSource(res)
+    except RuntimeError as e:
+        log(f"[files] skipped: this machine has no image decoder ({e}); the decode-cache path "
+            "above needs none")
+        return None
+    decoder = "native libjpeg" if src.native else "PIL"
+    t0 = _time.time()
+    for _ in range(5):
+        for f in good:
+            src.load("c", [f], 0)
+    per_img = (_time.time() - t0) * 1e3 / (5 * len(good))
+    fallback = src.load("c", [good[0], str(fixtures / "corrupt.jpg")], 1)
+    assert np.array_equal(fallback, src.load("c", [good[0]], 0)), "corrupt-file fallback"
+    log(f"[files] decoder {decoder}: {per_img:.2f} ms an image ({len(good)} fixtures at {res} px, "
+        "one thread, host); corrupt.jpg gives its class's first image")
+
+    paths = (good * 64)[:64]
+    clf = ZeroShotClassifier(tm)
+    attention.launches = 0
+    out = clf.classify_files(paths, k=5, batch=64)
+    launches = attention.launches
+    first = {}
+    for p, row in zip(paths, out):
+        assert len(row) == 5 and all(math.isfinite(s) for _, s in row), row
+        # copies of one file at other rows of the bf16 batch: the same
+        # scores within bf16 rounding (near-ties may swap places)
+        want = [s for _, s in first.setdefault(p, row)]
+        assert np.allclose([s for _, s in row], want, atol=2e-2), (p, row, first[p])
+    log(f"[files] classify_files over {len(paths)} paths: K1 launches {launches}; top-1 "
+        f"{[first[p][0] for p in good]}")
+    assert launches == 432 or tm.n_pad != 18432, launches
+
+    three = good[:3]
+    t0 = _time.time()
+    p = subprocess.run([sys.executable, "-m", "hgr_tpu_torch.serve",
+                        *[Path(f).name for f in three], *real["args"], "--k", "3",
+                        "--image_root", str(fixtures)],
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+    lines = [json.loads(x) for x in p.stdout.splitlines() if x.startswith('{"image"')]
+    assert [x["image"] for x in lines] == [Path(f).name for f in three], p.stdout[-2000:]
+    agree = 0
+    for x, f in zip(lines, three):
+        top = x["topk"]
+        assert len(top) == 3 and all(t["name"] == real["names"][t["wnid"]] for t in top), top
+        # bf16 features of a batch of 3 against one of 64: the scores within 2e-2
+        want = [s for _, s in first[f][:3]]
+        assert np.allclose([t["score"] for t in top], want, atol=2e-2), (top, want)
+        agree += top[0]["wnid"] == first[f][0][0]
+    log(f"[files] `python -m hgr_tpu_torch.serve` on {len(three)} fixtures in "
+        f"{_time.time() - t0:.1f} s: {len(lines)} JSON lines, top-1 as classify_files's for "
+        f"{agree} of {len(three)}; first line {json.dumps(lines[0])}")
+    return launches
+
+
 def phase_guard(dev):
     """K1 refuses a call that autograd would record: it has no backward."""
     from hgr_tpu_torch.ops.attention import attention
@@ -572,24 +930,38 @@ def phase_guard(dev):
 
 
 def main() -> int:
+    import shutil
+    import tempfile
+
     name = phase_device()
     phase_build()
     from hgr_tpu_torch.device import select_device
 
     dev = select_device("cuda:0")
     main_row = phase_kernels(dev)
-    tm, bank, _, rn50 = phase_slice(dev)
+    phase_chains()
+    tm, bank, summary, rn50 = phase_slice(dev)
     phase_plain_bank(tm, bank)
     phase_small_reference(tm, bank)
     del tm, bank
     vit, _, _, vit_launches = phase_slice(dev, arch="ViT-B/32", batches=2, image_launches=12)
     phase_vit_features(vit)
     del vit
+    work = tempfile.mkdtemp(prefix="hgr_real_inputs_")
+    try:
+        real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
+        serving = phase_files_and_serving(real)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    real_launches = real.pop("launches")
+    del real
     train = phase_train(dev)
     phase_train_reference(dev)
     phase_guard(dev)
 
     by_path = {"rn50_eval": rn50, "vit_b32_eval": vit_launches,
+               "rn50_real_inputs_eval": real_launches,
+               **({} if serving is None else {"rn50_serve_classify_files": serving}),
                "rn50_train_steps": train["train_steps"], "rn50_test_after_train": train["test"]}
     kernels = [dict(
         name="attention",

@@ -16,6 +16,10 @@ from dataclasses import dataclass, fields
 from typing import List, Optional
 
 
+class NotYetPorted(NotImplementedError):
+    """An option or path of the JAX package that the port does not run yet."""
+
+
 def _parse_bool(v: str) -> bool:
     if isinstance(v, bool):
         return v
@@ -52,7 +56,7 @@ class Config:
     split_path: str = "data/process_results/splits_for_tree.json"
     num_workers: int = 12
     num_proc_workers: int = 0   # decode processes: not yet ported
-    decode_cache: str = ""      # decode cache root: not yet ported
+    decode_cache: str = ""      # decode cache root (data/decode_cache.py)
     keep_checkpoints: int = 0
     batch_size: int = 256
     test_batch_size: int = 512

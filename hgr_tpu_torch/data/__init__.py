@@ -1,15 +1,23 @@
 from .pipeline import (
+    FileImageSource,
     GroupBatch,
     GroupedTestLoader,
     GroupedTrainLoader,
+    ImageSource,
     Prefetcher,
     SyntheticImageSource,
+    kshot_subsample,
+    load_manifest,
 )
 
 __all__ = [
+    "FileImageSource",
     "GroupBatch",
     "GroupedTestLoader",
     "GroupedTrainLoader",
+    "ImageSource",
     "Prefetcher",
     "SyntheticImageSource",
+    "kshot_subsample",
+    "load_manifest",
 ]

@@ -14,17 +14,23 @@ Behaviour of the reference's grouped loaders (``dataset/imagenet_group.py:
 
 A class's last partial batch is zero-padded with a validity mask so that
 device shapes stay fixed. Images are made on the host by a thread pool
-behind a bounded prefetch queue. Sources: ``SyntheticImageSource`` only;
-file decoding, the native decoder and the process pool are not yet ported.
+behind a bounded prefetch queue. Sources: ``FileImageSource`` (the native
+libjpeg decoder for JPEGs, PIL otherwise, with the reference's corrupt-image
+fallback), ``data/decode_cache.CachedImageSource`` and
+``SyntheticImageSource``. Manifests: ``load_manifest`` (``{wnid: [paths]}``
+JSON) or ``data/manifest_index.MmapManifest``; ``kshot_subsample`` caps the
+unseen classes. The decode process pool is not yet ported.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Protocol, Sequence
 
 import numpy as np
 
@@ -35,6 +41,89 @@ class GroupBatch:
     target: int          # class id (position in node ordering)
     valid: np.ndarray    # [B] bool
     paths: Optional[List[str]] = None
+
+
+class ImageSource(Protocol):
+    def load(self, class_name: str, paths: Sequence[str], idx: int) -> np.ndarray:
+        ...
+
+
+_logged_decoder = False
+
+
+def _pil_status() -> Optional[str]:
+    """None when PIL imports, else why not."""
+    try:
+        import PIL.Image  # noqa: F401
+    except (ImportError, OSError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+class FileImageSource:
+    """Image decode + CLIP transform with the corrupt-image fallback
+    (``hgr_tpu/data/pipeline.py:55-112``).
+
+    JPEGs go through the native decoder (``data/native.py``; decode, bicubic
+    resize and crop in one C++ call that releases the GIL), other files and
+    a failed native decode through PIL. A file that fails both ways is
+    replaced by its class's first image (``dataset/imagenet.py:149-152``).
+    Rows are raw uint8 by default (normalised on the device). Raises when
+    neither decoder is available, naming both causes; says once per process
+    which decoder it uses.
+    """
+
+    def __init__(self, resolution: int, image_root: str = "",
+                 native: bool = True, raw_uint8: bool = True):
+        global _logged_decoder
+        from .native import load_native, native_status
+
+        self.resolution = resolution
+        self.image_root = image_root
+        self.raw_uint8 = raw_uint8
+        self.native = native and load_native() is not None
+        pil = _pil_status()
+        if not self.native and pil is not None:
+            raise RuntimeError(
+                "no image decoder: the native one is "
+                f"{native_status() if native else 'switched off'}, and PIL failed to "
+                f"import ({pil})")
+        if not _logged_decoder:
+            _logged_decoder = True
+            which = (f"{native_status()} for .jpg/.jpeg, PIL otherwise" if self.native
+                     else f"PIL (native decoder {native_status() if native else 'off'})")
+            print(f"[data] image decoder: {which}", flush=True)
+
+    def _path(self, path: str) -> str:
+        return os.path.join(self.image_root, path) if self.image_root else path
+
+    def _load_one(self, path: str) -> np.ndarray:
+        path = self._path(path)
+        if self.native and path.lower().endswith((".jpg", ".jpeg")):
+            from .native import decode_resize, decode_resize_u8
+
+            with open(path, "rb") as f:
+                data = f.read()
+            out = (decode_resize_u8 if self.raw_uint8 else decode_resize)(data, self.resolution)
+            if out is not None:
+                return out
+            # a failed native decode falls through to PIL
+        from PIL import Image
+
+        from .transforms import preprocess_pil, preprocess_pil_uint8
+
+        img = Image.open(path).convert("RGB")
+        if self.raw_uint8:
+            return preprocess_pil_uint8(img, self.resolution)
+        return preprocess_pil(img, self.resolution)
+
+    def load(self, class_name: str, paths: Sequence[str], idx: int) -> np.ndarray:
+        try:
+            return self._load_one(paths[idx])
+        except Exception:
+            # reference semantics: the class's first image instead
+            # (dataset/imagenet.py:149-152)
+            return self._load_one(paths[0])
 
 
 class SyntheticImageSource:
@@ -51,6 +140,38 @@ class SyntheticImageSource:
         return rng.standard_normal(
             (self.resolution, self.resolution, 3)
         ).astype(np.float32)
+
+
+def load_manifest(
+    path: str, candidates: Optional[Sequence[str]] = None
+) -> Dict[str, List[str]]:
+    """A ``{split}_split.json`` manifest ({wnid: [image paths]}), optionally
+    cut to the candidate classes (``imagenet_group.py:67-77``)."""
+    with open(path) as f:
+        data = json.load(f)
+    if candidates is None:
+        return data
+    return {c: data[c] for c in candidates}
+
+
+def kshot_subsample(
+    grouped: Dict[str, List[str]],
+    unseen: Sequence[str],
+    k_shots: int,
+    seed: int = 0,
+) -> Dict[str, List[str]]:
+    """Cap the unseen classes at ``k_shots`` random images, kept in their
+    order (``imagenet_group.py:79-93``)."""
+    rng = np.random.default_rng(seed)
+    unseen_set = set(unseen)
+    out: Dict[str, List[str]] = {}
+    for cls, paths in grouped.items():
+        if cls in unseen_set and len(paths) > k_shots:
+            idx = rng.choice(len(paths), size=k_shots, replace=False)
+            out[cls] = [paths[i] for i in sorted(idx)]
+        else:
+            out[cls] = list(paths)
+    return out
 
 
 class Prefetcher:
@@ -139,7 +260,7 @@ class GroupedTestLoader:
         self,
         grouped: Dict[str, List[str]],
         class_ids: Dict[str, int],
-        source: SyntheticImageSource,
+        source: ImageSource,
         batch_size: int,
         num_threads: int = 8,
         prefetch: int = 4,
@@ -189,7 +310,7 @@ class GroupedTrainLoader:
         self,
         grouped: Dict[str, List[str]],
         class_ids: Dict[str, int],
-        source: SyntheticImageSource,
+        source: ImageSource,
         batch_size: int,
         n_episodes: int = -1,
         seed: int = 0,

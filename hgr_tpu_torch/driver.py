@@ -3,23 +3,29 @@
 
 Equivalents of the reference's ``train()`` (``main.py:72-101``), ``test()``
 (``main.py:104-222``) and ``main()`` (``main.py:225-267``) on one CUDA
-device, with synthetic hierarchies and images:
+device, over the reference's JSON artifacts or a synthetic stand-in
+(``--synthetic True``):
 
+- ``build_hierarchy`` reads ``graph_edges_cls.json``, the splits and the
+  optional hops splits; ``build_model`` tokenises the node prompts with the
+  BPE merges of ``--vocab_path`` and the names of ``--names_path``, then
+  loads weights with ``--fetch`` or ``--load`` (the port's own checkpoints);
 - ``run_test`` builds the class bank with the text tower (through the fused
   attention kernel), sorts it by depth, then runs every single-class image
-  batch through the image tower and the depth-sorted metrics;
+  batch (image files through the manifests, a decode cache, or synthetic
+  images) through the image tower and the depth-sorted metrics;
 - ``run_train`` runs the OM (or hierarchical) train step over grouped
   single-class batches, checkpoints every epoch, and resumes, mid-epoch
   too, with ``--resume``.
 
 Paths the port does not run yet raise instead of being ignored: flat
-training, CoOp, checkpoint loading (``--load``, ``--fetch``), multi-device
-meshes, profiler traces, real image files, decode processes and caches,
-and k-shot subsampling (``require_ported``).
+training, CoOp, multi-device meshes, profiler traces and decode processes
+(``require_ported``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Any, Dict, Tuple
@@ -27,16 +33,21 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from .config import Config
-from .data import GroupedTestLoader, GroupedTrainLoader, Prefetcher, SyntheticImageSource
+from .config import Config, NotYetPorted
+from .data import (
+    FileImageSource,
+    GroupedTestLoader,
+    GroupedTrainLoader,
+    Prefetcher,
+    SyntheticImageSource,
+    kshot_subsample,
+    load_manifest,
+)
 from .eval.metrics import accumulate, summarize, zeros_metrics
 from .hierarchy import Hierarchy, synthetic_hierarchy
 from .tree_model import TreeModel
+from .utils.checkpoint import restore_params
 from .utils.logging import RunLogger
-
-
-class NotYetPorted(NotImplementedError):
-    pass
 
 
 def require_ported(config: Config) -> None:
@@ -44,13 +55,8 @@ def require_ported(config: Config) -> None:
     refused = {
         "--training_method flat": config.train and config.training_method == "flat",
         "--coop": config.coop,
-        "--load": config.load,
-        "--fetch": config.fetch,
         "--mesh_data/--mesh_model": config.mesh_data not in (-1, 1) or config.mesh_model != 1,
-        "a non-synthetic image source (--synthetic False)": not config.synthetic,
         "--num_proc_workers": config.num_proc_workers > 0,
-        "--decode_cache": bool(config.decode_cache),
-        "--k_shots": config.k_shots > 0,
         "--trace_dir": bool(config.trace_dir),
     }
     on = [name for name, set_ in refused.items() if set_]
@@ -70,41 +76,109 @@ def synthetic_splits(hier: Hierarchy, seed: int) -> Dict[str, list]:
 
 
 def build_hierarchy(config: Config) -> Tuple[Hierarchy, Dict[str, list]]:
-    """Synthetic hierarchy + splits from config (the JSON artifacts of a
-    real run need the not yet ported tokenizer and image files)."""
+    """Hierarchy and splits: synthetic, or the JSON artifacts
+    (``--graph_path``, ``--split_path``, and ``--hops_path``'s hop2/hop3/...
+    class lists merged into the splits)."""
     require_ported(config)
-    hier = synthetic_hierarchy(
-        branching=config.synthetic_branching,
-        levels=config.synthetic_levels,
-        extra_edges=config.synthetic_extra_edges,
-        seed=config.seed,
-    )
-    return hier, synthetic_splits(hier, config.seed)
+    if config.synthetic:
+        hier = synthetic_hierarchy(
+            branching=config.synthetic_branching,
+            levels=config.synthetic_levels,
+            extra_edges=config.synthetic_extra_edges,
+            seed=config.seed,
+        )
+        return hier, synthetic_splits(hier, config.seed)
+    hier = Hierarchy.from_json(config.graph_path)
+    with open(config.split_path) as f:
+        splits = json.load(f)
+    if config.hops_path:
+        with open(config.hops_path) as f:
+            splits.update(json.load(f))
+    return hier, splits
 
 
 def build_model(
     config: Config, hier: Hierarchy, splits: Dict[str, list], device=None
 ) -> TreeModel:
-    """TreeModel with random weights from ``config.seed`` on ``device``
-    (default ``cuda:{config.device}``)."""
+    """TreeModel on ``device`` (default ``cuda:{config.device}``) with random
+    weights from ``config.seed``, then those of ``--fetch_path`` and of
+    ``--load`` (``--load_path``, or ``clip_{--from_epoch}`` under the save
+    path) where set. Without ``--synthetic`` the prompts are BPE-tokenised;
+    a missing merges file gives synthetic tokens, as in JAX."""
     require_ported(config)
+    tokenizer = names = None
+    if not config.synthetic:
+        from .text import Tokenizer
+
+        try:
+            tokenizer = Tokenizer(config.vocab_path or None)
+        except FileNotFoundError:
+            print(f"no BPE merges file at --vocab_path {config.vocab_path!r} or "
+                  "$HGR_TPU_BPE_VOCAB: the prompts are synthetic tokens", flush=True)
+        if config.names_path and os.path.exists(config.names_path):
+            with open(config.names_path) as f:
+                names = json.load(f)
     tm = TreeModel.build(
         config,
         hier,
         candidates_train=splits[config.model_train],
         candidates_test=splits[config.model_test],
+        tokenizer=tokenizer,
+        names=names,
         pad_multiple=1024 if hier.num_nodes > 1024 else 128,
         seed=config.seed,
         device=device,
     )
     tm.init_params(config.seed)
+
+    def apply(restored):
+        tm.model.load_state_dict(restored["clip"])
+        with torch.no_grad():
+            tm.layer_weight.copy_(restored["layer_weight"])
+
+    if config.fetch and config.fetch_path:
+        apply(restore_params(config.fetch_path))
+    if config.load:
+        path = (config.load_path if config.load_path != "none"
+                else os.path.join(config.save_path, f"clip_{config.from_epoch}"))
+        apply(restore_params(path))
+        print("successfully loaded", flush=True)
     return tm
 
 
-def grouped_split(config: Config, candidates) -> Dict[str, list]:
-    """Synthetic per-class image lists (``driver.py:125-134``)."""
-    per = config.synthetic_images_per_class
-    return {c: [f"{c}/{j}.jpg" for j in range(per)] for c in candidates}
+def _image_source(config: Config, resolution: int, grouped=None, split: str = ""):
+    """Synthetic images, the split's decode cache (built on first use), or
+    the image files under ``--image_root``."""
+    if config.synthetic:
+        return SyntheticImageSource(resolution)
+    if config.decode_cache and grouped is not None:
+        from .data.decode_cache import open_or_build
+
+        return open_or_build(os.path.join(config.decode_cache, split or "default"),
+                             grouped, resolution, image_root=config.image_root)
+    return FileImageSource(resolution, config.image_root)
+
+
+def _grouped_split(config: Config, split: str, candidates, splits) -> Dict[str, list]:
+    """``{class: [image paths]}`` of ``split`` for the candidate classes:
+    synthetic names, the binary ``{split}_split.idx`` index when it exists
+    beside ``--split_path``, else ``{split}_split.json``; ``--k_shots`` caps
+    the unseen classes (``driver.py:125-149``)."""
+    if config.synthetic:
+        per = config.synthetic_images_per_class
+        grouped = {c: [f"{c}/{j}.jpg" for j in range(per)] for c in candidates}
+    else:
+        base = os.path.join(os.path.dirname(config.split_path), f"{split}_split")
+        if os.path.isdir(base + ".idx"):
+            from .data.manifest_index import MmapManifest
+
+            grouped = MmapManifest(base + ".idx").grouped(candidates)
+        else:
+            grouped = load_manifest(base + ".json", candidates)
+    if config.k_shots > 0:
+        grouped = kshot_subsample(grouped, unseen=splits["rest"], k_shots=config.k_shots,
+                                  seed=config.seed)
+    return grouped
 
 
 def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[str, float]:
@@ -113,11 +187,11 @@ def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[s
     dev = tm.device
     bank_s = tm.sort_bank(tm.update_classifier())
 
-    grouped = grouped_split(config, splits[config.data_test])
+    grouped = _grouped_split(config, config.data_split_test, splits[config.data_test], splits)
     loader = GroupedTestLoader(
         grouped,
         {c: tm.hier.name_to_id[c] for c in grouped},
-        SyntheticImageSource(tm.clip_cfg.image_resolution),
+        _image_source(config, tm.clip_cfg.image_resolution, grouped, config.data_split_test),
         config.test_batch_size,
         num_threads=config.num_workers,
     )
@@ -164,11 +238,12 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
     )
 
     require_ported(config)
-    grouped = grouped_split(config, splits[config.data_train])
+    grouped = _grouped_split(config, config.data_split_train, splits[config.data_train],
+                             splits)
     loader = GroupedTrainLoader(
         grouped,
         {c: tm.hier.name_to_id[c] for c in grouped},
-        SyntheticImageSource(tm.clip_cfg.image_resolution),
+        _image_source(config, tm.clip_cfg.image_resolution, grouped, config.data_split_train),
         config.batch_size,
         n_episodes=config.n_episodes,
         seed=config.seed,
@@ -295,11 +370,13 @@ def _epoch_loop(config, tm, splits, logger, state, step_fn, sampler, loader, nod
     return state
 
 
-def main(argv=None) -> Any:
+def main(argv=None, device=None) -> Any:
+    """``python -m hgr_tpu_torch [flags]``; ``device`` (from Python only)
+    replaces ``cuda:{--device}``."""
     config = Config.from_args(argv)
     hier, splits = build_hierarchy(config)
     print("Creating models", flush=True)
-    tm = build_model(config, hier, splits)
+    tm = build_model(config, hier, splits, device=device)
     logger = RunLogger(config.save_path)
     if config.train:
         print("Training.", flush=True)

@@ -1,3 +1,4 @@
-from .tree import PAD, ROOT, Hierarchy, profiled_hierarchy, synthetic_hierarchy
+from .tree import PAD, ROOT, Hierarchy, profiled_edges, profiled_hierarchy, synthetic_hierarchy
 
-__all__ = ["Hierarchy", "profiled_hierarchy", "synthetic_hierarchy", "ROOT", "PAD"]
+__all__ = ["Hierarchy", "profiled_edges", "profiled_hierarchy", "synthetic_hierarchy", "ROOT",
+           "PAD"]

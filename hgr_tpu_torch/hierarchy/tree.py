@@ -17,19 +17,18 @@ consumed by gathers and masked argmaxes without host round-trips:
 Ordering parity: the reference's node ordering is networkx insertion order over
 the edge list with the virtual root removed (``utils.py:44-46``); we reproduce
 that exactly. The reference's canonical ancestor chain is "a shortest path from
-the root chosen by networkx" (``utils.py:55``); we call networkx
-``shortest_path`` itself when available (``_nx_chains``) because its
-bidirectional-BFS tie-breaks differ from a forward BFS on some multi-parent
-DAGs — a divergence the executed-reference oracle caught (docs/PARITY.md
-tier-1 table). The forward edge-insertion-order BFS remains only as the
-networkx-unavailable fallback; both satisfy the parent-linkage invariant the
-reference asserts (``utils.py:58-64``).
+the root chosen by networkx" (``utils.py:55``), and where a node has several
+shortest paths, networkx's bidirectional BFS picks one that a forward BFS does
+not (docs/PARITY.md tier-1 table). The port therefore carries its own copy of
+that search (``_bidirectional_path``) and uses it always, so its chains are
+the JAX package's with networkx on every machine, networkx installed or not.
+Every chain satisfies the parent-linkage invariant the reference asserts
+(``utils.py:58-64``).
 """
 
 from __future__ import annotations
 
 import json
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
@@ -90,26 +89,6 @@ class Hierarchy:
         return np.asarray([self.name_to_id[n] for n in names], dtype=np.int32)
 
     # ---- construction ----------------------------------------------------
-    @staticmethod
-    def _nx_chains(edges, names, name_to_id, root):
-        """Root-exclusive ancestor chains via networkx ``shortest_path`` —
-        the reference's literal call (``utils.py:55``). Returns None when
-        networkx is unavailable (caller falls back to forward BFS)."""
-        try:
-            import networkx as nx
-        except ImportError:
-            return None
-        G = nx.DiGraph()
-        G.add_edges_from(edges)
-        chains: List[List[int]] = []
-        try:
-            for n in names:
-                path = nx.shortest_path(G, source=root, target=n)[1:-1]
-                chains.append([name_to_id[p] for p in path])
-        except nx.NetworkXNoPath as e:
-            raise ValueError(f"node unreachable from root: {e}") from e
-        return chains
-
     @classmethod
     def from_edges(cls, edges: Sequence[Tuple[str, str]], root: str = ROOT) -> "Hierarchy":
         """Build from an edge list ``[(parent, child), ...]`` containing ``root``.
@@ -140,42 +119,18 @@ class Hierarchy:
         name_to_id = {n: i for i, n in enumerate(names)}
         n_nodes = len(names)
 
-        # Canonical root->node chain. The reference defines it as networkx
-        # ``shortest_path`` (``utils.py:55``), whose bidirectional-BFS
-        # tie-breaking differs from a plain forward BFS when several
-        # shortest paths exist (observed: an executed-reference oracle run
-        # diverged on a multi-parent node with two equal-length paths). Use
-        # networkx itself when available so the choice is identical BY
-        # CONSTRUCTION; fall back to forward-BFS first-predecessor order.
-        chains = cls._nx_chains(edges, names, name_to_id, root)
-        if chains is None:
-            parent: Dict[str, str] = {root: root}
-            dist: Dict[str, int] = {root: 0}
-            q = deque([root])
-            while q:
-                u = q.popleft()
-                for v in succ[u]:
-                    if v not in dist:
-                        dist[v] = dist[u] + 1
-                        parent[v] = u
-                        q.append(v)
-
-            unreachable = [n for n in names if n not in dist]
-            if unreachable:
-                raise ValueError(
-                    f"{len(unreachable)} nodes unreachable from root, "
-                    f"e.g. {unreachable[:5]}"
-                )
-
-            chains = []
-            for n in names:
-                path: List[str] = []
-                cur = n
-                while parent[cur] != root:
-                    cur = parent[cur]
-                    path.append(cur)
-                path.reverse()
-                chains.append([name_to_id[p] for p in path])
+        # Canonical root->node chain: networkx ``shortest_path``'s choice
+        # (``utils.py:55``), whose adjacency is DiGraph's: each neighbour
+        # once, in the order its first edge was added
+        dsucc: Dict[str, Dict[str, None]] = {n: {} for n in order}
+        dpred: Dict[str, Dict[str, None]] = {n: {} for n in order}
+        for u, v in edges:
+            dsucc[u][v] = None
+            dpred[v][u] = None
+        chains = []
+        for n in names:
+            path = _bidirectional_path(dsucc, dpred, root, n)
+            chains.append([name_to_id[p] for p in path[1:-1]])
 
         depth = np.asarray([len(c) for c in chains], dtype=np.int32)
         max_chain = max(1, int(depth.max()))
@@ -235,21 +190,67 @@ class Hierarchy:
         return cls.from_edges([tuple(e) for e in edges], root=root)
 
 
-def profiled_hierarchy(
+def _bidirectional_path(succ, pred, source: str, target: str) -> List[str]:
+    """A shortest ``source`` -> ``target`` path, the one networkx's unweighted
+    ``bidirectional_shortest_path`` returns (networkx 3.x,
+    ``algorithms/shortest_paths/unweighted.py``, ``_bidirectional_pred_succ``;
+    BSD licence): two BFS fringes, the smaller expanded first and the forward
+    one on a tie, each neighbour list walked in order; the path is joined at
+    the first node either search finds in the other's visited set."""
+    if source == target:
+        return [source]
+    fwd = {source: None}  # node -> its predecessor towards source
+    rev = {target: None}  # node -> its successor towards target
+    forward, reverse = [source], [target]
+    meet = None
+    while forward and reverse and meet is None:
+        if len(forward) <= len(reverse):
+            level, forward = forward, []
+            for v in level:
+                for w in succ[v]:
+                    if w not in fwd:
+                        forward.append(w)
+                        fwd[w] = v
+                    if w in rev:
+                        meet = w
+                        break
+                if meet is not None:
+                    break
+        else:
+            level, reverse = reverse, []
+            for v in level:
+                for w in pred[v]:
+                    if w not in rev:
+                        rev[w] = v
+                        reverse.append(w)
+                    if w in fwd:
+                        meet = w
+                        break
+                if meet is not None:
+                    break
+    if meet is None:
+        raise ValueError(f"node unreachable from root: no path from {source} to {target}")
+    path: List[str] = []
+    w = meet
+    while w is not None:
+        path.append(w)
+        w = fwd[w]
+    path.reverse()
+    w = rev[meet]
+    while w is not None:
+        path.append(w)
+        w = rev[w]
+    return path
+
+
+def profiled_edges(
     level_sizes: Sequence[int],
     seed: int = 0,
     cross_edges: int = 0,
     root: str = ROOT,
-) -> Hierarchy:
-    """Synthetic DAG with a PRESCRIBED per-depth node count.
-
-    Used to reproduce the reference deployment's class geometry — 18,278
-    nodes over 13 uneven levels (supp Table 1/3; pinned counts at
-    ``data/train_test_split_backup.py:86-89``) — so sharded-eval equality
-    can be proven where shard boundaries split levels mid-way. Each node at
-    depth d draws a random parent at depth d-1; ``cross_edges`` adds
-    multi-parent links (one level down) like real WordNet.
-    """
+) -> List[Tuple[str, str]]:
+    """The edge list of :func:`profiled_hierarchy`, in its order (what a
+    ``graph_edges_cls.json`` of that hierarchy holds)."""
     rng = np.random.default_rng(seed)
     edges: List[Tuple[str, str]] = []
     prev = [root]
@@ -270,7 +271,25 @@ def profiled_hierarchy(
         v = by_level[lvl + 1][int(rng.integers(len(by_level[lvl + 1])))]
         if (u, v) not in edges:
             edges.append((u, v))
-    return Hierarchy.from_edges(edges, root=root)
+    return edges
+
+
+def profiled_hierarchy(
+    level_sizes: Sequence[int],
+    seed: int = 0,
+    cross_edges: int = 0,
+    root: str = ROOT,
+) -> Hierarchy:
+    """Synthetic DAG with a PRESCRIBED per-depth node count.
+
+    Used to reproduce the reference deployment's class geometry — 18,278
+    nodes over 13 uneven levels (supp Table 1/3; pinned counts at
+    ``data/train_test_split_backup.py:86-89``) — so sharded-eval equality
+    can be proven where shard boundaries split levels mid-way. Each node at
+    depth d draws a random parent at depth d-1; ``cross_edges`` adds
+    multi-parent links (one level down) like real WordNet.
+    """
+    return Hierarchy.from_edges(profiled_edges(level_sizes, seed, cross_edges, root), root=root)
 
 
 def synthetic_hierarchy(

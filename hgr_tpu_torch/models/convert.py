@@ -1,4 +1,14 @@
-"""Weight carry-over from the JAX package's parameter pytree.
+"""Weight loading: OpenAI CLIP checkpoints, and carry-over from the JAX
+package's parameter pytree.
+
+``load_torch_checkpoint`` reads an OpenAI ``.pt`` (a TorchScript archive or a
+plain ``state_dict``, as ``hgr_tpu/models/convert.py:208-223`` and the
+reference's ``clip/clip.py:112-130`` do) and ``sniff_config`` reads its
+architecture from the shapes (``hgr_tpu/models/convert.py:103-157``, the
+reference's ``build_model``, ``clip/model.py:395-432``). The port's modules
+carry OpenAI's key names, so loading is near-identity: tensors become fp32,
+and BatchNorm's ``num_batches_tracked`` counters and the archive's
+``input_resolution``/``context_length``/``vocab_size`` entries are dropped.
 
 ``from_jax_params`` is the inverse of ``hgr_tpu/models/convert.py:
 convert_state_dict`` (``:160-205``): it takes the JAX pytree with numpy (or
@@ -10,7 +20,7 @@ transformer blocks, transposes conv weights HWIO -> OIHW and linear weights
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -102,3 +112,50 @@ def from_jax_params(params: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
     sd["text_projection"] = _t(txt["text_projection"])
     sd["logit_scale"] = _t(params["logit_scale"])
     return sd
+
+
+# entries of an OpenAI state_dict that are no weights of the model
+_NOT_WEIGHTS = ("input_resolution", "context_length", "vocab_size")
+
+
+def sniff_config(sd: Mapping[str, Any]) -> CLIPConfig:
+    """The architecture of an OpenAI-layout ``state_dict``, from its shapes
+    (``hgr_tpu/models/convert.py:103-157``)."""
+    is_vit = "visual.proj" in sd
+    embed_dim = sd["text_projection"].shape[1]
+    context_length = sd["positional_embedding"].shape[0]
+    vocab_size = sd["token_embedding.weight"].shape[0]
+    transformer_width = sd["ln_final.weight"].shape[0]
+    transformer_layers = len(
+        {k.split(".")[2] for k in sd if k.startswith("transformer.resblocks")})
+    text = dict(embed_dim=embed_dim, context_length=context_length, vocab_size=vocab_size,
+                transformer_width=transformer_width,
+                transformer_heads=transformer_width // 64,
+                transformer_layers=transformer_layers)
+    if is_vit:
+        vision_layers = len(
+            {k.split(".")[3] for k in sd if k.startswith("visual.transformer.resblocks")})
+        patch = sd["visual.conv1.weight"].shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        return CLIPConfig(image_resolution=patch * grid, vision_layers=(vision_layers,),
+                          vision_width=sd["visual.conv1.weight"].shape[0],
+                          vision_patch_size=patch, **text)
+    counts = [len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{i}")})
+              for i in (1, 2, 3, 4)]
+    grid = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+    return CLIPConfig(image_resolution=grid * 32, vision_layers=tuple(counts),
+                      vision_width=sd["visual.layer1.0.conv1.weight"].shape[0], **text)
+
+
+def load_torch_checkpoint(path: str) -> Tuple[CLIPConfig, StateDict]:
+    """An OpenAI CLIP ``.pt`` -> (config, fp32 ``state_dict`` on the CPU that
+    ``CLIP(config).load_state_dict`` takes). A TorchScript archive is tried
+    first, then a pickled ``state_dict`` (or a module holding one)."""
+    try:
+        sd = torch.jit.load(path, map_location="cpu").state_dict()
+    except Exception:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    sd = {k: v.detach().float() for k, v in sd.items()
+          if k not in _NOT_WEIGHTS and not k.endswith("num_batches_tracked")}
+    return sniff_config(sd), sd

@@ -17,15 +17,17 @@ updates them in place. In the reference ``layer_weight`` never trains
 (``model/clip_tree.py:74`` builds a non-leaf tensor); the JAX package, and
 so the port, train it.
 
-Prompts here are the synthetic ones (``synthetic_tokens``); the BPE
-tokenizer is not yet ported.
+Node prompts are a class name in the first template of ``--template``'s
+bank, BPE-tokenised (``node_prompts``, ``text/``), or, without a tokenizer,
+the synthetic ones (``synthetic_tokens``). Either way the token bank is cut
+after the longest prompt's EOT, to a multiple of 16.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,8 +40,21 @@ from .hierarchy import Hierarchy
 from .models.clip import CLIP, CLIPConfig, clip_init, encode_image, encode_text, get_config
 from .ops.attention import attention
 from .ops.bank_topk import level_argmax_sorted
+from .text import Tokenizer, get_bank
 
 PAD = -1
+
+
+def node_prompts(
+    hier: Hierarchy,
+    template: str,
+    names: Optional[Dict[str, str]] = None,
+) -> List[str]:
+    """Per-node prompt strings (reference ``model/clip_tree.py:52-60``): the
+    node's name (its wnid where ``names`` has none) in the bank's first
+    template."""
+    tpl = get_bank(template)[0]
+    return [tpl.format((names or {}).get(wnid, wnid)) for wnid in hier.names]
 
 
 def synthetic_tokens(
@@ -79,6 +94,7 @@ class TreeModel:
     depth_order: np.ndarray      # [N_pad] sorted-pos -> global node id
     level_offsets: Tuple[int, ...]  # start offset of each depth (+ end)
     model: Optional[CLIP] = None
+    name_token_ids: Optional[List[List[int]]] = None  # per-node class-name BPE ids
 
     # ---- construction ----------------------------------------------------
     @classmethod
@@ -88,20 +104,31 @@ class TreeModel:
         hier: Hierarchy,
         candidates_train: Optional[list] = None,
         candidates_test: Optional[list] = None,
+        tokenizer: Optional[Tokenizer] = None,
+        names: Optional[Dict[str, str]] = None,
         pad_multiple: int = 1024,
         seed: int = 0,
         device=None,
     ) -> "TreeModel":
-        """Tables as ``hgr_tpu.TreeModel.build`` makes them (synthetic
-        prompts); ``device`` defaults to ``cuda:{config.device}``."""
+        """Tables as ``hgr_tpu.TreeModel.build`` makes them
+        (``hgr_tpu/tree_model.py:103-204``): prompts from ``tokenizer`` and
+        ``names`` when a tokenizer is given, else synthetic ones;
+        ``device`` defaults to ``cuda:{config.device}``."""
         dev = select_device(device, config.device)
         clip_cfg = get_config(config.arch)
         n = hier.num_nodes
         n_pad = pad_to(n, pad_multiple)
-        tokens = pad_tokens(
-            synthetic_tokens(n, clip_cfg.context_length, clip_cfg.vocab_size, seed),
-            n_pad,
-        )
+        if tokenizer is not None:
+            tokens = tokenizer.tokenize(node_prompts(hier, config.template, names),
+                                        clip_cfg.context_length)
+            name_token_ids = [tokenizer.encode((names or {}).get(w, w) + ".")
+                              for w in hier.names]
+        else:
+            tokens = synthetic_tokens(n, clip_cfg.context_length, clip_cfg.vocab_size, seed)
+            # synthetic "names": the body ids between SOT and EOT
+            name_token_ids = [list(map(int, tokens[i, 1: int(tokens[i].argmax())]))
+                              for i in range(n)]
+        tokens = pad_tokens(tokens, n_pad)
         # exact token-bank truncation: with a causal mask and EOT pooling,
         # positions past a prompt's EOT never reach its feature; cut the
         # all-padding tail to a multiple of 16 (tree_model.py:136-147)
@@ -156,12 +183,25 @@ class TreeModel:
             layer_weight=torch.as_tensor(layer_weight, dtype=torch.float32, device=dev),
             depth_order=depth_order,
             level_offsets=tuple(offsets),
+            name_token_ids=name_token_ids,
         )
 
     # ---- params ----------------------------------------------------------
     def init_params(self, seed: int = 0) -> CLIP:
         g = torch.Generator().manual_seed(seed)
         self.model = clip_init(self.clip_cfg, g, self.device).eval()
+        return self.model
+
+    def load_torch(self, path: str) -> CLIP:
+        """Weights from an OpenAI CLIP ``.pt`` (TorchScript archive or plain
+        ``state_dict``); the architecture is read from the file's shapes and
+        replaces ``clip_cfg``, as ``hgr_tpu.TreeModel.load_torch`` does."""
+        from .models.convert import load_torch_checkpoint
+
+        cfg, sd = load_torch_checkpoint(path)
+        self.clip_cfg = cfg
+        self.model = CLIP(cfg).to(self.device).eval()
+        self.model.load_state_dict(sd)
         return self.model
 
     def load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:

@@ -5,8 +5,10 @@ only the weights, ``model/clip_tree.py:76-78``) under the reference's path
 convention ``{folder}/{exp_name}/{weights}_{out_ratio}_{in_ratio}/clip_{epoch}``.
 The format is the port's own: ``clip_{epoch}/state.pt``, one ``torch.save``
 of ``{"params", "opt_state", "step"}`` with every tensor on the CPU, and the
-``clip_{epoch}.meta.json`` sidecar for mid-epoch resume. Reading the JAX
-package's Orbax checkpoints or OpenAI ``.pt`` files is not ported yet.
+``clip_{epoch}.meta.json`` sidecar for mid-epoch resume. ``restore_params``
+reads the weights alone, for ``--load`` and ``--fetch`` (``hgr_tpu/utils/
+checkpoint.py:152-163``). Reading the JAX package's Orbax checkpoints is not
+ported yet; OpenAI ``.pt`` files load through ``models/convert.py``.
 """
 
 from __future__ import annotations
@@ -144,6 +146,18 @@ def restore_checkpoint(path: str, like: Any) -> Any:
     like.opt_state.load_state_dict(payload["opt_state"])
     like.step = int(payload["step"])
     return like
+
+
+def restore_params(path: str) -> dict:
+    """The params alone (``{"clip": state_dict, "layer_weight": tensor}``,
+    on the CPU) of the checkpoint directory ``path``: the test and
+    warm-start path (``--load``, ``--fetch``), which needs no optimizer."""
+    file = os.path.join(os.path.abspath(path), STATE_FILE)
+    if not os.path.exists(file):
+        raise FileNotFoundError(
+            f"{path} is not a checkpoint of hgr_tpu_torch (no {STATE_FILE}; expected a "
+            "clip_<epoch> directory, e.g. {folder}/{exp_name}/{weights}_{out}_{in}/clip_3)")
+    return torch.load(file, map_location="cpu", weights_only=True)["params"]
 
 
 def read_ckpt_meta(save_path: str, epoch: int) -> Optional[dict]:

@@ -41,9 +41,9 @@ EDGE_T = {5: 1, 20: 50, 32: 197, 77: 256}
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("T", [5, 20, 32, 77])
-def test_attention_matches_jax(T, causal):
-    for t in (T, EDGE_T[T]):
+def test_attention_matches_jax(causal):
+    """Every length of ``EDGE_T``, each with its edge length."""
+    for t in [t for T in EDGE_T for t in (T, EDGE_T[T])]:
         q, k, v = _qkv(t, seed=t)
         jm = jnp.asarray(jax_causal_mask(t)) if causal else None
         jq, jk, jv = map(jnp.asarray, (q, k, v))
@@ -86,29 +86,30 @@ def test_mha_strided_heads_match_contiguous():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize(
-    "bad,match",
-    [
-        (dict(Dh=32), "Dh == 64"),
-        (dict(T=257), "T <= 256"),
-        (dict(dtype=torch.float16), "bfloat16 or float32"),
-        (dict(mask_dtype=torch.float64), "mask must be float32"),
-        (dict(odd_stride=True), "16-byte aligned"),
-        (dict(k_shape=True), "k must match q"),
-    ],
-)
-def test_kernel_argument_checks(bad, match):
-    """What the kernel does not take is refused before any launch."""
-    T, Dh = bad.get("T", 8), bad.get("Dh", 64)
-    dtype = bad.get("dtype", torch.float32)
-    q = torch.zeros(1, 2, T, Dh, dtype=dtype)
-    k = torch.zeros(1, 2, T + 1 if bad.get("k_shape") else T, Dh, dtype=dtype)
-    v = torch.zeros(1, 2, T, Dh, dtype=dtype)
-    if bad.get("odd_stride"):
-        q = torch.zeros(1, 2, T, Dh + 1)[..., :Dh]
-    mask = torch.zeros(T, T, dtype=bad.get("mask_dtype", torch.float32))
-    with pytest.raises(ValueError, match=match):
-        k1._check(q, k, v, mask)
+BAD_ARGUMENTS = [
+    (dict(Dh=32), "Dh == 64"),
+    (dict(T=257), "T <= 256"),
+    (dict(dtype=torch.float16), "bfloat16 or float32"),
+    (dict(mask_dtype=torch.float64), "mask must be float32"),
+    (dict(odd_stride=True), "16-byte aligned"),
+    (dict(k_shape=True), "k must match q"),
+]
+
+
+def test_kernel_argument_checks():
+    """What the kernel does not take is refused before any launch, each
+    case with its own message."""
+    for bad, match in BAD_ARGUMENTS:
+        T, Dh = bad.get("T", 8), bad.get("Dh", 64)
+        dtype = bad.get("dtype", torch.float32)
+        q = torch.zeros(1, 2, T, Dh, dtype=dtype)
+        k = torch.zeros(1, 2, T + 1 if bad.get("k_shape") else T, Dh, dtype=dtype)
+        v = torch.zeros(1, 2, T, Dh, dtype=dtype)
+        if bad.get("odd_stride"):
+            q = torch.zeros(1, 2, T, Dh + 1)[..., :Dh]
+        mask = torch.zeros(T, T, dtype=bad.get("mask_dtype", torch.float32))
+        with pytest.raises(ValueError, match=match):
+            k1._check(q, k, v, mask)
 
 
 def test_cuda_route_refuses_other_devices():

@@ -2,9 +2,10 @@
 
 An AST scan of every module of ``hgr_tpu_torch``, of ``chip_smoke.py`` and
 of the port's tools (``tools/*torch*.py``) finds no import of ``jax`` (or
-``jaxlib``, ``optax``, ``orbax``) and none of ``hgr_tpu`` other than
-``hgr_tpu_torch``; importing the package in a fresh interpreter leaves
-``jax`` out of ``sys.modules``.
+``jaxlib``, ``optax``, ``orbax``), of ``networkx`` or ``regex`` (the port
+has its own chain search and word splitter), and none of ``hgr_tpu`` other
+than ``hgr_tpu_torch``; importing the package in a fresh interpreter leaves
+them all out of ``sys.modules``.
 """
 
 import ast
@@ -18,7 +19,7 @@ import torch
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "hgr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "hgr_tpu", "networkx", "regex")
 FILES = (sorted((REPO / "hgr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
          + sorted((REPO / "tools").glob("*torch*.py")))
 
@@ -55,6 +56,12 @@ def test_package_import_leaves_jax_unloaded():
         "import hgr_tpu_torch, hgr_tpu_torch.driver, hgr_tpu_torch.tree_model\n"
         "import hgr_tpu_torch.__main__, hgr_tpu_torch.serve, hgr_tpu_torch.train\n"
         "import hgr_tpu_torch.utils.checkpoint, hgr_tpu_torch.utils.preempt\n"
+        "import hgr_tpu_torch.text, hgr_tpu_torch.models.zoo, hgr_tpu_torch.data.native\n"
+        "import hgr_tpu_torch.data.decode_cache, hgr_tpu_torch.data.manifest_index\n"
+        "from hgr_tpu_torch.hierarchy import synthetic_hierarchy\n"
+        "from hgr_tpu_torch.text import Tokenizer\n"
+        "synthetic_hierarchy(3, 3, 4, 0)\n"
+        "Tokenizer(merges=[('a', 'b')]).encode('ab 12 x')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

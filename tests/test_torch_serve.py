@@ -4,7 +4,9 @@
 the same node ids and scores within 1e-5 for every candidate set, ranking
 tied scores lower depth-sorted column first as ``lax.top_k`` does (the test
 makes ties by giving classes the same bank row), and ``predict_paths`` the
-same per-level ids. What needs image files raises ``NotYetPorted``.
+same per-level ids. Decode processes (``num_procs > 0``) raise
+``NotYetPorted``; files and the CLI are held to JAX in
+``tests/test_torch_realdata.py``.
 """
 
 import numpy as np
@@ -85,8 +87,11 @@ def test_predict_paths_matches_jax(models):
 
 
 def test_file_paths_not_yet_ported(models):
+    """The file paths are ported but their decode processes are not: both
+    refuse ``num_procs > 0`` before decoding anything."""
     _, tm, _ = models
-    with pytest.raises(NotYetPorted, match="FileImageSource"):
-        serve.ZeroShotClassifier(tm).classify_files(["a.jpg"])
-    with pytest.raises(NotYetPorted, match="FileImageSource"):
-        serve.main(["a.jpg", "--synthetic", "True"])
+    with pytest.raises(NotYetPorted, match="decode processes"):
+        serve.ZeroShotClassifier(tm).classify_files(["a.jpg"], num_procs=2)
+    with pytest.raises(NotYetPorted, match="decode processes"):
+        serve.main(["a.jpg", "--synthetic", "True", "--arch", "TEST-ViT",
+                    "--num_procs", "2"], device="cpu")
