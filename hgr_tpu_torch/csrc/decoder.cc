@@ -1,5 +1,5 @@
 // Native data-loader core: JPEG decode -> bicubic resize (short side) ->
-// center crop -> CLIP normalization, all in one C++ pass. The port's copy of
+// center crop -> uint8 rows, all in one C++ pass. The port's copy of
 // hgr_tpu/data/native/decoder.cc: a host decoder built with g++ and libjpeg
 // (hgr_tpu_torch/data/native.py), not a GPU kernel.
 //
@@ -7,7 +7,7 @@
 // *processes* doing PIL decode + torchvision transforms
 // (dataset/imagenet_group.py:105, clip/clip.py:71-78). Here the hot path is
 // a single C function called from Python worker *threads* via ctypes: the
-// call releases the GIL, libjpeg does the decode, and the resize/normalize
+// call releases the GIL, libjpeg does the decode, and the resize and crop
 // run fused over the decoded rows — one image never round-trips through
 // Python object land.
 //
@@ -27,9 +27,6 @@
 #include <vector>
 
 namespace {
-
-constexpr float kMean[3] = {0.48145466f, 0.4578275f, 0.40821073f};
-constexpr float kStd[3] = {0.26862954f, 0.26130258f, 0.27577711f};
 
 struct ErrMgr {
   jpeg_error_mgr pub;
@@ -195,25 +192,10 @@ int decode_to_crop(const uint8_t* data, long len, int out_px,
 
 extern "C" {
 
-// Decode a JPEG buffer and emit [out_px, out_px, 3] float32, CLIP-normalized.
-// Returns 0 on success, nonzero on decode failure.
-int hgr_decode_resize(const uint8_t* data, long len, int out_px, float* out) {
-  std::vector<float> crop;
-  const int rc = decode_to_crop(data, len, out_px, crop);
-  if (rc != 0) return rc;
-  const size_t n = static_cast<size_t>(out_px) * out_px;
-  for (size_t i = 0; i < n; ++i) {
-    for (int c = 0; c < 3; ++c) {
-      float v = std::min(255.0f, std::max(0.0f, crop[i * 3 + c])) / 255.0f;
-      out[i * 3 + c] = (v - kMean[c]) / kStd[c];
-    }
-  }
-  return 0;
-}
-
-// Same pipeline but raw uint8 output (no normalization) — the host->device
-// edge: 4x less transfer than float32, normalization runs on the device
-// instead (models/clip.py:encode_image).
+// Decode a JPEG buffer and emit [out_px, out_px, 3] raw uint8 (no
+// normalization): 4x less host->device transfer than float32, and the
+// normalization runs on the device (models/clip.py:encode_image). Returns 0
+// on success, nonzero on decode failure.
 int hgr_decode_resize_u8(const uint8_t* data, long len, int out_px,
                          uint8_t* out) {
   std::vector<float> crop;

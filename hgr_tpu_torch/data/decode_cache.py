@@ -68,8 +68,8 @@ def build_cache(
     fallback, corrupt-image substitution) — the cache is bit-identical to
     what the online loader would have produced. ``num_procs > 0`` (the
     decode process pool) is not yet ported and raises. ``source`` overrides
-    the image source (any ``ImageSource`` with matching resolution — e.g.
-    synthetic rows for format-level stress tests, or a custom reader).
+    the image source (any ``ImageSource`` of uint8 rows at ``resolution``:
+    e.g. synthetic rows for format-level stress tests, or a custom reader).
 
     The build is atomic: everything lands in a ``.building.<pid>`` sibling
     that is renamed into place at the end, so readers never observe a
@@ -97,7 +97,7 @@ def build_cache(
         shape=(n_rows, resolution, resolution, 3),
     )
     if source is None:
-        source = FileImageSource(resolution, image_root, raw_uint8=True)
+        source = FileImageSource(resolution, image_root)
     # the native C++ decode releases the GIL, so threads decode in parallel
     pool = ThreadPoolExecutor(max(1, num_threads))
     class_ptr = [0]
@@ -110,16 +110,6 @@ def build_cache(
                 for lo in range(0, len(paths), chunk):
                     idxs = list(range(lo, min(lo + chunk, len(paths))))
                     rows = list(pool.map(lambda i: source.load(cls, paths, i), idxs))
-                    # the memmap is uint8: numpy would silently wrap a
-                    # float-emitting source (negatives/fractions -> garbage
-                    # pixels) — fail loudly instead of corrupting the cache
-                    if rows and np.asarray(rows[0]).dtype != np.uint8:
-                        raise ValueError(
-                            "decode cache requires uint8 rows; source "
-                            f"produced {np.asarray(rows[0]).dtype} — pass a "
-                            "raw_uint8 source (FileImageSource(..., "
-                            "raw_uint8=True))"
-                        )
                     images[row : row + len(idxs)] = rows
                     row += len(idxs)
                 for p in paths:
@@ -184,7 +174,6 @@ class CachedImageSource:
                 f"geometry) — rebuild the cache or point --decode_cache "
                 f"elsewhere"
             )
-        self.raw_uint8 = True  # caches always store uint8 (smallest H2D edge)
         n = int(meta["n_rows"])
         self._images = np.lib.format.open_memmap(
             os.path.join(cache_dir, "images.u8"), mode="r"

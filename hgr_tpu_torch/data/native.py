@@ -68,8 +68,8 @@ def _build(out: Path) -> None:
 
 
 def load_native():
-    """-> ctypes CDLL with ``hgr_decode_resize`` and ``hgr_decode_resize_u8``,
-    or None (see ``native_status``)."""
+    """-> ctypes CDLL with ``hgr_decode_resize_u8``, or None (see
+    ``native_status``)."""
     global _lib, _status
     with _lock:
         if _lib is not None or _status != "not loaded yet":
@@ -82,11 +82,9 @@ def load_native():
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:  # no g++ or libjpeg
             _status = f"unavailable: {type(e).__name__}: {e}"
             return None
-        for fn, elem in ((lib.hgr_decode_resize, ctypes.c_float),
-                         (lib.hgr_decode_resize_u8, ctypes.c_uint8)):
-            fn.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_long, ctypes.c_int,
-                           ctypes.POINTER(elem)]
-            fn.restype = ctypes.c_int
+        lib.hgr_decode_resize_u8.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
+                                             ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
+        lib.hgr_decode_resize_u8.restype = ctypes.c_int
         _lib = lib
         _status = f"native libjpeg decoder {out.name}"
         return _lib
@@ -97,28 +95,18 @@ def native_status() -> str:
     return _status
 
 
-def _decode(name: str, jpeg_bytes: bytes, out_px: int, dtype) -> Optional[np.ndarray]:
+def decode_resize_u8(jpeg_bytes: bytes, out_px: int) -> Optional[np.ndarray]:
+    """One JPEG -> [out_px, out_px, 3] uint8 (resize and crop, normalised on
+    the device), or None."""
     lib = load_native()
     if lib is None:
         return None
     buf = np.frombuffer(jpeg_bytes, dtype=np.uint8)
-    out = np.empty((out_px, out_px, 3), dtype)
-    elem = ctypes.c_float if dtype == np.float32 else ctypes.c_uint8
-    rc = getattr(lib, name)(
+    out = np.empty((out_px, out_px, 3), np.uint8)
+    rc = lib.hgr_decode_resize_u8(
         buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         ctypes.c_long(len(jpeg_bytes)),
         ctypes.c_int(out_px),
-        out.ctypes.data_as(ctypes.POINTER(elem)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
     return out if rc == 0 else None
-
-
-def decode_resize(jpeg_bytes: bytes, out_px: int) -> Optional[np.ndarray]:
-    """One JPEG -> [out_px, out_px, 3] float32, CLIP-normalised, or None."""
-    return _decode("hgr_decode_resize", jpeg_bytes, out_px, np.float32)
-
-
-def decode_resize_u8(jpeg_bytes: bytes, out_px: int) -> Optional[np.ndarray]:
-    """One JPEG -> [out_px, out_px, 3] uint8 (resize and crop, normalised on
-    the device), or None."""
-    return _decode("hgr_decode_resize_u8", jpeg_bytes, out_px, np.uint8)

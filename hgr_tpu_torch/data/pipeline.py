@@ -68,19 +68,17 @@ class FileImageSource:
     resize and crop in one C++ call that releases the GIL), other files and
     a failed native decode through PIL. A file that fails both ways is
     replaced by its class's first image (``dataset/imagenet.py:149-152``).
-    Rows are raw uint8 by default (normalised on the device). Raises when
-    neither decoder is available, naming both causes; says once per process
-    which decoder it uses.
+    Rows are raw uint8, normalised on the device by
+    ``models/clip.encode_image``. Raises when neither decoder is available,
+    naming both causes; says once per process which decoder it uses.
     """
 
-    def __init__(self, resolution: int, image_root: str = "",
-                 native: bool = True, raw_uint8: bool = True):
+    def __init__(self, resolution: int, image_root: str = "", native: bool = True):
         global _logged_decoder
         from .native import load_native, native_status
 
         self.resolution = resolution
         self.image_root = image_root
-        self.raw_uint8 = raw_uint8
         self.native = native and load_native() is not None
         pil = _pil_status()
         if not self.native and pil is not None:
@@ -100,22 +98,19 @@ class FileImageSource:
     def _load_one(self, path: str) -> np.ndarray:
         path = self._path(path)
         if self.native and path.lower().endswith((".jpg", ".jpeg")):
-            from .native import decode_resize, decode_resize_u8
+            from .native import decode_resize_u8
 
             with open(path, "rb") as f:
                 data = f.read()
-            out = (decode_resize_u8 if self.raw_uint8 else decode_resize)(data, self.resolution)
+            out = decode_resize_u8(data, self.resolution)
             if out is not None:
                 return out
             # a failed native decode falls through to PIL
         from PIL import Image
 
-        from .transforms import preprocess_pil, preprocess_pil_uint8
+        from .transforms import preprocess_pil_uint8
 
-        img = Image.open(path).convert("RGB")
-        if self.raw_uint8:
-            return preprocess_pil_uint8(img, self.resolution)
-        return preprocess_pil(img, self.resolution)
+        return preprocess_pil_uint8(Image.open(path).convert("RGB"), self.resolution)
 
     def load(self, class_name: str, paths: Sequence[str], idx: int) -> np.ndarray:
         try:

@@ -3,9 +3,9 @@ port's copy of ``hgr_tpu/data/transforms.py``).
 
 Equivalent of the reference's ``_transform`` (canonical at
 ``clip/clip.py:71-78``, duplicated in all three dataset files): resize the
-short side to ``n_px`` with bicubic, center-crop ``n_px``, RGB, then either
-raw uint8 (normalised on the device by ``models/clip.encode_image``) or
-[0,1] floats normalised with the CLIP mean/std.
+short side to ``n_px`` with bicubic, center-crop ``n_px``, RGB, as raw
+uint8: ``models/clip.encode_image`` normalises with the CLIP mean/std on
+the device.
 """
 
 from __future__ import annotations
@@ -62,12 +62,6 @@ def _resize_crop_rgb(img, n_px: int):
     return img
 
 
-def preprocess_pil(img, n_px: int) -> np.ndarray:
-    """PIL image -> [n_px, n_px, 3] float32, CLIP-normalized."""
-    arr = np.asarray(_resize_crop_rgb(img, n_px), np.float32) / 255.0
-    return (arr - CLIP_MEAN) / CLIP_STD
-
-
 def preprocess_pil_uint8(img, n_px: int) -> np.ndarray:
     """PIL image -> [n_px, n_px, 3] uint8 (resize + crop, NO normalization).
 
@@ -75,7 +69,3 @@ def preprocess_pil_uint8(img, n_px: int) -> np.ndarray:
     and let the device normalise (models/clip.py:encode_image)."""
     return np.asarray(_resize_crop_rgb(img, n_px), np.uint8)
 
-
-def normalize_array(arr: np.ndarray) -> np.ndarray:
-    """[H, W, 3] float32 in [0,1] -> CLIP-normalized."""
-    return (arr - CLIP_MEAN) / CLIP_STD

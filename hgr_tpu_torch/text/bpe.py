@@ -106,14 +106,22 @@ def bytes_to_unicode() -> Dict[int, str]:
     return dict(zip(bs, [chr(c) for c in cs]))
 
 
-def _clean(text: str) -> str:
+@lru_cache()
+def _fix_text():
+    """ftfy's ``fix_text`` where ftfy is installed, else NFC normalisation.
+
+    Looked up once: an import that fails is not remembered, and each attempt
+    searches every ``sys.path`` entry again, which cost most of a
+    tokenize call when it was retried for every text."""
     try:
         import ftfy
-
-        text = ftfy.fix_text(text)
     except ImportError:
-        text = unicodedata.normalize("NFC", text)
-    text = html.unescape(html.unescape(text))
+        return lambda text: unicodedata.normalize("NFC", text)
+    return ftfy.fix_text
+
+
+def _clean(text: str) -> str:
+    text = html.unescape(html.unescape(_fix_text()(text)))
     text = _patterns()[1].sub(" ", text.strip())
     return text.lower()
 
