@@ -50,7 +50,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
 12. one OM train step in float32 on the card against the port's CPU path
     (small TEST-ViT config, the same weights and schedule): the loss and the
     updated weights agree within the CPU tests' tolerances;
-13. K1's guard: a CUDA call that autograd would record raises.
+13. K1's guard: a CUDA call that autograd would record raises;
+14. CoOp OM training at full width (RN50, bf16, remat, ``--coop_train
+    ctx``, prompts of T = 48): 4 steps at batch 256 through
+    ``driver.run_train``, every CLIP tensor bitwise unchanged, the context
+    moved and saved in ``clip_0``, K1 0 times inside the steps and 432 in
+    the test after them (the CoOp bank), which is then held to the bank
+    built with the plain attention;
+15. flat fine-tuning at full width (RN50, bf16, 1,000 seen classes): 4
+    steps at batch 256 through ``driver.run_train_flat``, then the test
+    (K1 0 times in the steps, 432 in the test);
+16. ``python -m hgr_tpu_torch.baselines.run`` in subprocesses over phase 9's
+    hierarchy and splits (``BASELINE_RUNS``: GCN dense_att, CNZSL and FREE
+    at 512-d embeddings and 2,048-d features, CLIP-flat at TEST-RN, whose
+    bank reaches K1 at head dim 16, 2 layers x 36 chunks = 72 launches):
+    every metric of the final line finite;
+17. one float32 step each of the CoOp OM loss, the flat step, CNZSL, GCN
+    and FREE on the card against the port's CPU path, with the same
+    weights, inputs and draws.
 
 The second-to-last lines are the kernel table (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -79,7 +96,9 @@ LEVEL_SIZES = [10, 800, 4000, 5000, 4000, 2500, 1000, 500, 250, 120, 60, 30, 8]
 # context 77 and a short prompt 20; ViT-B/32's 50 and ViT-B/16's 197 (12
 # heads) without mask; T = 48 and 96, the last lengths of the three- and
 # six-row-tile instantiations, so that every bf16 instantiation is held to
-# the plain version; the edges T = 256 (two passes over key tiles) and T = 1
+# the plain version; the edges T = 256 (two passes over key tiles) and T = 1;
+# the TEST configurations' head dim 16 (padded to 64 by the wrapper), which
+# the baselines runner's CLIP-flat bank reaches at TEST-RN
 KERNEL_CASES = [
     ((512, 8, 32, 64), (True, False)),
     ((512, 8, 77, 64), (True, False)),
@@ -91,6 +110,7 @@ KERNEL_CASES = [
     ((512, 8, 96, 64), (True, False)),
     ((8, 8, 256, 64), (True, False)),
     ((8, 8, 1, 64), (True, False)),
+    ((512, 2, 32, 16), (True,)),
 ]
 MAIN_SHAPE = (512, 8, 32, 64)                 # the bank build's: 512 prompts, T = 32
 # sha256 of ``ancestors.tobytes()`` of profiled_hierarchy(LEVEL_SIZES, seed=0,
@@ -485,6 +505,54 @@ def phase_vit_features(tm, batch=512):
     assert err <= 1e-2 and float(cos.min()) >= 0.999, "ViT features through K1 disagree"
 
 
+def run_counting_launches(fn, *args):
+    """``fn(*args)`` (a driver's train run) with K1's launches split at the
+    test after training: returns the result and ``{"train_steps": n,
+    "test": m}``. A spy on the path, not on what it computes."""
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.ops.attention import attention
+
+    seen = {}
+    real = driver.run_test
+
+    def run_test_spy(*a, **kw):
+        seen["train_steps"] = attention.launches
+        out = real(*a, **kw)
+        seen["test"] = attention.launches - seen["train_steps"]
+        return out
+
+    driver.run_test = run_test_spy
+    attention.launches = 0
+    try:
+        out = fn(*args)
+    finally:
+        driver.run_test = real
+    return out, seen
+
+
+def train_log(logger):
+    """The losses of a run's ``metrics.jsonl``, the host-clock ms between
+    consecutive steps and their median."""
+    records = [json.loads(line) for line in open(logger.jsonl_path)]
+    train = [r for r in records if r["event"] == "train"]
+    step_ms = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(train, train[1:])]
+    return [r["loss"] for r in train], step_ms, statistics.median(step_ms)
+
+
+def _card_name(dev):
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev):
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+
 def phase_train(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare=256,
                 episodes=4, test_batches=2, bank_launches=432, folder="runs/chip_smoke_train"):
     """OM training at full width through ``driver.run_train``; returns K1's
@@ -496,7 +564,6 @@ def phase_train(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compar
     from hgr_tpu_torch.config import Config
     from hgr_tpu_torch.hierarchy import profiled_hierarchy
     from hgr_tpu_torch.models.clip import clip_init
-    from hgr_tpu_torch.ops.attention import attention
     from hgr_tpu_torch.train import ScheduleBuilder, init_train_state, make_optimizer
     from hgr_tpu_torch.utils.checkpoint import restore_checkpoint
     from hgr_tpu_torch.utils.logging import RunLogger
@@ -517,17 +584,10 @@ def phase_train(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compar
     before = {k: sd[k].clone() for k in watched}
     lw_before = tm.layer_weight.detach().clone()
 
-    # spies on the path, not on what it computes: K1's count when the test
-    # after training starts, and the prompts each schedule asks to encode
-    seen = {}
+    # a spy on the path, not on what it computes: the prompts each schedule
+    # asks to encode (run_counting_launches spies K1's count)
     prompts = []
-    real_run_test, real_build = driver.run_test, ScheduleBuilder.build
-
-    def run_test_spy(*a, **kw):
-        seen["train_steps"] = attention.launches
-        out = real_run_test(*a, **kw)
-        seen["test"] = attention.launches - seen["train_steps"]
-        return out
+    real_build = ScheduleBuilder.build
 
     def build_spy(self, target):
         sched = real_build(self, target)
@@ -535,33 +595,25 @@ def phase_train(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compar
         return sched
 
     logger = RunLogger(cfg.save_path, echo=False)
-    on_card = dev.type == "cuda"
-    if on_card:
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-    driver.run_test, ScheduleBuilder.build = run_test_spy, build_spy
-    attention.launches = 0
+    _reset_peak(dev)
+    ScheduleBuilder.build = build_spy
     t0 = time.time()
     try:
-        state = driver.run_train(cfg, tm, splits, logger)
+        state, seen = run_counting_launches(driver.run_train, cfg, tm, splits, logger)
     finally:
-        driver.run_test, ScheduleBuilder.build = real_run_test, real_build
+        ScheduleBuilder.build = real_build
     wall = time.time() - t0
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else float("nan")
+    peak = _peak_gib(dev)
 
-    records = [json.loads(line) for line in open(logger.jsonl_path)]
-    train = [r for r in records if r["event"] == "train"]
-    losses = [r["loss"] for r in train]
-    step_ms = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(train, train[1:])]
-    med = statistics.median(step_ms)
-    perf = [r for r in records if r["event"] == "epoch_perf"][0]
+    losses, step_ms, med = train_log(logger)
+    perf = [r for r in map(json.loads, open(logger.jsonl_path)) if r["event"] == "epoch_perf"][0]
     log(f"[train] {arch} bf16 remat, batch {batch}, {num_compare} negatives, {hier.num_nodes} "
         f"classes (bank rows {tm.n_pad}), {len(losses)} steps in {wall:.1f} s of run_train")
     log(f"[train] losses {losses}")
     log(f"[train] step ms after the first: {[round(x, 1) for x in step_ms]}, median {med:.1f} ms "
         f"= {batch / med * 1e3:.1f} images/s; epoch_perf {perf['step_ms']} ms a step over all "
         f"steps, {perf['imgs_per_sec']} images/s; prompts a step (distinct, encoded) {prompts}; "
-        f"peak memory {peak:.2f} GiB; on {torch.cuda.get_device_name(0) if on_card else 'cpu'}")
+        f"peak memory {peak:.2f} GiB; on {_card_name(dev)}")
     assert len(losses) == episodes and all(math.isfinite(x) for x in losses), losses
     sd = tm.model.state_dict()
     for k in watched:
@@ -652,6 +704,320 @@ def phase_train_reference(dev):
         f"{rel:.2e}, tol 1e-5); updated weights: largest excess over 3e-5 + 5e-3|w| "
         f"{worst:.3e} (must be <= 0); layer_weight max_abs_err {lw_err:.2e}")
     assert rel <= 1e-5 and worst <= 0 and lw_err <= 3e-5 + 5e-3 * float(wc.abs().max())
+
+
+def phase_coop(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare=256, episodes=4,
+               test_batches=2, bank_launches=432, folder="runs/chip_smoke_coop"):
+    """CoOp OM training at full width through ``driver.run_train`` with
+    ``--coop --coop_train ctx``: every loss finite, the context moved, every
+    CLIP tensor bitwise as it was, no K1 launch inside a train step and
+    ``bank_launches`` in the test after them (the CoOp bank), ``clip_0``
+    holds the context; then the CoOp bank through K1 held to the one built
+    with the plain attention. Returns K1's launches."""
+    import os
+    import shutil
+
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.eval.bank import build_bank_ids
+    from hgr_tpu_torch.hierarchy import profiled_hierarchy
+    from hgr_tpu_torch.models.layers import attention_scores
+    from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.utils.checkpoint import restore_params
+    from hgr_tpu_torch.utils.logging import RunLogger
+
+    cfg = Config(arch=arch, synthetic=True, train=True, remat=True, coop=True, coop_train="ctx",
+                 batch_size=batch, num_compare=num_compare, epochs=1, n_episodes=episodes,
+                 test_after_train=True, max_test_batches=test_batches, test_batch_size=batch,
+                 synthetic_images_per_class=batch, print_freq=1, folder=folder)
+    shutil.rmtree(cfg.save_path, ignore_errors=True)
+    hier = profiled_hierarchy(level_sizes, seed=0, cross_edges=40)
+    splits = driver.synthetic_splits(hier, cfg.seed)
+    tm = driver.build_model(cfg, hier, splits, device=dev)
+    static, ctx0 = tm.coop_setup(cfg.seed)
+    before = {k: v.clone() for k, v in tm.model.state_dict().items()}
+    logger = RunLogger(cfg.save_path, echo=False)
+    _reset_peak(dev)
+    t0 = time.time()
+    _, seen = run_counting_launches(driver.run_train, cfg, tm, splits, logger)
+    wall = time.time() - t0
+    peak = _peak_gib(dev)
+    losses, step_ms, med = train_log(logger)
+    log(f"[coop] {arch} bf16 remat, coop_train ctx, batch {batch}, {num_compare} negatives, "
+        f"prompt length T = {static.tokenized.shape[1]} (n_ctx {static.n_ctx}), bank rows "
+        f"{tm.n_pad}; {len(losses)} steps in {wall:.1f} s of run_train")
+    log(f"[coop] losses {losses}")
+    log(f"[coop] step ms after the first: {[round(x, 1) for x in step_ms]}, median {med:.1f} ms "
+        f"= {batch / med * 1e3:.1f} images/s; peak memory {peak:.2f} GiB; on {_card_name(dev)}")
+    assert len(losses) == episodes and all(math.isfinite(x) for x in losses), losses
+    assert not torch.equal(tm.coop_ctx.detach().cpu(), ctx0.cpu()), "coop_ctx did not move"
+    moved = [k for k, v in tm.model.state_dict().items() if not torch.equal(v, before[k])]
+    assert not moved, f"CLIP tensors moved under coop_train ctx: {moved[:5]}"
+    log(f"[coop] K1 launches: {seen['train_steps']} inside the train steps, {seen['test']} in "
+        f"the test after them; all {len(before)} CLIP tensors bitwise unchanged")
+    assert seen["train_steps"] == 0, "K1 ran inside a train step"
+    assert seen["test"] == bank_launches, seen
+    saved = restore_params(os.path.join(cfg.save_path, "clip_0"))
+    assert torch.equal(saved["coop_ctx"], tm.coop_ctx.detach().cpu()), "clip_0's coop_ctx"
+
+    # the CoOp bank through K1 against the plain attention's (not counted)
+    params = {"clip": tm.model, "coop_ctx": tm.coop_ctx}
+    chunk = min(512, tm.n_pad)
+    got, want = (build_bank_ids(params, tm.n_pad, tm.coop_text_fn(static, attn_fn=fn), chunk,
+                                tm.dtype, dev).float() for fn in (attention, attention_scores))
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    err = float((got - want).abs().max())
+    log(f"[coop] bank of {tm.n_pad} CoOp prompts, kernel vs plain attention, bf16: max_abs_err "
+        f"{err:.3e} (tol 1e-2), min row cosine {float(cos.min()):.6f} (tol 0.999)")
+    assert err <= 1e-2 and float(cos.min()) >= 0.999, "CoOp bank through K1 disagrees"
+    shutil.rmtree(cfg.save_path, ignore_errors=True)
+    return seen
+
+
+def phase_flat(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, n_seen=1000, steps=4,
+               test_batches=2, bank_launches=432, folder="runs/chip_smoke_flat"):
+    """Flat fine-tuning at full width through ``driver.run_train`` with
+    ``--training_method flat``: ``n_seen`` seen classes drawn from the seed
+    (the reference's regime is about 1,000), every step encoding all their
+    prompts; ``steps`` batches (two images each of ``steps * batch / 2``
+    seen classes), then ``run_test``. Every loss finite, the CLIP weights
+    moved and ``layer_weight`` not, no K1 launch inside a step and
+    ``bank_launches`` in the test. Returns K1's launches."""
+    import shutil
+
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.hierarchy import profiled_hierarchy
+    from hgr_tpu_torch.utils.logging import RunLogger
+
+    cfg = Config(arch=arch, synthetic=True, train=True, training_method="flat", batch_size=batch,
+                 epochs=1, data_train="smoke_flat", synthetic_images_per_class=2,
+                 test_after_train=True, max_test_batches=test_batches, test_batch_size=batch,
+                 print_freq=1, folder=folder)
+    shutil.rmtree(cfg.save_path, ignore_errors=True)
+    hier = profiled_hierarchy(level_sizes, seed=0, cross_edges=40)
+    perm = np.random.default_rng(cfg.seed).permutation(hier.num_nodes)
+    seen_cls = [hier.names[i] for i in sorted(perm[:n_seen])]
+    rest = [hier.names[i] for i in sorted(perm[n_seen:])]
+    splits = {"train": seen_cls, "rest": rest, "all": seen_cls + rest,
+              "smoke_flat": seen_cls[: steps * batch // 2]}
+    tm = driver.build_model(cfg, hier, splits, device=dev)
+    sd = tm.model.state_dict()
+    watched = [k for k in ("visual.conv1.weight", "visual.attnpool.c_proj.weight",
+                           "transformer.resblocks.0.attn.in_proj_weight", "logit_scale")
+               if k in sd]
+    before = {k: sd[k].clone() for k in watched}
+    lw_before = tm.layer_weight.detach().clone()
+    logger = RunLogger(cfg.save_path, echo=False)
+    _reset_peak(dev)
+    t0 = time.time()
+    _, seen = run_counting_launches(driver.run_train_flat, cfg, tm, splits, logger)
+    wall = time.time() - t0
+    peak = _peak_gib(dev)
+    losses, step_ms, med = train_log(logger)
+    log(f"[flat] {arch} bf16, batch {batch}, {n_seen} seen prompts a step (T = "
+        f"{tm.node_tokens.shape[1]}), {len(losses)} steps in {wall:.1f} s of run_train_flat")
+    log(f"[flat] losses {losses}")
+    log(f"[flat] step ms after the first: {[round(x, 1) for x in step_ms]}, median {med:.1f} ms "
+        f"= {batch / med * 1e3:.1f} images/s; peak memory {peak:.2f} GiB; on {_card_name(dev)}")
+    assert len(losses) == steps and all(math.isfinite(x) for x in losses), losses
+    sd = tm.model.state_dict()
+    for k in watched:
+        assert not torch.equal(sd[k], before[k]), f"{k} did not move"
+    assert torch.equal(tm.layer_weight.detach(), lw_before), "layer_weight moved"
+    log(f"[flat] K1 launches: {seen['train_steps']} inside the train steps, {seen['test']} in "
+        "the test after them")
+    assert seen["train_steps"] == 0, "K1 ran inside a train step"
+    assert seen["test"] == bank_launches, seen
+    shutil.rmtree(cfg.save_path, ignore_errors=True)
+    return seen
+
+
+# the baselines at the reference's widths: 512-d class embeddings (CLIP
+# text features), 2,048-d prototypes and features (a ResNet-50's)
+BASELINE_RUNS = {
+    "gcn": ["--baseline", "gcn", "--variant", "dense_att", "--attr_dim", "512",
+            "--feat_dim", "2048", "--hid_dim", "2048", "--steps", "40"],
+    "cnzsl": ["--baseline", "cnzsl", "--attr_dim", "512", "--feat_dim", "2048",
+              "--hid_dim", "1024", "--steps", "40"],
+    "free": ["--baseline", "free", "--attr_dim", "512", "--feat_dim", "2048",
+             "--syn_num", "32", "--steps", "20"],
+    "clip_flat": ["--baseline", "clip_flat", "--steps", "20"],
+}
+# K1's launches in CLIP-flat's bank: TEST-RN's 2 text layers x 36 chunks of
+# 512 prompts (18,278 classes padded to 18,432)
+CLIP_FLAT_BANK_LAUNCHES = 2 * 36
+
+
+def phase_baselines(graph_path, split_path, device_index=0, runs=BASELINE_RUNS,
+                    bank_launches=CLIP_FLAT_BANK_LAUNCHES):
+    """``python -m hgr_tpu_torch.baselines.run`` for each baseline, in a
+    subprocess on the card, over the real-input phase's hierarchy and
+    splits: its last line must parse and every metric be finite, and
+    CLIP-flat's bank must launch K1 ``bank_launches`` times.
+    Prints each run's wall time and the runner's own training line
+    (steps/s, peak memory). Returns the bank's K1 launches."""
+    seen = None
+    for name, flags in runs.items():
+        cmd = [sys.executable, "-m", "hgr_tpu_torch.baselines.run", *flags, "--synthetic",
+               "False", "--graph_path", graph_path, "--split_path", split_path,
+               "--device", str(device_index)]
+        t0 = time.time()
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        assert p.returncode == 0, f"{name}: " + p.stdout[-3000:] + p.stderr[-3000:]
+        lines = p.stdout.strip().splitlines()
+        summary = json.loads(lines[-1])
+        assert summary.pop("baseline") == name, lines[-1]
+        assert summary["num_samples"] > 0 and all(math.isfinite(v) for v in summary.values()), \
+            summary
+        for line in lines:
+            if line.startswith("# "):
+                log(f"[baselines] {name}: {line[2:]}")
+            if line.startswith("# K1 launches in the bank: "):
+                seen = int(line.rsplit(" ", 1)[1])
+        log(f"[baselines] {name}: {wall:.1f} s of command; {json.dumps(summary)}")
+    if "clip_flat" in runs:
+        assert seen == bank_launches, \
+            f"CLIP-flat's bank launched K1 {seen} times, not {bank_launches}"
+    return seen
+
+
+def phase_steps_reference(dev):
+    """One float32 step of the CoOp OM loss (coop_train both), of the flat
+    step, of CNZSL, GCN (dense_att, with dropout masks) and FREE (a D step
+    then a G step) on the card and on the port's CPU path, from the same
+    weights, inputs and draws: every loss within 1e-5 relative (1e-5
+    absolute under 1), every parameter within 3e-5 + 5e-3|w| wherever its
+    CPU gradient is above 1e-6 (the gradient read back from Adam's first
+    moment, m / (1 - b1): Adam's first step is about lr * sign(g), so a
+    gradient at rounding level may flip its sign)."""
+    from hgr_tpu_torch.baselines import cnzsl, free, gcn
+    from hgr_tpu_torch.baselines.clip_flat import make_flat_train_step
+    from hgr_tpu_torch.baselines.optim import Adam, from_numpy
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.hierarchy import synthetic_hierarchy
+    from hgr_tpu_torch.models.coop import coop_ctx_init
+    from hgr_tpu_torch.models.layers import attention_scores
+    from hgr_tpu_torch.train import (NegativeSampler, ScheduleBuilder, init_train_state,
+                                     make_optimizer, make_train_step, sched_to_device)
+    from hgr_tpu_torch.train.trainer import Optimizer
+    from hgr_tpu_torch.tree_model import TreeModel
+
+    hier = synthetic_hierarchy(3, 4, 5, 0)
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    cfg = Config(arch="TEST-ViT", dtype="float32", batch_size=4, num_compare=6, remat=True,
+                 lr=1e-3, w_lr=1e-2, coop=True, coop_train="both")
+    weights = TreeModel.build(cfg, hier, pad_multiple=64, device="cpu")
+    weights = weights.init_params(0).state_dict()
+    ctx0 = coop_ctx_init(torch.Generator().manual_seed(1), 16, 32)
+    target = int(hier.level(hier.max_depth)[3])
+
+    def tree_model(device):
+        tm = TreeModel.build(cfg, hier, pad_multiple=64, device=device)
+        tm.load_state_dict(weights)
+        return tm
+
+    def coop_step(device):
+        tm = tree_model(device)
+        static, _ = tm.coop_setup(0)
+        sched = ScheduleBuilder(hier, NegativeSampler(hier, tm.train_index, 6, seed=0,
+                                                      topk_window="both"),
+                                cfg.out_ratio, cfg.in_ratio, 6).build(target)
+        tx = make_optimizer(cfg, 10, extra_labels={"coop_ctx": "clip"})
+        state = init_train_state(tm.model, tm.layer_weight, tx,
+                                 extra_params={"coop_ctx": ctx0.to(device, copy=True)})
+        step = make_train_step(cfg, tx, dtype=torch.float32,
+                               text_fn=tm.coop_text_fn(static, attn_fn=attention_scores))
+        _, loss = step(state, torch.from_numpy(images).to(device),
+                       torch.as_tensor(tm.node_tokens, device=device).long(),
+                       sched_to_device(sched, device))
+        return [float(loss)], [state.opt_state.adamw]
+
+    def flat_step(device):
+        tm = tree_model(device)
+        tx = Optimizer(cfg.replace(accum_steps=1), 10, {"clip": "clip"})
+        params = {"clip": tm.model}
+        opt = tx.init(params)
+        _, _, loss = make_flat_train_step(tx, torch.float32)(
+            params, opt, torch.from_numpy(images).to(device),
+            torch.as_tensor(tm.node_tokens[:26], device=device).long(),
+            torch.as_tensor([3, 0, 25, 7], device=device))
+        return [float(loss)], [opt.adamw]
+
+    feats = rng.standard_normal((16, 64)).astype(np.float32)
+    attrs = rng.standard_normal((hier.num_nodes, 32)).astype(np.float32)
+    protos = rng.standard_normal((hier.num_nodes, 64)).astype(np.float32)
+    labels = rng.integers(0, 10, 16)
+
+    def cnzsl_step(device):
+        c = cnzsl.CNZSLConfig(attr_dim=32, proto_dim=64, hid_dim=64)
+        params, state = cnzsl.cnzsl_init(torch.Generator().manual_seed(0), c)
+        params, state = from_numpy(params, device), from_numpy(state, device, False)
+        tx = Adam(1e-3)
+        opt = tx.init(params)
+        t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+        _, _, _, loss = cnzsl.make_cnzsl_train_step(c, tx)(params, state, opt, t(feats),
+                                                           t(attrs[:10]), t(labels))
+        return [float(loss)], [opt]
+
+    def gcn_step(device):
+        groups = gcn.dense_edges(hier, max_hops=4)
+        n = hier.num_nodes
+        adj = [gcn.Adjacency.build(g, n, device=device) for g in groups]
+        radj = [gcn.Adjacency.build(g, n, transpose=True, device=device) for g in groups]
+        c = gcn.GCNConfig(n=n, in_channels=32, out_channels=64, hidden_layers="d64,d",
+                          mode="dense_att", n_hops=len(groups))
+        params = from_numpy(gcn.gcn_init(torch.Generator().manual_seed(0), c), device)
+        masks = [m if m is None else m.to(device)
+                 for m in gcn.draw_dropout_masks(torch.Generator().manual_seed(1), c)]
+        tx = Adam(1e-3)
+        opt = tx.init(params)
+        t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+        _, _, loss = gcn.make_gcn_train_step(c, tx, adj, radj)(
+            params, opt, t(attrs), t(protos), t(np.arange(0, n, 2)), masks)
+        return [float(loss)], [opt]
+
+    fc = free.FREEConfig(res_size=64, att_size=16, latent_size=16, ngh=128, ndh=128,
+                         nclass_seen=10, critic_iter=1, center_margin=20.0)
+    g = torch.Generator().manual_seed(2)
+    d_draws, g_draws = free.draw_d(g, fc, 16, 10), free.draw_g(g, fc, 16)
+    feat01 = rng.random((16, 64)).astype(np.float32)
+
+    def free_step(device):
+        params = from_numpy(free.free_init(torch.Generator().manual_seed(0), fc), device)
+        d_step, g_step, init_opts = free.make_free_steps(fc)
+        optD, optFR, optC, optEG = init_opts(params)
+        t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+        lab = t(labels)
+        others = free.other_labels(lab, 10, d_draws["offsets"].to(device))
+        out = d_step(params, optD, optFR, optC, t(feat01), t(attrs[:16, :16]), lab, others, 10.0,
+                     {k: v.to(device) for k, v in d_draws.items()})
+        _, _, g_loss = g_step(params, optEG, t(feat01), t(attrs[:16, :16]),
+                              {k: v.to(device) for k, v in g_draws.items()})
+        return [float(x) for x in out[4:]] + [float(g_loss)], [optD, optFR, optC, optEG]
+
+    for name, fn in (("CoOp OM step", coop_step), ("flat step", flat_step),
+                     ("CNZSL step", cnzsl_step), ("GCN dense_att step", gcn_step),
+                     ("FREE D and G steps", free_step)):
+        (lc, oc), (lg, og) = fn("cpu"), fn(dev)
+        loss_err = max(abs(b - a) / max(abs(a), 1.0) for a, b in zip(lc, lg))
+        worst, n_cmp = float("-inf"), 0
+        for opt_c, opt_g in zip(oc, og):
+            b1 = opt_c.param_groups[0]["betas"][0]
+            for pc, pg in zip((p for grp in opt_c.param_groups for p in grp["params"]),
+                              (p for grp in opt_g.param_groups for p in grp["params"])):
+                m = (opt_c.state[pc]["exp_avg"] / (1 - b1)).abs() > 1e-6
+                w = pc.detach()[m]
+                if m.any():
+                    excess = (pg.detach().cpu()[m] - w).abs() - (3e-5 + 5e-3 * w.abs())
+                    worst = max(worst, float(excess.max()))
+                    n_cmp += int(m.sum())
+        log(f"[steps-small] {name}, float32, card vs cpu: losses {lg} vs {lc} (largest error "
+            f"{loss_err:.2e}, tol 1e-5); {n_cmp} updated weights, largest excess over 3e-5 + "
+            f"5e-3|w| {worst:.3e} (must be <= 0)")
+        assert loss_err <= 1e-5 and worst <= 0 and n_cmp > 0, name
 
 
 class SeededRows:
@@ -987,18 +1353,29 @@ def main() -> int:
     try:
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
+        real_launches = real.pop("launches")
+        del real
+        train = phase_train(dev)
+        phase_train_reference(dev)
+        phase_guard(dev)
+        coop = phase_coop(dev)
+        flat = phase_flat(dev)
+        # the real-input phase's hierarchy and splits
+        clip_flat = phase_baselines(f"{work}/graph_edges_cls.json",
+                                    f"{work}/splits_for_tree.json", dev.index or 0)
+        phase_steps_reference(dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    real_launches = real.pop("launches")
-    del real
-    train = phase_train(dev)
-    phase_train_reference(dev)
-    phase_guard(dev)
 
     by_path = {"rn50_eval": rn50, "vit_b32_eval": vit_launches,
                "rn50_real_inputs_eval": real_launches,
                **({} if serving is None else {"rn50_serve_classify_files": serving}),
-               "rn50_train_steps": train["train_steps"], "rn50_test_after_train": train["test"]}
+               "rn50_train_steps": train["train_steps"], "rn50_test_after_train": train["test"],
+               "rn50_coop_train_steps": coop["train_steps"],
+               "rn50_coop_test_after_train": coop["test"],
+               "rn50_flat_train_steps": flat["train_steps"],
+               "rn50_flat_test_after_train": flat["test"],
+               "test_rn_clip_flat_baseline_bank": clip_flat}
     kernels = [dict(
         name="attention",
         route="cuda",

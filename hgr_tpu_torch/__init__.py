@@ -5,11 +5,14 @@ nothing of it (nor JAX) and keeps its own copies of what it needs. It runs
 zero-shot evaluation (the class bank from the CLIP text tower, the RN50 or
 ViT image tower, the depth-sorted per-level argmax and the hierarchical
 metrics), serving (``serve.ZeroShotClassifier``, ``python -m
-hgr_tpu_torch.serve``) and OM fine-tuning (``train``, ``driver.run_train``),
-on synthetic inputs or on real ones: JSON hierarchies, BPE prompts
-(``text``), OpenAI and the port's own checkpoints, and image files through
-manifests or a decode cache (``data``). Without gradients, attention on the card
-is a hand-written CUDA kernel (``csrc/attention.cu``); the train step runs
+hgr_tpu_torch.serve``), OM fine-tuning (``train``, ``driver.run_train``),
+its CoOp variant (``models/coop.py``), flat fine-tuning
+(``driver.run_train_flat``) and the baselines (``python -m
+hgr_tpu_torch.baselines.run``), on synthetic inputs or on real ones: JSON
+hierarchies, BPE prompts (``text``), OpenAI and the port's own
+checkpoints, and image files through manifests or a decode cache
+(``data``). Without gradients, attention on the card is a hand-written
+CUDA kernel (``csrc/attention.cu``); the train step runs
 the plain attention under autograd, as the JAX step runs XLA's. Entry
 points run on CUDA unless the caller passes ``device="cpu"``.
 

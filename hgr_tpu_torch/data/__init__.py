@@ -1,5 +1,6 @@
 from .pipeline import (
     FileImageSource,
+    FlatTrainLoader,
     GroupBatch,
     GroupedTestLoader,
     GroupedTrainLoader,
@@ -12,6 +13,7 @@ from .pipeline import (
 
 __all__ = [
     "FileImageSource",
+    "FlatTrainLoader",
     "GroupBatch",
     "GroupedTestLoader",
     "GroupedTrainLoader",

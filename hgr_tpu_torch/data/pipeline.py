@@ -10,7 +10,9 @@ Behaviour of the reference's grouped loaders (``dataset/imagenet_group.py:
   function of (seed, epoch) alone, so ``skip_next`` can re-enter a
   preempted epoch exactly;
 - test (``GroupedTestLoader``): every batch of every class in order,
-  ``num_batches`` the sum of per-class ceil-divisions.
+  ``num_batches`` the sum of per-class ceil-divisions;
+- flat (``FlatTrainLoader``): shuffled multi-class batches with per-row
+  labels, for flat fine-tuning and the CLIP-flat baseline.
 
 A class's last partial batch is zero-padded with a validity mask so that
 device shapes stay fixed. Images are made on the host by a thread pool
@@ -393,4 +395,76 @@ class GroupedTrainLoader:
                              self._next_indices(cls), self.batch_size, self.class_ids[cls])
 
         self._live = Prefetcher(gen)
+        return iter(self._live)
+
+
+class FlatTrainLoader:
+    """Shuffled multi-class batches of ``(images, labels, valid)``: the
+    reference's plain ``ImageNet`` Dataset and DataLoader
+    (``dataset/imagenet.py:63-161``), used by flat fine-tuning and the
+    CLIP-flat baseline (``hgr_tpu/data/pipeline.py:420-507``). Each epoch's
+    order is ``default_rng([seed, epoch])``'s permutation of all items;
+    ``drop_last=False`` zero-pads the last batch with ``valid`` False."""
+
+    def __init__(
+        self,
+        grouped: Dict[str, List[str]],
+        class_ids: Dict[str, int],
+        source: ImageSource,
+        batch_size: int,
+        seed: int = 0,
+        num_threads: int = 8,
+        prefetch: int = 4,
+        drop_last: bool = True,
+    ):
+        self.grouped = grouped
+        self.items = [(cls, i, class_ids[cls]) for cls, paths in grouped.items()
+                      for i in range(len(paths))]
+        self.batch_size = batch_size
+        self.source = source
+        self._seed = seed
+        self._epoch = 0
+        self._pool = ThreadPoolExecutor(max_workers=num_threads)
+        self._prefetch = prefetch
+        self._live: Optional[Prefetcher] = None
+        self.drop_last = drop_last
+        n = len(self.items)
+        self.num_batches = n // batch_size if drop_last else -(-n // batch_size)
+
+    def __len__(self) -> int:
+        return self.num_batches
+
+    def close(self) -> None:
+        """Stop a live producer, then the decode threads."""
+        if self._live is not None:
+            self._live.stop()
+            self._live = None
+        self._pool.shutdown(wait=True)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the next ``__iter__``'s shuffle to ``(seed, epoch)``; without
+        a call, epochs advance 0, 1, 2, ... per ``__iter__``."""
+        self._epoch = int(epoch)
+
+    def __iter__(self):
+        if self._live is not None:  # a re-entered loop must not share the producer
+            self._live.stop()
+        order = np.random.default_rng([self._seed, self._epoch]).permutation(len(self.items))
+        self._epoch += 1
+
+        def gen():
+            B = self.batch_size
+            for s in range(self.num_batches):
+                rows = [self.items[i] for i in order[s * B: (s + 1) * B]]
+                imgs = list(self._pool.map(
+                    lambda r: self.source.load(r[0], self.grouped[r[0]], r[1]), rows))
+                h, w, c = imgs[0].shape
+                out = np.zeros((B, h, w, c), imgs[0].dtype)
+                valid = np.zeros(B, bool)
+                labels = np.zeros(B, np.int32)
+                for j, (im, r) in enumerate(zip(imgs, rows)):
+                    out[j], labels[j], valid[j] = im, r[2], True
+                yield out, labels, valid
+
+        self._live = Prefetcher(gen, depth=self._prefetch)
         return iter(self._live)

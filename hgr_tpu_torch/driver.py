@@ -16,10 +16,15 @@ device, over the reference's JSON artifacts or a synthetic stand-in
   images) through the image tower and the depth-sorted metrics;
 - ``run_train`` runs the OM (or hierarchical) train step over grouped
   single-class batches, checkpoints every epoch, and resumes, mid-epoch
-  too, with ``--resume``.
+  too, with ``--resume``; ``run_train_flat`` (``--training_method flat``)
+  fine-tunes on shuffled multi-class batches with the CLIP-flat loss.
 
-Paths the port does not run yet raise instead of being ignored: flat
-training, CoOp, multi-device meshes, profiler traces and decode processes
+``--coop`` replaces the node prompts by the CoOp prompt learner
+(``models/coop.py``) in the bank and in the OM step; ``--coop_train``
+chooses what trains (the context, CLIP, or both).
+
+Paths the port does not run yet raise instead of being ignored:
+multi-device meshes, profiler traces and decode processes
 (``require_ported``).
 """
 
@@ -53,8 +58,6 @@ from .utils.logging import RunLogger
 def require_ported(config: Config) -> None:
     """Raise for every option that selects a path the port does not run."""
     refused = {
-        "--training_method flat": config.train and config.training_method == "flat",
-        "--coop": config.coop,
         "--mesh_data/--mesh_model": config.mesh_data not in (-1, 1) or config.mesh_model != 1,
         "--num_proc_workers": config.num_proc_workers > 0,
         "--trace_dir": bool(config.trace_dir),
@@ -135,6 +138,8 @@ def build_model(
         tm.model.load_state_dict(restored["clip"])
         with torch.no_grad():
             tm.layer_weight.copy_(restored["layer_weight"])
+        if "coop_ctx" in restored:  # a checkpoint of CoOp training
+            tm.coop_ctx = restored["coop_ctx"].to(tm.device)
 
     if config.fetch and config.fetch_path:
         apply(restore_params(config.fetch_path))
@@ -185,7 +190,18 @@ def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[s
     """Zero-shot evaluation (reference ``test()``, ``main.py:104-222``)."""
     require_ported(config)
     dev = tm.device
-    bank_s = tm.sort_bank(tm.update_classifier())
+    if config.coop:
+        from .eval.bank import build_bank_ids
+
+        static, ctx = tm.coop_setup(config.seed)
+        if tm.coop_ctx is not None:
+            ctx = tm.coop_ctx  # trained context from run_train or a checkpoint
+        bank = build_bank_ids({"clip": tm.model, "coop_ctx": ctx}, tm.n_pad,
+                              tm.coop_text_fn(static), chunk=min(512, tm.n_pad),
+                              out_dtype=tm.dtype, device=dev)
+    else:
+        bank = tm.update_classifier()
+    bank_s = tm.sort_bank(bank)
 
     grouped = _grouped_split(config, config.data_split_test, splits[config.data_test], splits)
     loader = GroupedTestLoader(
@@ -226,9 +242,78 @@ def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[s
     return summary
 
 
+def run_train_flat(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
+    """Flat fine-tuning, ``--training_method flat`` (``hgr_tpu/driver.py:
+    257-334``): accepted but never run by the reference (``main.py:55``);
+    here the CLIP-flat step over shuffled multi-class batches, cross-entropy
+    over the seen classes' prompts, the global-norm clip, then AdamW on the
+    cosine schedule over the CLIP tensors alone (``layer_weight`` stays).
+    A checkpoint each epoch; ``--resume`` does not apply. Returns the final
+    TrainState."""
+    from contextlib import closing
+
+    from .baselines.clip_flat import make_flat_train_step
+    from .data import FlatTrainLoader
+    from .train import TrainState
+    from .train.trainer import Optimizer
+    from .utils.checkpoint import AsyncCheckpointSaver
+    from .utils.preempt import GracefulShutdown
+
+    require_ported(config)
+    dev = tm.device
+    grouped = _grouped_split(config, config.data_split_train, splits[config.data_train],
+                             splits)
+    seen_ids = tm.hier.ids(splits["train"])
+    seen_pos = {int(c): i for i, c in enumerate(seen_ids)}
+    loader = FlatTrainLoader(
+        grouped,
+        {c: tm.hier.name_to_id[c] for c in grouped},
+        _image_source(config, tm.clip_cfg.image_resolution, grouped, config.data_split_train),
+        config.batch_size,
+        seed=config.seed,
+        num_threads=config.num_workers,
+    )
+    seen_tokens = torch.as_tensor(tm.node_tokens[seen_ids], device=dev).long()
+    # optax.chain(clip_by_global_norm, adamw(cosine_lr)) over {"clip"} alone,
+    # with no MultiSteps (driver.py:287-292)
+    tx = Optimizer(config.replace(accum_steps=1), config.epochs * max(1, len(loader)),
+                   {"clip": "clip"})
+    params = {"clip": tm.model}
+    opt = tx.init(params)
+    state = TrainState(params={"clip": tm.model, "layer_weight": tm.layer_weight}, opt_state=opt)
+    step = make_flat_train_step(tx, dtype=tm.dtype)
+    logger.log_config(config)
+    with AsyncCheckpointSaver(keep=config.keep_checkpoints) as saver, \
+            GracefulShutdown() as shutdown, closing(loader):
+        for epoch in range(config.from_epoch + 1, config.epochs):
+            loader.set_epoch(epoch)  # restart-deterministic shuffles
+            for i, (images, labels, _valid) in enumerate(loader):
+                # a label outside the seen classes counts as seen class 0, as
+                # in the JAX package (driver.py:306)
+                labels = torch.as_tensor([seen_pos.get(int(x), 0) for x in labels], device=dev)
+                params, opt, loss = step(params, opt, torch.from_numpy(images).to(dev),
+                                         seen_tokens, labels)
+                if i % config.print_freq == 0:
+                    logger.log_train(epoch, i, len(loader), float(loss))
+                if shutdown.requested:
+                    break  # SIGTERM: the checkpoint below still runs
+            state.step = (epoch + 1) * len(loader)
+            saver.save(config.save_path, epoch, state)
+            logger.log_text(f"Model saved. epoch={epoch}")
+            if shutdown.requested:
+                logger.log_text(f"preempted (SIGTERM): saved epoch={epoch}")
+                break
+            if config.test_after_train:
+                run_test(config, tm, splits, logger)
+    return state
+
+
 def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
     """OM fine-tuning (reference ``train()`` + driver, ``main.py:72-101,
-    225-258``); returns the final TrainState."""
+    225-258``); returns the final TrainState. With ``--coop`` the text path
+    is the prompt learner and ``--coop_train`` labels what trains
+    (``hgr_tpu/driver.py:370-382``)."""
+    from .models.layers import attention_scores
     from .train import (
         NegativeSampler,
         ScheduleBuilder,
@@ -251,8 +336,19 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
         serial_batches=config.serial_batches,
     )
     steps_per_epoch = loader.n_episodes
-    tx = make_optimizer(config, config.epochs * steps_per_epoch)
-    state = init_train_state(tm.model, tm.layer_weight, tx)
+    text_fn = extra_params = extra_labels = None
+    if config.coop:
+        static, ctx = tm.coop_setup(config.seed)
+        # under autograd: the plain attention, as for the standard text path
+        text_fn = tm.coop_text_fn(static, attn_fn=attention_scores)
+        extra_params = {"coop_ctx": ctx}
+        extra_labels = {
+            "ctx": {"clip": "frozen", "coop_ctx": "clip"},
+            "clip": {"coop_ctx": "frozen"},
+            "both": {"coop_ctx": "clip"},
+        }[config.coop_train]
+    tx = make_optimizer(config, config.epochs * steps_per_epoch, extra_labels=extra_labels)
+    state = init_train_state(tm.model, tm.layer_weight, tx, extra_params=extra_params)
     resume_meta = None
     if config.resume:
         from .utils.checkpoint import latest_epoch, read_ckpt_meta, restore_checkpoint
@@ -268,10 +364,15 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
             config.from_epoch = epoch
             resume_meta = read_ckpt_meta(config.save_path, epoch)
             logger.log_text(f"resumed full state from {ckpt} (step {state.step})")
-    step_fn = make_train_step(config, tx, dtype=tm.dtype)
+    # frozen groups take no gradient, so their backward never runs (ctx-only
+    # CoOp skips the whole image tower's)
+    frozen = tuple(k for k, v in (extra_labels or {}).items() if v == "frozen")
+    step_fn = make_train_step(config, tx, dtype=tm.dtype, text_fn=text_fn, frozen=frozen)
 
     sampler = NegativeSampler(tm.hier, tm.train_index, config.num_compare, k=config.k,
-                              seed=config.seed, exclu_bro=config.exclu_bro)
+                              seed=config.seed,
+                              topk_window="both" if config.coop else "below",
+                              exclu_bro=config.exclu_bro)
     builder = ScheduleBuilder(tm.hier, sampler, config.out_ratio, config.in_ratio,
                               config.num_compare, method=config.training_method,
                               strategy=config.sample_strategy)
@@ -355,6 +456,8 @@ def _epoch_loop(config, tm, splits, logger, state, step_fn, sampler, loader, nod
                 "step_ms": round(epoch_dt / max(steps_run, 1) * 1e3, 1),
                 "imgs_per_sec": round(steps_run * config.batch_size / max(epoch_dt, 1e-9), 1),
             })
+            if config.coop:
+                tm.coop_ctx = state.params["coop_ctx"]
             saver.save(config.save_path, epoch, state,
                        meta={"steps_done": steps_done, "steps_per_epoch": steps_per_epoch})
             logger.log_text(f"Model saved. epoch={epoch}")
@@ -380,6 +483,8 @@ def main(argv=None, device=None) -> Any:
     logger = RunLogger(config.save_path)
     if config.train:
         print("Training.", flush=True)
+        if config.training_method == "flat":
+            return run_train_flat(config, tm, splits, logger)
         return run_train(config, tm, splits, logger)
     print("Direct testing.", flush=True)
     return run_test(config, tm, splits, logger)

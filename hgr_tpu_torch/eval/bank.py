@@ -49,6 +49,24 @@ def build_bank(
     return torch.cat(parts)
 
 
+@torch.inference_mode()
+def build_bank_ids(
+    params,
+    n_pad: int,
+    text_fn: Callable,             # (params, ids [C]) -> normalised [C, D]
+    chunk: int = 512,
+    out_dtype: torch.dtype = torch.bfloat16,
+    device=None,
+) -> torch.Tensor:
+    """Bank of a variant text path (the CoOp prompt learner): class-id
+    chunks through ``text_fn`` (``hgr_tpu/eval/bank.py:57-73``)."""
+    if n_pad % chunk:
+        raise ValueError(f"N_pad {n_pad} not divisible by chunk {chunk}")
+    ids = torch.arange(n_pad, device=device)
+    return torch.cat([text_fn(params, ids[i: i + chunk]).to(out_dtype)
+                      for i in range(0, n_pad, chunk)])
+
+
 def bank_logits(img_feats: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
     """[B, D] image features (unnormalised) x [N_pad, D] bank -> [B, N_pad]
     raw cosine logits in fp32, no logit scale (``model/clip_tree.py:

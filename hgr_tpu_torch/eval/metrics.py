@@ -13,9 +13,11 @@ Exact behavioural equivalents of the reference's eval loop
   gives a predicted path, scored by node and edge overlap with the ground
   truth root path (``main.py:177-191``).
 
-All functions assume the grouped-loader invariant (every image in the batch
-shares one target class, reference ``main.py:152`` uses ``targets[0]``) and
-return partial sums that the caller accumulates.
+``batch_metrics`` and ``metrics_from_preds`` assume the grouped-loader
+invariant (every image in the batch shares one target class, reference
+``main.py:152`` uses ``targets[0]``); ``grouped_metrics``, which both the
+former and the baselines runner call, takes each row's own target and
+chain. All return partial sums that the caller accumulates.
 
 Hit@k ranks ties as ``lax.top_k`` does: the lower column comes first. Test
 classes do tie: two classes with the same prompt share a bank row, so their
@@ -52,13 +54,14 @@ class BatchMetrics(NamedTuple):
 def _rank_hits(masked: torch.Tensor, col, topk, valid) -> torch.Tensor:
     """Counts of "column ``col`` among the first k" of each row of ``masked``,
     in ``lax.top_k``'s order (descending, the lower column first on ties).
-    The target's rank is the number of entries strictly greater than its
-    value plus the equal ones at a lower column; it is a hit when that rank
-    is below k."""
-    col = torch.as_tensor(col, device=masked.device).long()
-    t = masked.index_select(1, col.reshape(1))                         # [B, 1]
-    lower = torch.arange(masked.shape[1], device=masked.device) < col  # [N]
-    rank = torch.where(lower[None, :], masked >= t, masked > t).sum(dim=1)
+    ``col`` is one column for every row, or [B] columns, one a row. The
+    target's rank is the number of entries strictly greater than its value
+    plus the equal ones at a lower column; it is a hit when that rank is
+    below k."""
+    col = torch.as_tensor(col, device=masked.device).long().expand(masked.shape[0])
+    t = masked.gather(1, col[:, None])                                 # [B, 1]
+    lower = torch.arange(masked.shape[1], device=masked.device)[None, :] < col[:, None]
+    rank = torch.where(lower, masked >= t, masked > t).sum(dim=1)
     hit = rank[:, None] < torch.tensor(list(topk), device=masked.device)[None, :]
     if valid is not None:
         hit = hit & valid[:, None]
@@ -66,15 +69,18 @@ def _rank_hits(masked: torch.Tensor, col, topk, valid) -> torch.Tensor:
 
 
 def _path_point(match: torch.Tensor, chain_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(path, point) numerators from the [B, Lmax] chain-slot matches."""
-    Lmax = match.shape[1]
-    L = chain_len.to(torch.float32)
+    """(path, point) numerators from the [B, Lmax] chain-slot matches; the
+    chain length is one for every row, or [B], one a row. A row adds its
+    matched edges over L - 1 to path (its first slot where L == 1), and its
+    matched nodes over L to point."""
+    B, Lmax = match.shape
+    lens = chain_len.expand(B)
+    L = lens.to(torch.float32)
     point = (match.sum(dim=1).to(torch.float32) / L).sum()
-    edge_pair = match[:, :-1] & match[:, 1:]
-    pair_valid = (torch.arange(Lmax - 1, device=match.device)[None, :] + 1) < chain_len
-    edges = (edge_pair & pair_valid).sum().to(torch.float32)
-    path_single = match[:, 0].sum().to(torch.float32)  # L == 1 case
-    path = torch.where(chain_len == 1, path_single, edges / torch.clamp_min(L - 1.0, 1.0))
+    pair_valid = (torch.arange(Lmax - 1, device=match.device)[None, :] + 1) < lens[:, None]
+    edges = (match[:, :-1] & match[:, 1:] & pair_valid).sum(dim=1).to(torch.float32)
+    path = torch.where(lens == 1, match[:, 0].to(torch.float32),
+                       edges / torch.clamp_min(L - 1.0, 1.0)).sum()
     return path, point
 
 
@@ -86,7 +92,7 @@ def _num(rows: int, valid, device) -> torch.Tensor:
 
 def flat_hits(
     logits: torch.Tensor,       # [B, N] full-node logits
-    target,                     # scalar class id (single-class batch)
+    target,                     # class id: one for the batch, or [B]
     test_mask: torch.Tensor,    # [N] bool: unseen/test candidate classes
     topk: Sequence[int] = TOPK,
     valid: Optional[torch.Tensor] = None,  # [B] bool row mask (padded batches)
@@ -96,65 +102,63 @@ def flat_hits(
     return _rank_hits(masked, target, topk, valid)
 
 
-def tor_hits(
-    logits: torch.Tensor,       # [B, N]
-    chain: torch.Tensor,        # [L] padded chain (ancestors + self), PAD=-1
-    train_mask: torch.Tensor,   # [N] bool: candidate classes for top-1
-    valid: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Top-Overlap Ratio numerator: top-1 over candidates in the chain set."""
-    pred = torch.where(train_mask[None, :], logits, NEG).argmax(dim=1)
-    in_chain = (pred[:, None] == chain[None, :]) & (chain[None, :] >= 0)
-    hit = in_chain.any(dim=1)
-    if valid is not None:
-        hit = hit & valid
-    return hit.sum().to(torch.float32)
-
-
-def path_point(
-    logits: torch.Tensor,       # [B, N]
-    chain: torch.Tensor,        # [Lmax] padded (ancestors + self)
-    chain_len: torch.Tensor,    # scalar int, actual length L >= 1
+def grouped_metrics(
+    logits: torch.Tensor,       # [R, N]: the rows of one or several single-class batches
+    targets: torch.Tensor,      # [R] each row's class id
+    chains: torch.Tensor,       # [R, Lmax] each row's padded chain (ancestors + self), PAD=-1
+    chain_lens: torch.Tensor,   # [R] each chain's length L >= 1
     node_depth: torch.Tensor,   # [N] int depth per node
-    train_mask: torch.Tensor,   # [N] bool
-    valid: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(path numerator, point numerator) for one batch: for each chain
-    position the predicted node is the constrained argmax over
-    {candidates at depth(chain[j])}, with the reference's fill semantics
-    (out-of-level train candidates stay in the race at FILL)."""
-    levels = torch.where(chain >= 0, node_depth[chain.clamp_min(0)], -1)
+    train_mask: torch.Tensor,   # [N] bool: candidate classes for TOR and the levels
+    test_mask: torch.Tensor,    # [N] bool: candidate classes for Hit@k
+    topk: Sequence[int] = TOPK,
+    valid: Optional[torch.Tensor] = None,  # [R] bool row mask (padded batches)
+) -> BatchMetrics:
+    """Partial sums over rows that each carry their own target and chain:
+    Hit@k, TOR (top-1 over the train candidates in the chain set), and path
+    and point from the per-level constrained argmax over {candidates at
+    depth(chain[j])}, with the reference's fill semantics (out-of-level
+    train candidates stay in the race at FILL). The baselines runner scores
+    thousands of test classes about 2,048 rows a pass with it, where one
+    call per batch would be bound by the host's kernel launches."""
+    hits = flat_hits(logits, targets, test_mask, topk, valid=valid)
+    pred = torch.where(train_mask[None, :], logits, NEG).argmax(dim=1)
+    tor_hit = ((pred[:, None] == chains) & (chains >= 0)).any(dim=1)
+
+    levels = torch.where(chains >= 0, node_depth[chains.clamp_min(0)], -1)   # [R, Lmax]
+    Lmax = chains.shape[1]
     preds = torch.stack([
-        torch.where(
-            train_mask[None, :],
-            torch.where((node_depth == lev)[None, :], logits, FILL),
-            NEG,
-        ).argmax(dim=1)
-        for lev in levels
-    ], dim=1)                                          # [B, Lmax]
-    pos_valid = torch.arange(chain.shape[0], device=logits.device)[None, :] < chain_len
-    match = (preds == chain[None, :]) & pos_valid
+        torch.where(train_mask[None, :],
+                    torch.where(node_depth[None, :] == levels[:, j: j + 1], logits, FILL),
+                    NEG).argmax(dim=1)
+        for j in range(Lmax)
+    ], dim=1)                                          # [R, Lmax]
+    pos_valid = torch.arange(Lmax, device=logits.device)[None, :] < chain_lens[:, None]
+    match = (preds == chains) & pos_valid
     if valid is not None:
+        tor_hit = tor_hit & valid
         match = match & valid[:, None]
-    return _path_point(match, chain_len)
+    path, point = _path_point(match, chain_lens)
+    return BatchMetrics(hits=hits, tor=tor_hit.sum().to(torch.float32), path=path, point=point,
+                        num=_num(logits.shape[0], valid, logits.device))
 
 
 def batch_metrics(
-    logits: torch.Tensor,
-    target,
-    chain: torch.Tensor,
-    chain_len: torch.Tensor,
+    logits: torch.Tensor,       # [B, N]
+    target,                     # scalar class id (single-class batch)
+    chain: torch.Tensor,        # [Lmax] padded chain (ancestors + self), PAD=-1
+    chain_len: torch.Tensor,    # scalar int, actual length L >= 1
     node_depth: torch.Tensor,
     train_mask: torch.Tensor,
     test_mask: torch.Tensor,
     topk: Sequence[int] = TOPK,
     valid: Optional[torch.Tensor] = None,
 ) -> BatchMetrics:
-    hits = flat_hits(logits, target, test_mask, topk, valid=valid)
-    tor = tor_hits(logits, chain, train_mask, valid=valid)
-    path, point = path_point(logits, chain, chain_len, node_depth, train_mask, valid=valid)
-    num = _num(logits.shape[0], valid, logits.device)
-    return BatchMetrics(hits=hits, tor=tor, path=path, point=point, num=num)
+    """One single-class batch: :func:`grouped_metrics` with the batch's
+    target and chain on every row."""
+    B = logits.shape[0]
+    target = torch.as_tensor(target, device=logits.device).long().expand(B)
+    return grouped_metrics(logits, target, chain.expand(B, -1), chain_len.expand(B), node_depth,
+                           train_mask, test_mask, topk, valid=valid)
 
 
 def metrics_from_preds(

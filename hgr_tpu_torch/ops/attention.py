@@ -91,14 +91,30 @@ def refuse_autograd(q, k, v) -> None:
         )
 
 
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v with a head dim under 64 zero-padded to 64 (the Pallas wrapper
+    pads its head dim to 128, ``hgr_tpu/ops/attention.py:89-99``): zero
+    columns add nothing to q.k^T and give zero output columns, which the
+    caller cuts off. Returns the three and the true head dim, whose
+    ``Dh ** -0.5`` stays the softmax scale."""
+    dh = q.shape[-1]
+    if dh > HEAD_DIM:
+        raise ValueError(f"attention kernel takes Dh <= {HEAD_DIM}; got Dh={dh}")
+    if dh < HEAD_DIM:
+        q, k, v = (torch.nn.functional.pad(t, (0, HEAD_DIM - dh)) for t in (q, k, v))
+    return q, k, v, dh
+
+
 def attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Launch K1 on CUDA tensors; returns ``[B, H, T, Dh]`` (a view of a
-    ``[B, T, H, Dh]`` buffer, so merging the heads back costs no copy)."""
+    ``[B, T, H, Dh]`` buffer, so merging the heads back costs no copy).
+    A head dim under 64 (the TEST configurations' 16) is padded to 64."""
     if q.device.type != "cuda":
         raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
     refuse_autograd(q, k, v)
+    q, k, v, dh = pad_head_dim(q, k, v)
     _check(q, k, v, mask)
     lib = _library()
     B, H, T, Dh = q.shape
@@ -109,13 +125,13 @@ def attention_cuda(
         rc = lib.hgr_attention_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, H, T, Dh, Dh ** -0.5, *strides, stream,
+            B, H, T, Dh, dh ** -0.5, *strides, stream,
         )
     if rc != 0:
         what = "bad arguments" if rc < 0 else lib.hgr_cuda_error_string(rc).decode()
         raise RuntimeError(f"attention kernel launch failed ({rc}): {what}")
     attention.launches += 1
-    return out
+    return out if dh == Dh else out[..., :dh]
 
 
 def attention(

@@ -95,6 +95,7 @@ class TreeModel:
     level_offsets: Tuple[int, ...]  # start offset of each depth (+ end)
     model: Optional[CLIP] = None
     name_token_ids: Optional[List[List[int]]] = None  # per-node class-name BPE ids
+    coop_ctx: Optional[torch.Tensor] = None  # trained CoOp context, from run_train or --load
 
     # ---- construction ----------------------------------------------------
     @classmethod
@@ -227,6 +228,31 @@ class TreeModel:
             out_dtype=self.dtype,
         )
 
+    # ---- CoOp variant ----------------------------------------------------
+    def coop_setup(self, seed: int = 0):
+        """The CoOp prompt layout over all ``n_pad`` rows (pad rows take the
+        name ``[0]``) and a fresh context drawn from ``seed``
+        (``hgr_tpu/tree_model.py:304-323``)."""
+        from .models.coop import build_coop_static, coop_ctx_init
+
+        cfg = self.clip_cfg
+        ids = list(self.name_token_ids) + [[0]] * (self.n_pad - len(self.name_token_ids))
+        static = build_coop_static(ids, cfg.context_length, sot_id=cfg.vocab_size - 2,
+                                   eot_id=cfg.vocab_size - 1, n_ctx=self.config.n_ctx,
+                                   position=self.config.class_token_position)
+        ctx = coop_ctx_init(torch.Generator().manual_seed(seed), self.config.n_ctx,
+                            cfg.transformer_width, self.device)
+        return static, ctx
+
+    def coop_text_fn(self, static, remat: Optional[bool] = None, attn_fn=attention):
+        """``text_fn(params, ids)`` of the prompt learner on this model's
+        device; ``remat`` defaults to the config's."""
+        from .models.coop import make_coop_text_fn
+
+        return make_coop_text_fn(static, dtype=self.dtype,
+                                 remat=self.config.remat if remat is None else remat,
+                                 attn_fn=attn_fn, device=self.device)
+
     def sort_bank(self, bank: torch.Tensor) -> torch.Tensor:
         """Permute a [N_pad, D] bank into depth-sorted class order (once per
         bank refresh, outside the per-batch step)."""
@@ -271,8 +297,16 @@ class TreeModel:
         """One single-class batch against the depth-sorted bank from
         :meth:`sort_bank`: all per-level constrained argmaxes from one pass
         over the logits."""
+        return self.metrics_sorted(bank_sorted, encode_image(self.model, images, dtype=self.dtype),
+                                   target, valid)
+
+    @torch.inference_mode()
+    def metrics_sorted(
+        self, bank_sorted: torch.Tensor, feats: torch.Tensor, target: int,
+        valid: Optional[torch.Tensor] = None,
+    ) -> BatchMetrics:
+        """:meth:`eval_step_sorted` from the batch's image features."""
         tb = self._sorted_tables
-        feats = encode_image(self.model, images, dtype=self.dtype)
         logits_s = bank_logits(feats, bank_sorted)
         preds_s, vals = level_argmax_sorted(logits_s, self.level_offsets, tb["train_s"])
         preds_global = tb["order"][preds_s.long()]

@@ -7,8 +7,10 @@ The format is the port's own: ``clip_{epoch}/state.pt``, one ``torch.save``
 of ``{"params", "opt_state", "step"}`` with every tensor on the CPU, and the
 ``clip_{epoch}.meta.json`` sidecar for mid-epoch resume. ``restore_params``
 reads the weights alone, for ``--load`` and ``--fetch`` (``hgr_tpu/utils/
-checkpoint.py:152-163``). Reading the JAX package's Orbax checkpoints is not
-ported yet; OpenAI ``.pt`` files load through ``models/convert.py``.
+checkpoint.py:152-163``); ``save_pytree``/``load_pytree`` keep the
+baselines' artifacts in the same format. Reading the JAX package's Orbax
+checkpoints is not ported yet; OpenAI ``.pt`` files load through
+``models/convert.py``.
 """
 
 from __future__ import annotations
@@ -183,3 +185,19 @@ def latest_epoch(save_path: str) -> Optional[int]:
                 continue
             best = e if best is None else max(best, e)
     return best
+
+
+def save_pytree(path: str, tree: Any) -> str:
+    """Save a nest of dicts, lists and tensors (the baselines' artifacts:
+    GCN params and predicted classifiers, the reference's ``.pth`` and
+    ``.pred`` pair, ``baseline/DGP/train_gcn_dense_att.py:13-15``) as
+    ``{path}/state.pt``, every tensor on the CPU; returns the directory.
+    The port's own format (``hgr_tpu/utils/checkpoint.py:212-222`` writes
+    Orbax)."""
+    return _write(os.path.abspath(path), _to_cpu(tree))
+
+
+def load_pytree(path: str) -> Any:
+    """The tree :func:`save_pytree` wrote, on the CPU."""
+    return torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location="cpu",
+                      weights_only=True)

@@ -110,6 +110,24 @@ def test_kernel_argument_checks():
         mask = torch.zeros(T, T, dtype=bad.get("mask_dtype", torch.float32))
         with pytest.raises(ValueError, match=match):
             k1._check(q, k, v, mask)
+    _check_head_dim_padding()
+
+
+def _check_head_dim_padding():
+    """A head dim under 64 (TEST-RN's 16) is zero-padded to 64 before the
+    kernel, which is then given the true scale 16^-0.5: that arithmetic, on
+    the CPU, equals the plain attention of the unpadded heads; over 64
+    raises."""
+    q, k, v = map(torch.from_numpy, _qkv(20, seed=4, Dh=16))
+    qp, kp, vp, dh = k1.pad_head_dim(q, k, v)
+    assert dh == 16 and qp.shape == (2, 3, 20, 64) and not qp[..., 16:].any()
+    for mask in (None, causal_mask(20)):
+        scores = qp @ kp.transpose(-1, -2) * dh ** -0.5 + (0 if mask is None else mask)
+        got = (torch.softmax(scores, -1) @ vp)[..., :dh]
+        np.testing.assert_allclose(got.numpy(), attention_scores(q, k, v, mask).numpy(),
+                                   atol=ATOL)
+    with pytest.raises(ValueError, match="Dh <= 64"):
+        k1.pad_head_dim(*map(torch.from_numpy, _qkv(4, seed=5, Dh=80)))
 
 
 def test_cuda_route_refuses_other_devices():

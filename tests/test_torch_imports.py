@@ -1,11 +1,11 @@
 """The PyTorch port stands alone: no JAX and nothing of ``hgr_tpu``.
 
-An AST scan of every module of ``hgr_tpu_torch``, of ``chip_smoke.py`` and
-of the port's tools (``tools/*torch*.py``) finds no import of ``jax`` (or
-``jaxlib``, ``optax``, ``orbax``), of ``networkx`` or ``regex`` (the port
-has its own chain search and word splitter), and none of ``hgr_tpu`` other
-than ``hgr_tpu_torch``; importing the package in a fresh interpreter leaves
-them all out of ``sys.modules``.
+An AST scan of every module of ``hgr_tpu_torch`` (the baselines included),
+of ``chip_smoke.py`` and of the port's tools (``tools/*torch*.py``) finds
+no import of ``jax`` (or ``jaxlib``, ``optax``, ``orbax``), of ``networkx``
+or ``regex`` (the port has its own chain search and word splitter), and
+none of ``hgr_tpu`` other than ``hgr_tpu_torch``; importing the package in
+a fresh interpreter leaves them all out of ``sys.modules``.
 """
 
 import ast
@@ -47,6 +47,8 @@ def test_no_jax_or_reference_imports():
         if mods:
             bad[str(path.relative_to(REPO))] = mods
     assert len(FILES) > 30 and REPO / "chip_smoke.py" in FILES
+    assert {"run.py", "gcn.py", "free.py", "cnzsl.py"} <= {
+        p.name for p in FILES if p.parent.name == "baselines"}
     assert not bad, f"imports of JAX or the JAX package: {bad}"
 
 
@@ -58,6 +60,9 @@ def test_package_import_leaves_jax_unloaded():
         "import hgr_tpu_torch.utils.checkpoint, hgr_tpu_torch.utils.preempt\n"
         "import hgr_tpu_torch.text, hgr_tpu_torch.models.zoo, hgr_tpu_torch.data.native\n"
         "import hgr_tpu_torch.data.decode_cache, hgr_tpu_torch.data.manifest_index\n"
+        "import hgr_tpu_torch.baselines, hgr_tpu_torch.baselines.run\n"
+        "import hgr_tpu_torch.baselines.materials, hgr_tpu_torch.baselines.features\n"
+        "import hgr_tpu_torch.models.coop\n"
         "from hgr_tpu_torch.hierarchy import synthetic_hierarchy\n"
         "from hgr_tpu_torch.text import Tokenizer\n"
         "synthetic_hierarchy(3, 3, 4, 0)\n"

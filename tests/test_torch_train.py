@@ -107,11 +107,16 @@ def hiers():
     return synthetic_hierarchy(3, 4, 6, 3), j_synthetic(3, 4, 6, 3)
 
 
-@pytest.mark.parametrize("strategy", STRATEGIES)
-def test_schedules_match_jax(hiers, strategy):
-    """Every node's schedule under both methods, and the sampler's direct
-    output; the similarity strategies with and without a feature bank (the
-    bank is refreshed midway, as the driver does once per epoch)."""
+def test_schedules_match_jax(hiers):
+    """For every strategy: every node's schedule under both methods, and the
+    sampler's direct output; the similarity strategies with and without a
+    feature bank (the bank is refreshed midway, as the driver does once per
+    epoch)."""
+    for strategy in STRATEGIES:
+        _check_schedules(hiers, strategy)
+
+
+def _check_schedules(hiers, strategy):
     hier, jhier = hiers
     n = hier.num_nodes
     train_ids = np.arange(0, n, 2)
@@ -131,7 +136,7 @@ def test_schedules_match_jax(hiers, strategy):
                 got, want = (b.build(target) for b in builders)
                 for f in dataclasses.fields(want):
                     np.testing.assert_array_equal(getattr(got, f.name), getattr(want, f.name),
-                                                  err_msg=f"{method} {target} {f.name}")
+                                                  err_msg=f"{strategy} {method} {target} {f.name}")
             parents = hier.chain_with_self(n - 1)
             assert (ours.sample(strategy, n - 1, len(parents) - 1, parents)
                     == theirs.sample(strategy, n - 1, len(parents) - 1, parents))
