@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. build: compile every kernel under ``hgr_tpu_torch/csrc`` with nvcc (one
    process per source, all at once) and print the build time;
 3. kernels against their plain versions on the card, at the main path's
-   shapes and the edges of K1's contract (``KERNEL_CASES``), each with q/k/v
+   shapes and the edges of K1's contract (``KERNEL_CASES``: T from 1 to
+   577, the long-sequence path past 256 included), each with q/k/v
    as strided views of the packed projection and as contiguous tensors,
    with the stated tolerances; times of kernel, plain version and the
    library yardstick (``scaled_dot_product_attention``, never called by the
@@ -17,7 +18,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 4. the ancestor chains of the smoke's hierarchy, held to the JAX package's
    with networkx by their digest (``EXPECTED_CHAINS_SHA256``);
 5. zero-shot eval at full width: RN50, the 18,278-class bank padded to
-   18,432, ``run_test`` over 8 batches of 512 synthetic images; K1's launch
+   18,432, ``run_test`` over 4 batches of 512 synthetic images; K1's launch
    count over that run must be 12 layers x 36 chunks = 432;
 6. the class bank rebuilt with the plain attention, held to the kernel's;
 7. the card against the port's CPU path (the one the CPU tests hold to the
@@ -25,7 +26,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
 8. ViT-B/32 eval at full width against the same bank: ``run_test`` over 2
    batches of 512, where K1 also runs the image tower (T = 50, no mask, 12
    layers), so 432 + 12 x 2 = 456 launches; one batch's features through K1
-   held to the plain attention's;
+   held to the plain attention's; then RN50x4 (288 px, its bank at 10
+   heads: 432 launches) over one batch;
+8b. ViT-L/14 at full width through the user's route: an OpenAI-layout fp16
+   ``.pt`` with seeded weights (428 M parameters), ``load_torch`` and
+   ``run_test`` over one batch of 512 (432 + 24 launches at T = 257); one
+   batch's features through K1 held to the plain attention's;
 9. real inputs at RN50 width: the hierarchy as ``graph_edges_cls.json``,
    the splits, 18,278 word-like names, a BPE merges table learned from the
    prompts, an OpenAI-layout ``.pt`` and a decode cache of 2,048 seeded
@@ -40,6 +46,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
     ``classify_files`` over the fixtures tiled to 64 paths (432 K1
     launches), and ``python -m hgr_tpu_torch.serve`` on three of them,
     whose ids and scores must be ``classify_files``'s on the same three;
+10b. decode processes: 512 seeded JPEGs of about 500 x 375 over 4 test and
+    4 seen classes, decoded by 8 threads and by min(8, cores) processes
+    (rows byte-equal, each timed, worker CPU per image), then ``run_test``
+    from the files with ``--num_proc_workers``;
+10c. the baselines' image path: ``python -m hgr_tpu_torch.baselines.run
+    --baseline gcn --cnn <seeded torchvision ResNet-50 .pth>
+    --refit_backbone`` over phase 9's hierarchy and the JPEGs (8 refit
+    steps of 64, decode processes): metrics finite, the backbone moved;
+    then ``--cnn`` in this process against ``--feature_file`` of
+    ``tools/export_torch_image_feats.py`` with the same GCN: equal counts;
+    the ResNet-50's features and one refit step in fp32, card against CPU;
+    ``tools/export_torch_text_feats.py`` at RN50x4's text width (432
+    launches);
 11. OM training at full width: ``driver.run_train`` on RN50 in bf16 with
     remat, batch 256, 256 negatives, 4 episodes, then ``run_test`` over 2
     batches; every loss finite, the CLIP weights and ``layer_weight`` moved,
@@ -47,6 +66,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     and 432 in the test after it, and ``clip_0`` restores into a fresh
     train state; prints the steps' median time, images/s, the prompts
     encoded per step and peak memory;
+11b. ``--trace_dir``: two OM steps write one Chrome trace naming CUDA
+    kernels;
 12. one OM train step in float32 on the card against the port's CPU path
     (small TEST-ViT config, the same weights and schedule): the loss and the
     updated weights agree within the CPU tests' tolerances;
@@ -60,8 +81,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 15. flat fine-tuning at full width (RN50, bf16, 1,000 seen classes): 4
     steps at batch 256 through ``driver.run_train_flat``, then the test
     (K1 0 times in the steps, 432 in the test);
-16. ``python -m hgr_tpu_torch.baselines.run`` in subprocesses over phase 9's
-    hierarchy and splits (``BASELINE_RUNS``: GCN dense_att, CNZSL and FREE
+16. the baselines runner over phase 9's hierarchy and splits (GCN and
+    CLIP-flat as ``python -m hgr_tpu_torch.baselines.run`` subprocesses,
+    CNZSL and FREE by its ``main`` in this process; ``BASELINE_RUNS``: GCN
+    dense_att, CNZSL and FREE
     at 512-d embeddings and 2,048-d features, CLIP-flat at TEST-RN, whose
     bank reaches K1 at head dim 16, 2 layers x 36 chunks = 72 launches):
     every metric of the final line finite;
@@ -98,7 +121,11 @@ LEVEL_SIZES = [10, 800, 4000, 5000, 4000, 2500, 1000, 500, 250, 120, 60, 30, 8]
 # six-row-tile instantiations, so that every bf16 instantiation is held to
 # the plain version; the edges T = 256 (two passes over key tiles) and T = 1;
 # the TEST configurations' head dim 16 (padded to 64 by the wrapper), which
-# the baselines runner's CLIP-flat bank reaches at TEST-RN
+# the baselines runner's CLIP-flat bank reaches at TEST-RN; past T = 256 the
+# long-sequence path: ViT-L/14's 257 and ViT-L/14@336's 577 tokens (16
+# heads, no mask) and a causal T = 300; RN50x4's bank (10 heads); and, in
+# bf16 only, one launch of ViT-L/14's eval step (a batch of 512 through
+# each of its 24 layers), which reads K1's share of that step
 KERNEL_CASES = [
     ((512, 8, 32, 64), (True, False)),
     ((512, 8, 77, 64), (True, False)),
@@ -111,6 +138,11 @@ KERNEL_CASES = [
     ((8, 8, 256, 64), (True, False)),
     ((8, 8, 1, 64), (True, False)),
     ((512, 2, 32, 16), (True,)),
+    ((64, 16, 257, 64), (False,)),
+    ((16, 16, 577, 64), (False,)),
+    ((8, 8, 300, 64), (True,)),
+    ((512, 10, 32, 64), (True,)),
+    ((512, 16, 257, 64), (False,), (torch.bfloat16,)),
 ]
 MAIN_SHAPE = (512, 8, 32, 64)                 # the bank build's: 512 prompts, T = 32
 # sha256 of ``ancestors.tobytes()`` of profiled_hierarchy(LEVEL_SIZES, seed=0,
@@ -310,8 +342,8 @@ def phase_kernels(dev):
 
     g = torch.Generator(device=dev).manual_seed(0)
     main = None
-    for shape, causals in KERNEL_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
+    for shape, causals, *dtypes in KERNEL_CASES:
+        for dtype in (dtypes[0] if dtypes else (torch.bfloat16, torch.float32)):
             for layout in ("packed", "contiguous"):
                 q, k, v = qkv_views(shape, dtype, layout, g, dev)
                 for causal in causals:
@@ -356,11 +388,14 @@ def check_attention(kernel, plain, sdpa, q, k, v, mask):
     )
 
 
-def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=8,
-                launches_expected=432, image_launches=0, folder="runs/chip_smoke"):
+def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
+                launches_expected=432, image_launches=0, folder="runs/chip_smoke",
+                checkpoint=None):
     """The zero-shot eval path at full width; returns (tm, bank, summary,
     K1 launches during run_test). ``launches_expected`` is K1's count in
-    one bank build, ``image_launches`` its count in one image batch."""
+    one bank build, ``image_launches`` its count in one image batch. With
+    ``checkpoint`` (an OpenAI-layout ``.pt``), its weights and architecture
+    replace ``arch``'s (``TreeModel.load_torch``)."""
     from hgr_tpu_torch.config import Config
     from hgr_tpu_torch.driver import build_model, run_test, synthetic_splits
     from hgr_tpu_torch.hierarchy import profiled_hierarchy
@@ -374,8 +409,11 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=8,
     splits = synthetic_splits(hier, cfg.seed)
     t0 = time.time()
     tm = build_model(cfg, hier, splits, device=dev)
+    if checkpoint:
+        tm.load_torch(checkpoint)
+        arch = f"{arch} <- {checkpoint}"
     log(f"[slice] {arch}: {hier.num_nodes} classes, bank rows {tm.n_pad}, tokens T = "
-        f"{tm.node_tokens.shape[1]}; model built in {time.time() - t0:.1f} s")
+        f"{tm.node_tokens.shape[1]}; model built in {time.time() - t0:.1f} s: {tm.clip_cfg}")
 
     def sync():
         if dev.type == "cuda":
@@ -849,24 +887,48 @@ BASELINE_RUNS = {
 CLIP_FLAT_BANK_LAUNCHES = 2 * 36
 
 
+# run in this process (``baselines.run.main``): a runner process spends
+# 18-30 s before its work, and the others keep the CLI's own check
+BASELINES_IN_PROCESS = ("cnzsl", "free")
+
+
+def run_baseline(flags, device_index=0, in_process=False):
+    """The runner's standard output for ``flags``: ``python -m
+    hgr_tpu_torch.baselines.run`` in a subprocess on the card, or its
+    ``main`` in this process."""
+    if in_process:
+        import contextlib
+        import io
+
+        from hgr_tpu_torch.baselines import run
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run.main(flags, device=f"cuda:{device_index}")
+        return buf.getvalue()
+    cmd = [sys.executable, "-m", "hgr_tpu_torch.baselines.run", *flags,
+           "--device", str(device_index)]
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, f"{flags[:2]}: " + p.stdout[-3000:] + p.stderr[-3000:]
+    return p.stdout
+
+
 def phase_baselines(graph_path, split_path, device_index=0, runs=BASELINE_RUNS,
-                    bank_launches=CLIP_FLAT_BANK_LAUNCHES):
-    """``python -m hgr_tpu_torch.baselines.run`` for each baseline, in a
-    subprocess on the card, over the real-input phase's hierarchy and
+                    bank_launches=CLIP_FLAT_BANK_LAUNCHES, in_process=BASELINES_IN_PROCESS):
+    """Each baseline through the runner (``in_process`` ones by its
+    ``main``, the others as ``python -m hgr_tpu_torch.baselines.run``
+    subprocesses) on the card, over the real-input phase's hierarchy and
     splits: its last line must parse and every metric be finite, and
-    CLIP-flat's bank must launch K1 ``bank_launches`` times.
-    Prints each run's wall time and the runner's own training line
-    (steps/s, peak memory). Returns the bank's K1 launches."""
+    CLIP-flat's bank must launch K1 ``bank_launches`` times. Prints each
+    run's wall time and the runner's own training line (steps/s, peak
+    memory). Returns the bank's K1 launches."""
     seen = None
     for name, flags in runs.items():
-        cmd = [sys.executable, "-m", "hgr_tpu_torch.baselines.run", *flags, "--synthetic",
-               "False", "--graph_path", graph_path, "--split_path", split_path,
-               "--device", str(device_index)]
         t0 = time.time()
-        p = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        out = run_baseline([*flags, "--synthetic", "False", "--graph_path", graph_path,
+                            "--split_path", split_path], device_index, name in in_process)
         wall = time.time() - t0
-        assert p.returncode == 0, f"{name}: " + p.stdout[-3000:] + p.stderr[-3000:]
-        lines = p.stdout.strip().splitlines()
+        lines = out.strip().splitlines()
         summary = json.loads(lines[-1])
         assert summary.pop("baseline") == name, lines[-1]
         assert summary["num_samples"] > 0 and all(math.isfinite(v) for v in summary.values()), \
@@ -876,7 +938,9 @@ def phase_baselines(graph_path, split_path, device_index=0, runs=BASELINE_RUNS,
                 log(f"[baselines] {name}: {line[2:]}")
             if line.startswith("# K1 launches in the bank: "):
                 seen = int(line.rsplit(" ", 1)[1])
-        log(f"[baselines] {name}: {wall:.1f} s of command; {json.dumps(summary)}")
+        log(f"[baselines] {name}: {wall:.1f} s of "
+            f"{'main() in this process' if name in in_process else 'command'}; "
+            f"{json.dumps(summary)}")
     if "clip_flat" in runs:
         assert seen == bank_launches, \
             f"CLIP-flat's bank launched K1 {seen} times, not {bank_launches}"
@@ -1020,6 +1084,19 @@ def phase_steps_reference(dev):
         assert loss_err <= 1e-5 and worst <= 0 and n_cmp > 0, name
 
 
+def write_openai_pt(clip_cfg, path, seed):
+    """Seeded weights of ``clip_cfg`` as OpenAI ships them: an fp16
+    ``state_dict`` under OpenAI's names, BatchNorm counters included."""
+    from hgr_tpu_torch.models.clip import clip_init
+
+    sd = clip_init(clip_cfg, torch.Generator().manual_seed(seed)).state_dict()
+    sd = {k: v.half() for k, v in sd.items()}
+    for k in [k for k in sd if k.endswith("running_mean")]:
+        sd[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    torch.save(sd, path)
+    return sum(v.numel() for v in sd.values())
+
+
 class SeededRows:
     """An image source of seeded uint8 rows, keyed by the image's path: what
     the decode cache is built from where no image files exist."""
@@ -1080,7 +1157,7 @@ def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class
     from hgr_tpu_torch.data import GroupedTestLoader
     from hgr_tpu_torch.data.decode_cache import CachedImageSource, build_cache
     from hgr_tpu_torch.hierarchy import Hierarchy, profiled_edges
-    from hgr_tpu_torch.models.clip import clip_init, get_config
+    from hgr_tpu_torch.models.clip import get_config
     from hgr_tpu_torch.ops.attention import attention
     from hgr_tpu_torch.serve import ZeroShotClassifier
     from hgr_tpu_torch.text import Tokenizer
@@ -1105,11 +1182,7 @@ def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class
     write_merges(path["vocab"],
                  learn_merges(node_prompts(hier, Config().template, names), n_merges))
     clip_cfg = get_config(arch)
-    sd = clip_init(clip_cfg, torch.Generator().manual_seed(1)).state_dict()
-    sd = {k: v.half() for k, v in sd.items()}  # OpenAI ships fp16 tensors
-    for k in [k for k in sd if k.endswith("running_mean")]:
-        sd[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
-    torch.save(sd, path["pt"])
+    write_openai_pt(clip_cfg, path["pt"], seed=1)
     log(f"[real] inputs written in {_time.time() - t_start:.1f} s: {len(edges)} edges, "
         f"{n_merges} merges, {os.path.getsize(path['pt']) / 1e6:.1f} MB of weights")
 
@@ -1230,7 +1303,8 @@ def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class
         f"--from_epoch 0 ...` in {_time.time() - t0:.1f} s: metrics equal to the in-process "
         f"run: {same} ({ {k: got[k] for k in keys} })")
     assert same, (got, summary)
-    return dict(tm=tm, args=cli, names=names, launches=launches)
+    return dict(tm=tm, args=cli, cfg_args=args, names=names, launches=launches, test4=test4,
+                seen=splits["train"], paths=path)
 
 
 def phase_files_and_serving(real, fixtures=None):
@@ -1313,6 +1387,338 @@ def phase_files_and_serving(real, fixtures=None):
     return launches
 
 
+# ViT-L/14 at 224 px (OpenAI's geometry: vision 1024 wide, 24 layers of 16
+# heads, patch 14, so T = 257; text 768 wide, 12 heads, 12 layers): no
+# configuration of the zoo, so the smoke writes a checkpoint of it and the
+# port reads the architecture from the file, as it would read OpenAI's
+VIT_L14 = dict(embed_dim=768, image_resolution=224, vision_layers=(24,), vision_width=1024,
+               vision_patch_size=14, transformer_width=768, transformer_heads=12,
+               transformer_layers=12)
+
+
+def phase_vit_l14(dev, work):
+    """ViT-L/14 eval at full width through the user's route: an
+    OpenAI-layout fp16 ``.pt`` with seeded weights, ``TreeModel.load_torch``
+    and ``run_test`` over one batch of 512 against the 18,432-row bank (K1:
+    12 x 36 = 432 launches in the bank, 24 in the image tower at T = 257),
+    then one batch's features through K1 held to the plain attention's.
+    Returns K1's launches in ``run_test``."""
+    import os
+
+    from hgr_tpu_torch.models.clip import CLIPConfig
+
+    path = os.path.join(work, "vit_l14.pt")
+    t0 = time.time()
+    n = write_openai_pt(CLIPConfig(**VIT_L14), path, seed=2)
+    log(f"[vit-l14] {n / 1e6:.1f} M parameters, {os.path.getsize(path) / 1e9:.2f} GB fp16 "
+        f"written in {time.time() - t0:.1f} s")
+    tm, _, _, launches = phase_slice(dev, arch="ViT-B/32", batches=1, image_launches=24,
+                                     checkpoint=path, folder="runs/chip_smoke_vit_l14")
+    assert tm.clip_cfg.vision_width == 1024 and tm.clip_cfg.image_resolution == 224
+    phase_vit_features(tm)
+    os.remove(path)
+    return launches
+
+
+def seeded_jpegs(root, classes, per_class, seed=0):
+    """``per_class`` JPEGs a class at ImageNet's usual size (500 x 375 or
+    375 x 500, quality 90) under ``root/<wnid>/``, made by PIL from a seed:
+    smooth colour fields with noise, so that they compress as photographs
+    do. Returns ``{wnid: [relative paths]}``."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    grouped = {}
+    for c in classes:
+        os.makedirs(os.path.join(root, c), exist_ok=True)
+        grouped[c] = []
+        for j in range(per_class):
+            w, h = (500, 375) if rng.random() < 0.75 else (375, 500)
+            base = Image.fromarray(rng.integers(0, 256, (h // 25, w // 25, 3), dtype=np.uint8))
+            arr = np.asarray(base.resize((w, h), Image.BICUBIC), np.int16)
+            arr = np.clip(arr + rng.integers(-12, 13, arr.shape), 0, 255).astype(np.uint8)
+            rel = f"{c}/{j:04d}.JPEG"
+            Image.fromarray(arr).save(os.path.join(root, rel), quality=90)
+            grouped[c].append(rel)
+    return grouped
+
+
+def phase_decode(dev, real, n_procs, per_class=64, bank_launches=432):
+    """Decode processes on the card's host: 512 seeded JPEGs over phase 9's
+    4 test and 4 seen classes, decoded at 224 px by the loaders' 8 threads
+    and by ``n_procs`` processes (rows byte-equal), each timed; then
+    ``run_test`` on the test classes' files with ``--num_proc_workers``
+    (the bank rebuilt: 432 K1 launches). Returns what the baselines' image
+    phase needs."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.data import FileImageSource
+    from hgr_tpu_torch.data.mp_decode import ProcessDecodePool
+    from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.utils.logging import RunLogger
+
+    work = os.path.dirname(real["paths"]["graph"])
+    root = os.path.join(work, "jpeg")
+    test, seen = real["test4"], real["seen"][:4]
+    t0 = time.time()
+    grouped = seeded_jpegs(root, test + seen, per_class)
+    files = [p for c in grouped for p in grouped[c]]
+    size = sum(os.path.getsize(os.path.join(root, p)) for p in files)
+    manifests = {"test": os.path.join(work, "jpeg_test_split.json"),
+                 "train": os.path.join(work, "jpeg_train_split.json")}
+    for key, classes in (("test", test), ("train", seen)):
+        with open(manifests[key], "w") as f:
+            json.dump({c: grouped[c] for c in classes}, f)
+    log(f"[decode] {len(files)} JPEGs of about 500 x 375 at quality 90 ({size / len(files) / 1e3:.1f} "
+        f"kB each) written in {time.time() - t0:.1f} s")
+
+    src = FileImageSource(224, image_root=root)
+    decoder = "native libjpeg" if src.native else "PIL"
+    t0 = time.time()
+    with ThreadPoolExecutor(8) as pool:
+        rows = np.stack(list(pool.map(lambda p: src.load("", [p], 0), files)))
+    thread_ms = (time.time() - t0) * 1e3 / len(files)
+    with ProcessDecodePool(224, len(files), image_root=root, num_workers=n_procs) as mp_pool:
+        mp_pool.decode_pairs([(p, p) for p in files[:n_procs]])  # the workers up and warm
+        t0 = time.time()
+        got = mp_pool.decode_pairs([(p, p) for p in files])
+        proc_ms = (time.time() - t0) * 1e3 / len(files)
+        cpu = mp_pool.cpu_s_per_image
+    assert np.array_equal(got, rows), "decode processes and threads give different rows"
+    log(f"[decode] {decoder} at 224 px, {len(files)} images: 8 threads {thread_ms:.2f} ms an image, "
+        f"{n_procs} processes {proc_ms:.2f} ms an image ({thread_ms / proc_ms:.2f}x), rows "
+        f"byte-equal; worker CPU {cpu * 1e3:.2f} ms an image ({os.cpu_count()} host cores)")
+
+    args = list(real["cfg_args"])
+    i = args.index("--decode_cache")
+    del args[i: i + 2]
+    args += ["--image_root", root, "--data_split_test", "jpeg_test", "--test_batch_size",
+             str(per_class), "--num_proc_workers", str(n_procs)]
+    cfg = Config.from_args(args)
+    hier, splits = driver.build_hierarchy(cfg)
+    attention.launches = 0
+    summary = driver.run_test(cfg, real["tm"], splits, RunLogger(cfg.save_path, echo=False))
+    launches = attention.launches
+    log(f"[decode] run_test over the {len(test) * per_class} test JPEGs, --num_proc_workers "
+        f"{n_procs}, batches of {per_class}: {summary['imgs_per_sec']:.0f} images/s, decode, "
+        f"bank build and metrics included; K1 launches {launches}; {json.dumps(summary)}")
+    assert summary["num_samples"] == len(test) * per_class and launches == bank_launches, summary
+    return dict(root=root, manifests=manifests, launches=launches, n_test=len(test) * per_class,
+                n_seen=len(seen) * per_class)
+
+
+def phase_baseline_images(dev, real, decoded, n_procs, batch=64):
+    """The baselines' image path, the reference's DGP evaluation on image
+    files: a seeded torchvision-layout ResNet-50 ``.pth``, then ``python -m
+    hgr_tpu_torch.baselines.run --baseline gcn --cnn ... --refit_backbone``
+    over phase 9's hierarchy and the JPEGs (8 refit steps of 64, decode
+    processes): every metric finite and the refit backbone moved. Then, in
+    this process, ``--cnn`` without the refit, ``tools/export_torch_image_
+    feats.py`` over the same test manifest and ``--feature_file`` with the
+    same GCN model: the counts must be the ``--cnn`` run's."""
+    import importlib.util
+    import os
+
+    from hgr_tpu_torch.baselines import run
+    from hgr_tpu_torch.models.resnet_std import resnet50_init
+    from hgr_tpu_torch.utils.checkpoint import load_pytree
+
+    work = os.path.dirname(real["paths"]["graph"])
+    cnn = os.path.join(work, "resnet50.pth")
+    sd = resnet50_init(torch.Generator().manual_seed(3)).state_dict()
+    sd.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(0)
+               for k in list(sd) if k.endswith("running_mean")})
+    torch.save(sd, cnn)
+    idx = str(dev.index or 0)
+    common = ["--baseline", "gcn", "--variant", "basic", "--attr_dim", "512", "--feat_dim", "2048",
+              "--hid_dim", "512", "--steps", "20", "--synthetic", "False",
+              "--graph_path", real["paths"]["graph"], "--split_path", real["paths"]["splits"],
+              "--manifest", decoded["manifests"]["test"], "--eval_batch", str(batch),
+              "--num_procs", str(n_procs)]
+    images = ["--image_root", decoded["root"], "--cnn", cnn]
+    t0 = time.time()
+    out = run_baseline(common + images + [
+        "--train_manifest", decoded["manifests"]["train"], "--refit_backbone", "--refit_steps",
+        "8", "--refit_batch", str(batch), "--save_path", os.path.join(work, "gcn")], idx)
+    wall = time.time() - t0
+    lines = out.strip().splitlines()
+    summary = json.loads(lines[-1])
+    assert summary.pop("baseline") == "gcn" and summary["num_samples"] == decoded["n_test"], summary
+    assert all(math.isfinite(v) for v in summary.values()), summary
+    for line in lines:
+        if line.startswith("# ") or line.startswith("refit done"):
+            log(f"[baseline-images] {line.lstrip('# ')}")
+    refit = load_pytree(os.path.join(work, "gcn_refit"))["params"]
+    moved = [k for k in ("conv1.weight", "layer4.2.conv3.weight", "layer4.2.bn3.running_var")
+             if not torch.equal(refit[k], sd[k])]
+    log(f"[baseline-images] `python -m hgr_tpu_torch.baselines.run --baseline gcn --cnn ... "
+        f"--refit_backbone` in {wall:.1f} s: {json.dumps(summary)}; refit moved {moved}")
+    assert len(moved) == 3, "the refit backbone equals the one loaded"
+
+    # the same GCN model for the two evaluations below: index_add_ sums in
+    # no fixed order on the card, so a second training could move a near tie
+    real_gcn, memo = run.run_gcn, {}
+
+    def gcn_once(*a, **kw):
+        if "fn" not in memo:
+            memo["fn"] = real_gcn(*a, **kw)
+        return memo["fn"]
+
+    run.run_gcn = gcn_once
+    try:
+        t0 = time.time()
+        cnn_run = json.loads(run_baseline(common + images, idx, True).strip().splitlines()[-1])
+        cnn_s = time.time() - t0
+        spec = importlib.util.spec_from_file_location(
+            "export_torch_image_feats",
+            os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                         "export_torch_image_feats.py"))
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        t0 = time.time()
+        ff = tool.main(["--manifest", decoded["manifests"]["test"], "--image_root",
+                        decoded["root"], "--cnn", cnn, "--out", os.path.join(work, "feats.npz"),
+                        "--batch", str(batch), "--num_procs", str(n_procs), "--device", idx],
+                       device=dev)
+        export_s = time.time() - t0
+        ff_run = json.loads(run_baseline(common + ["--feature_file", ff], idx, True)
+                            .strip().splitlines()[-1])
+    finally:
+        run.run_gcn = real_gcn
+    counts = ("hit@1", "hit@2", "hit@5", "hit@10", "hit@20", "tor", "num_samples")
+    log(f"[baseline-images] in process: --cnn {cnn_s:.1f} s; export_torch_image_feats "
+        f"{export_s:.1f} s; --feature_file counts equal to --cnn's: "
+        f"{all(ff_run[k] == cnn_run[k] for k in counts)} ({ {k: cnn_run[k] for k in counts} })")
+    assert all(ff_run[k] == cnn_run[k] for k in counts), (ff_run, cnn_run)
+
+
+def phase_resnet_reference(dev):
+    """The standard ResNet-50 in fp32 on the card (cuDNN, TF32 off) against
+    the port's CPU path, from the same weights, on 4 images at 64 px:
+    features within 1e-4 of the largest, and one refit step (SGD with
+    momentum under a frozen head, train-mode BatchNorm): the loss within
+    2e-4 relative, the BatchNorm statistics within 1e-3, the weight updates
+    within 10% (L2, per tensor) and at a cosine of 0.999 or more. The
+    train-mode net at this size is chaotic: the port's own fp32 gradients
+    differ from its fp64 ones by about 3% (``tests/test_torch_resnet_std.py``)."""
+    import copy
+
+    from hgr_tpu_torch.baselines import features, refit
+    from hgr_tpu_torch.baselines.materials import inject_fc
+    from hgr_tpu_torch.models.resnet_std import resnet50_init
+
+    rng = np.random.default_rng(4)
+    cpu = inject_fc(resnet50_init(torch.Generator().manual_seed(4)),
+                    rng.normal(0, 0.05, (5, 2049)).astype(np.float32))
+    card = copy.deepcopy(cpu).to(dev)
+    old = {k: v.clone() for k, v in cpu.state_dict().items()}
+    images = torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8))
+    labels, valid = torch.tensor([0, 3, 1, 4]), torch.tensor([True, True, True, False])
+    flip = torch.tensor([False, True, False, True])
+    fc, fg = (features.make_featurizer(m, crop=56, dtype=torch.float32)(images) for m in (cpu, card))
+    f_err = float((fg.cpu() - fc).abs().max()) / float(fc.abs().max())
+    out = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        d = next(m.parameters()).device
+        opt = torch.optim.SGD(m.base_parameters(), lr=1e-2, momentum=0.9)
+        loss, _ = refit.make_refit_step(opt, 56, dtype=torch.float32)(
+            m, images.to(d), labels.to(d), valid.to(d), flip.to(d))
+        out[name] = (float(loss), {k: v.cpu() for k, v in m.state_dict().items()})
+    (lc, pc), (lg, pg) = out["cpu"], out["card"]
+    worst_l2, worst_stat, dc, dg = 0.0, 0.0, [], []
+    for k in pc:
+        if "running" in k:
+            worst_stat = max(worst_stat, float((pg[k] - pc[k]).abs().max() / pc[k].abs().max()))
+        elif not k.startswith("fc."):
+            a, b = (pg[k] - old[k]).double(), (pc[k] - old[k]).double()
+            worst_l2 = max(worst_l2, float((a - b).norm() / b.norm()))
+            dg.append(a.flatten())
+            dc.append(b.flatten())
+    cos = float(torch.nn.functional.cosine_similarity(torch.cat(dg), torch.cat(dc), dim=0))
+    rel = abs(lg - lc) / abs(lc)
+    log(f"[resnet-small] fp32 card vs cpu: features max error {f_err:.2e} of the largest (tol "
+        f"1e-4); one refit step: loss {lg:.6f} vs {lc:.6f} (rel {rel:.1e}, tol 2e-4), BatchNorm "
+        f"statistics {worst_stat:.1e} (tol 1e-3), updates: worst L2 {worst_l2:.3f} (tol 0.1), "
+        f"cosine {cos:.6f} (tol 0.999)")
+    assert f_err <= 1e-4 and rel <= 2e-4 and worst_stat <= 1e-3 and worst_l2 <= 0.1
+    assert cos >= 0.999 and torch.equal(pg["fc.weight"], pc["fc.weight"])
+
+
+def phase_trace(dev, folder="runs/chip_smoke_trace"):
+    """Two OM steps (RN50, batch 32) through ``driver.run_train`` with
+    ``--trace_dir``: the window opens at step 1 and is closed when the
+    epoch ends; one Chrome trace must be written, naming CUDA kernels."""
+    import os
+    import shutil
+
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.utils.logging import RunLogger
+
+    shutil.rmtree(folder, ignore_errors=True)
+    trace_dir = os.path.join(folder, "trace")
+    cfg = Config(arch="RN50", synthetic=True, train=True, batch_size=32, num_compare=32,
+                 epochs=1, n_episodes=2, synthetic_images_per_class=32, trace_dir=trace_dir,
+                 folder=folder)
+    hier, splits = driver.build_hierarchy(cfg)
+    tm = driver.build_model(cfg, hier, splits, device=dev)
+    t0 = time.time()
+    driver.run_train(cfg, tm, splits, RunLogger(cfg.save_path, echo=False))
+    traces = sorted(os.listdir(trace_dir))
+    assert len(traces) == 1 and traces[0].endswith(".json"), traces
+    path = os.path.join(trace_dir, traces[0])
+    events = json.load(open(path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e["name"] for e in kernels}, key=len)
+    log(f"[trace] --trace_dir, 2 OM steps in {time.time() - t0:.1f} s: {traces[0]} "
+        f"({os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, {len(kernels)} CUDA "
+        f"kernel launches of {len(names)} kernels, e.g. {names[:3]})")
+    assert kernels, "the trace names no CUDA kernel"
+    shutil.rmtree(folder, ignore_errors=True)
+
+
+def phase_export_text(dev, real, arch="RN50x4", bank_launches=432):
+    """``tools/export_torch_text_feats.py`` over phase 9's hierarchy, names
+    and merges at RN50x4's text width (640, 10 heads): one L2-normalised
+    row a class, through K1 on the card (12 layers x 36 chunks). Returns
+    K1's launches."""
+    import importlib.util
+    import os
+
+    from hgr_tpu_torch.models.clip import get_config
+    from hgr_tpu_torch.ops.attention import attention
+
+    p = real["paths"]
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_text_feats",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                     "export_torch_text_feats.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = os.path.join(os.path.dirname(p["graph"]), "text_feats.json")
+    attention.launches = 0
+    t0 = time.time()
+    tool.main(["--graph_path", p["graph"], "--arch", arch, "--names_path", p["names"],
+               "--vocab_path", p["vocab"], "--out", out, "--device", str(dev.index or 0)],
+              device=dev)
+    launches = attention.launches
+    rows = np.asarray([r[0] for r in json.load(open(out))], np.float32)
+    norms = np.linalg.norm(rows, axis=1)
+    log(f"[export-text] {arch}: {rows.shape} features in {time.time() - t0:.1f} s, K1 launches "
+        f"{launches}, row norms {norms.min():.4f}-{norms.max():.4f}")
+    n = real["tm"].hier.num_nodes
+    assert rows.shape == (n, get_config(arch).embed_dim) and np.isfinite(rows).all()
+    assert launches == bank_launches, launches
+    assert np.allclose(norms, 1.0, atol=1e-2)
+    return launches
+
+
+
 def phase_guard(dev):
     """K1 refuses a call that autograd would record: it has no backward."""
     from hgr_tpu_torch.ops.attention import attention
@@ -1335,11 +1741,14 @@ def main() -> int:
     import shutil
     import tempfile
 
+    import os
+
     name = phase_device()
     phase_build()
     from hgr_tpu_torch.device import select_device
 
     dev = select_device("cuda:0")
+    n_procs = min(8, os.cpu_count() or 1)
     main_row = phase_kernels(dev)
     phase_chains()
     tm, bank, summary, rn50 = phase_slice(dev)
@@ -1349,13 +1758,20 @@ def main() -> int:
     vit, _, _, vit_launches = phase_slice(dev, arch="ViT-B/32", batches=2, image_launches=12)
     phase_vit_features(vit)
     del vit
+    rn50x4 = phase_slice(dev, arch="RN50x4", batches=1)[3]
     work = tempfile.mkdtemp(prefix="hgr_real_inputs_")
     try:
+        vit_l14 = phase_vit_l14(dev, work)
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
         real_launches = real.pop("launches")
-        del real
+        decoded = phase_decode(dev, real, n_procs)
+        phase_baseline_images(dev, real, decoded, n_procs)
+        phase_resnet_reference(dev)
+        text = phase_export_text(dev, real)
+        real.pop("tm")
         train = phase_train(dev)
+        phase_trace(dev)
         phase_train_reference(dev)
         phase_guard(dev)
         coop = phase_coop(dev)
@@ -1367,8 +1783,11 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    by_path = {"rn50_eval": rn50, "vit_b32_eval": vit_launches,
+    by_path = {"rn50_eval": rn50, "vit_b32_eval": vit_launches, "rn50x4_eval": rn50x4,
+               "vit_l14_eval": vit_l14,
                "rn50_real_inputs_eval": real_launches,
+               "rn50_files_num_proc_workers_eval": decoded["launches"],
+               "export_text_feats": text,
                **({} if serving is None else {"rn50_serve_classify_files": serving}),
                "rn50_train_steps": train["train_steps"], "rn50_test_after_train": train["test"],
                "rn50_coop_train_steps": coop["train_steps"],

@@ -8,10 +8,12 @@ metrics), serving (``serve.ZeroShotClassifier``, ``python -m
 hgr_tpu_torch.serve``), OM fine-tuning (``train``, ``driver.run_train``),
 its CoOp variant (``models/coop.py``), flat fine-tuning
 (``driver.run_train_flat``) and the baselines (``python -m
-hgr_tpu_torch.baselines.run``), on synthetic inputs or on real ones: JSON
+hgr_tpu_torch.baselines.run``, with their frozen ResNet-50 featurizer and
+DGP's backbone refit), on synthetic inputs or on real ones: JSON
 hierarchies, BPE prompts (``text``), OpenAI and the port's own
-checkpoints, and image files through manifests or a decode cache
-(``data``). Without gradients, attention on the card is a hand-written
+checkpoints, and image files through manifests or a decode cache, decoded
+by threads or worker processes (``data``). ``--trace_dir`` writes a
+``torch.profiler`` trace of train steps (``utils/profiling.py``). Without gradients, attention on the card is a hand-written
 CUDA kernel (``csrc/attention.cu``); the train step runs
 the plain attention under autograd, as the JAX step runs XLA's. Entry
 points run on CUDA unless the caller passes ``device="cpu"``.

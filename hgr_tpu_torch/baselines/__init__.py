@@ -3,8 +3,9 @@ CLIP-flat fine-tuning, CNZSL, the DGP/SGCN graph networks and FREE, each
 trained and then evaluated with the shared hierarchical metrics by
 ``python -m hgr_tpu_torch.baselines.run``. Their weights are nested dicts of
 tensors, as the JAX package's are of arrays; random draws are arguments or
-come from a ``torch.Generator``. The frozen ResNet-50 featurizer and the
-backbone refit wait for the port of ``models/resnet_std.py``."""
+come from a ``torch.Generator``. Real images reach them through the frozen
+standard ResNet-50 (``features.py`` over ``models/resnet_std.py``), which
+DGP's stage A' refits under the predicted classifiers (``refit.py``)."""
 
 from .clip_flat import make_flat_loss_fn, make_flat_train_step, step_lr
 from .cnzsl import CNZSLConfig, cnzsl_init, cnzsl_logits, make_cnzsl_train_step

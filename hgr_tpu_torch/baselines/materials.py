@@ -12,12 +12,11 @@ The reference's ``baseline/DGP/materials/`` helpers:
   the GCN's regression targets: ``fc-weights.json`` rows, or a torchvision
   ResNet-50's fc rows with the bias as one more column
   (``materials/process_resnet.py``);
+- :func:`inject_fc` - a predicted classifier fixed into the standard
+  ResNet-50's head (the stage-A' refit, ``train_resnet_fit.py:43-57``);
 - :func:`tr_word_vectors`, :func:`logits_with_bias_column` and
   :func:`suppress_seen` - the "Tr" embedding preprocessing, stage B's
   scoring and the DGP scripts' seen-class suppression.
-
-``inject_fc`` (the refit's fixed classifier) waits for the port of
-``models/resnet_std.py``.
 """
 
 from __future__ import annotations
@@ -94,6 +93,21 @@ def fc_vectors_from_torch_resnet(path: str, normalize: bool = True) -> np.ndarra
     b = sd["fc.bias"].detach().float().numpy()[:, None]
     fc = np.concatenate([w, b], axis=1)
     return (_normalize(fc) if normalize else fc).astype(np.float32)
+
+
+def inject_fc(model, fc_vectors: np.ndarray):
+    """Fix [C, D + 1] classifier rows (weights and a bias column) into a
+    ``models.resnet_std.ResNet50``'s head as a frozen ``fc``
+    (``materials.py:100-113``); features then score against them with a
+    ones column (:func:`logits_with_bias_column`). In place; returns the
+    model."""
+    fc_vectors = np.asarray(fc_vectors, np.float32)
+    fc = torch.nn.Linear(fc_vectors.shape[1] - 1, fc_vectors.shape[0])
+    with torch.no_grad():
+        fc.weight.copy_(torch.from_numpy(fc_vectors[:, :-1]))
+        fc.bias.copy_(torch.from_numpy(fc_vectors[:, -1]))
+    model.fc = fc.requires_grad_(False).to(model.conv1.weight.device)
+    return model
 
 
 def fc_vectors_from_json(path: str, normalize: bool = True) -> np.ndarray:

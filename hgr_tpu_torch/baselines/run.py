@@ -13,14 +13,13 @@ prototypes (a linear map of the class embedding) plus noise, so that every
 baseline has something real to learn. Real inputs: ``--attrs_path`` (a
 ``text_feats.json``, ``glove:<vectors.txt>`` or ``.npy``), ``--protos_path``
 (``fc-weights.json``, a torch ResNet-50 checkpoint or ``.npy``),
-``--feature_file`` and ``--train_feature_file`` (precomputed features), and
-CLIP-flat's ``--image_root`` with its manifests. ``--save_path`` writes the
-port's own ``torch.save`` artifacts (``utils/checkpoint.save_pytree``).
-
-Not yet ported, and refused with :class:`NotYetPorted` once the flags have
-passed the checks that come before any training: ``--cnn`` (the frozen
-ResNet-50 featurizer of ``--image_root``), ``--refit_backbone`` (DGP's
-stage A') and ``--num_procs`` (decode processes).
+``--feature_file`` and ``--train_feature_file`` (precomputed features),
+``--image_root`` with ``--manifest`` and a frozen ResNet-50 (``--cnn``, a
+torchvision checkpoint) that featurizes the test images, DGP's stage-A'
+backbone refit over ``--train_manifest`` (``--refit_backbone``), and
+CLIP-flat's ``--image_root`` with its manifests; ``--num_procs N`` decodes
+images in N processes. ``--save_path`` writes the port's own
+``torch.save`` artifacts (``utils/checkpoint.save_pytree``).
 """
 
 from __future__ import annotations
@@ -32,7 +31,6 @@ import time
 import numpy as np
 import torch
 
-from ..config import NotYetPorted
 from ..device import select_device
 
 
@@ -163,17 +161,39 @@ def evaluate_logit_model(logit_fn, hier, splits, protos, noise, batch, n_batches
     return _evaluate(logit_fn, hier, splits, per_class(), device)
 
 
-def evaluate_real_images(logit_fn, hier, splits, grouped, proto_dim: int, feature_file,
-                         device=None):
-    """Stage-B evaluation on real images' precomputed features
-    (``evaluate_imagenet.py:65-152``): the bias ones-column (``:85``), then
-    the hierarchical metrics, every row of each class of ``grouped``. The
-    frozen-CNN branch (``--cnn``) is not yet ported."""
+def evaluate_real_images(logit_fn, hier, splits, grouped, proto_dim: int, feature_file=None,
+                         device=None, image_root: str = "", featurizer=None, batch: int = 64,
+                         resolution: int = 256, num_threads: int = 8, num_procs: int = 0):
+    """Stage-B evaluation on real images (``evaluate_imagenet.py:65-152``):
+    each class's features, the bias ones-column (``:85``), then the
+    hierarchical metrics, every image of each class of ``grouped``. The
+    features are ``feature_file``'s rows, or the test images under
+    ``image_root`` through the frozen CNN (``featurizer``, ``:84``), decoded
+    at ``resolution`` in batches of ``batch`` by threads or ``num_procs``
+    processes."""
     from .features import with_bias_column
 
-    per_class = ((hier.name_to_id[cls], with_bias_column(feature_file.rows(cls), proto_dim))
-                 for cls in grouped)
-    return _evaluate(logit_fn, hier, splits, per_class, device)
+    if feature_file is not None:
+        per_class = ((hier.name_to_id[cls], with_bias_column(feature_file.rows(cls), proto_dim))
+                     for cls in grouped)
+        return _evaluate(logit_fn, hier, splits, per_class, device)
+
+    from ..data import FileImageSource, GroupedTestLoader
+
+    loader = GroupedTestLoader(grouped, {c: hier.name_to_id[c] for c in grouped},
+                               FileImageSource(resolution, image_root=image_root), batch,
+                               num_threads=num_threads, num_procs=num_procs)
+
+    def per_class():
+        for b in loader:
+            rows = featurizer(b.images)
+            rows = rows[torch.as_tensor(b.valid, device=rows.device)]
+            yield b.target, with_bias_column(rows.cpu().numpy(), proto_dim)
+
+    try:
+        return _evaluate(logit_fn, hier, splits, per_class(), device)
+    finally:
+        loader.close()
 
 
 class TrainFeatureBank:
@@ -210,14 +230,16 @@ def _seen_grouped(train_manifest_path: str, seen) -> dict:
     return grouped
 
 
-def _seen_train_loader(grouped_seen, seen, src, batch, seed, num_threads):
+def _seen_train_loader(grouped_seen, seen, src, batch, seed, num_threads, num_procs):
     """A FlatTrainLoader whose labels index the ``seen`` order
-    (splits['train']), the alignment of the clip_flat prompt bank."""
+    (splits['train']): the alignment of the clip_flat prompt bank and of the
+    refit's predicted classifiers."""
     from ..data import FlatTrainLoader
 
     n_items = sum(len(p) for p in grouped_seen.values())
     return FlatTrainLoader(grouped_seen, {c: i for i, c in enumerate(seen)}, src,
-                           max(1, min(batch, n_items)), seed=seed, num_threads=num_threads)
+                           max(1, min(batch, n_items)), seed=seed, num_threads=num_threads,
+                           num_procs=num_procs)
 
 
 def _test_grouped(manifest_path: str, rest) -> dict:
@@ -252,6 +274,9 @@ class _StepClock:
     def step_done(self, i):
         if i == 0:
             self.t1 = self._now()
+
+    def seconds(self):
+        return self._now() - self.t0
 
     def report(self, name, steps):
         t2 = self._now()
@@ -366,6 +391,8 @@ def run_gcn(args, hier, splits, attrs, protos, device=None):
         f = torch.as_tensor(feats, device=device)
         return (f / torch.linalg.norm(f, dim=1, keepdim=True)) @ pred.T
 
+    # the stage-A' refit reads the predicted classifiers off the scorer
+    logit_fn.pred = pred.float().cpu().numpy()
     return logit_fn
 
 
@@ -481,7 +508,8 @@ def _parser() -> argparse.ArgumentParser:
         "grouped eval manifest json: wnid -> [relative image paths]; classes outside "
         "splits['rest'] are ignored"))
     ap.add_argument("--cnn", default="", help=(
-        "frozen feature backbone (torch ResNet-50 checkpoint): not yet ported"))
+        "frozen feature backbone: a torchvision ResNet-50 .pt/.pth, or a save_pytree "
+        "directory (e.g. a {save_path}_refit)"))
     ap.add_argument("--feature_file", default="", help=(
         "precomputed per-class eval features (.npz wnid -> [n_i, D]) - skips the CNN"))
     ap.add_argument("--train_feature_file", default="", help=(
@@ -491,14 +519,17 @@ def _parser() -> argparse.ArgumentParser:
         "SEEN-class training manifest json: wnid -> [relative image paths]; consumed by "
         "--refit_backbone and by clip_flat real-image training"))
     ap.add_argument("--refit_backbone", action="store_true", help=(
-        "DGP stage-A' backbone refit: not yet ported"))
+        "DGP stage-A' (gcn only): refit the --cnn base on --train_manifest's seen-class "
+        "images under the GCN-predicted classifier, then evaluate through it"))
     ap.add_argument("--refit_steps", type=int, default=100)
     ap.add_argument("--refit_lr", type=float, default=1e-4)
     ap.add_argument("--refit_batch", type=int, default=64)
-    ap.add_argument("--eval_resolution", type=int, default=256)
+    ap.add_argument("--eval_resolution", type=int, default=256, help=(
+        "loader resolution for real-image eval and the refit (short-side resize + centre "
+        "crop); the featurizer centre-crops --eval_crop out of it"))
     ap.add_argument("--eval_crop", type=int, default=224)
     ap.add_argument("--num_threads", type=int, default=8)
-    ap.add_argument("--num_procs", type=int, default=0)
+    ap.add_argument("--num_procs", type=int, default=0, help="decode images in N processes")
     ap.add_argument("--feat_dim", type=int, default=64)
     ap.add_argument("--attr_dim", type=int, default=32)
     ap.add_argument("--hid_dim", type=int, default=128)
@@ -537,8 +568,6 @@ def main(argv=None, device=None):
     summary dict. ``device`` (from Python only) replaces ``cuda:{--device}``."""
     args = _parser().parse_args(argv)
     dev = select_device(device, args.device)
-    if args.num_procs > 0:
-        raise NotYetPorted("--num_procs (decode processes) is not yet ported to hgr_tpu_torch")
     hier, splits = _hierarchy(args)
 
     if args.refit_backbone and args.baseline != "gcn":
@@ -580,6 +609,7 @@ def main(argv=None, device=None):
         train_bank = TrainFeatureBank(FeatureFile(args.train_feature_file), splits["train"])
     # flag contracts and manifests are checked before any training: a
     # mistake fails in seconds
+    refit_grouped_seen = None
     if args.refit_backbone:
         if not (args.cnn and args.image_root and args.train_manifest):
             raise SystemExit("--refit_backbone needs --cnn + --image_root "
@@ -591,9 +621,7 @@ def main(argv=None, device=None):
         if args.refit_steps < 1:
             raise SystemExit(f"--refit_steps {args.refit_steps}: must be >= 1 "
                              "(drop --refit_backbone to skip stage-A')")
-        _seen_grouped(args.train_manifest, splits["train"])
-        raise NotYetPorted("--refit_backbone (DGP stage A', hgr_tpu/baselines/refit.py) waits "
-                           "for the port of hgr_tpu/models/resnet_std.py")
+        refit_grouped_seen = _seen_grouped(args.train_manifest, splits["train"])
     eval_grouped = None
     if args.image_root or args.feature_file:
         if not args.manifest:
@@ -601,10 +629,6 @@ def main(argv=None, device=None):
         if not (args.feature_file or args.cnn):
             raise SystemExit("--image_root requires --cnn (or use --feature_file)")
         eval_grouped = _test_grouped(args.manifest, splits["rest"])
-        if not args.feature_file:
-            raise NotYetPorted("--cnn (the frozen ResNet-50 featurizer of --image_root) waits "
-                               "for the port of hgr_tpu/models/resnet_std.py; use "
-                               "--feature_file")
 
     if args.baseline == "cnzsl":
         logit_fn = run_cnzsl(args, hier, splits, attrs, protos, train_bank, device=dev)
@@ -612,6 +636,10 @@ def main(argv=None, device=None):
         logit_fn = run_free(args, hier, splits, attrs, protos, train_bank, device=dev)
     else:
         logit_fn = run_gcn(args, hier, splits, attrs, protos, device=dev)
+
+    refit_model = None
+    if args.refit_backbone:
+        refit_model = run_refit(args, hier, splits, logit_fn.pred, refit_grouped_seen, dev)
 
     if not args.consider_trains:
         # the DGP scripts' ZSL protocol: seen-class columns set to a
@@ -627,21 +655,38 @@ def main(argv=None, device=None):
 
     t0 = time.time()
     if eval_grouped is not None:
-        from .features import FeatureFile
+        from .features import FeatureFile, load_backbone, make_featurizer
 
-        feature_file = FeatureFile(args.feature_file)
+        feature_file = featurizer = None
+        if args.feature_file:
+            feature_file = FeatureFile(args.feature_file)
+            feat_dim = feature_file.dim
+        else:
+            # the refit backbone when there is one (stage B after stage A')
+            model = refit_model if refit_model is not None else load_backbone(args.cnn, dev)
+            featurizer = make_featurizer(model, crop=args.eval_crop)
+            feat_dim = 2048
         # the ones column follows the logit model's input width: GCN
         # classifiers live in proto space (possibly D + 1, DGP's 2049),
         # cnzsl/free trained on a real bank take its feature width
         logit_dim = train_bank.dim if train_bank is not None else protos.shape[1]
-        if logit_dim not in (feature_file.dim, feature_file.dim + 1):
+        if logit_dim not in (feat_dim, feat_dim + 1):
             raise SystemExit(
-                f"real-image eval produces {feature_file.dim}-d features but the "
+                f"real-image eval produces {feat_dim}-d features but the "
                 f"{args.baseline} model expects {logit_dim}-d inputs — train in the real "
                 "feature space (--protos_path from a real backbone for gcn; "
                 "--train_feature_file for cnzsl/free)")
+        clock = _StepClock(dev)
         summary = evaluate_real_images(logit_fn, hier, splits, eval_grouped, logit_dim,
-                                       feature_file, device=dev)
+                                       feature_file, device=dev, image_root=args.image_root,
+                                       featurizer=featurizer, batch=args.eval_batch,
+                                       resolution=args.eval_resolution,
+                                       num_threads=args.num_threads, num_procs=args.num_procs)
+        if featurizer is not None:
+            secs = clock.seconds()
+            print(f"# featurizer: {int(summary['num_samples'])} test images in {secs:.2f} s = "
+                  f"{summary['num_samples'] / max(secs, 1e-9):.1f} images/s, decode and "
+                  f"metrics included ({args.num_procs} decode processes)", flush=True)
     else:
         summary = evaluate_logit_model(logit_fn, hier, splits, protos, args.noise,
                                        args.eval_batch, args.eval_batches_per_class, args.seed,
@@ -649,6 +694,65 @@ def main(argv=None, device=None):
     print(f"# eval over {int(summary['num_samples'])} samples in {time.time() - t0:.2f} s",
           flush=True)
     return _finish(args.baseline, summary)
+
+
+def run_refit(args, hier, splits, pred, grouped_seen, device):
+    """DGP stage A' (``train_resnet_fit.py:43-101``; JAX ``run.py:714-751``):
+    the ``--cnn`` base retrains under the GCN-predicted classifiers of the
+    seen classes, on their images; returns the refit model, which stage B
+    then featurizes with. With ``--save_path`` it and the trlog go to
+    ``{save_path}_refit``."""
+    from ..data import FileImageSource
+    from .features import load_backbone
+    from .refit import refit_backbone
+
+    seen = splits["train"]
+    # labels index rows of pred[seen]: the alignment the reference asserts
+    # against its train dir (train_resnet_fit.py:43)
+    loader = _seen_train_loader(grouped_seen, seen,
+                                FileImageSource(args.eval_resolution, image_root=args.image_root),
+                                args.refit_batch, args.seed, args.num_threads, args.num_procs)
+    clock = _StepClock(device)
+    marked = _MarkedLoader(loader, clock)
+    try:
+        model, trlog = refit_backbone(load_backbone(args.cnn, device), pred[hier.ids(seen)],
+                                      marked, steps=args.refit_steps, lr=args.refit_lr,
+                                      crop=args.eval_crop, seed=args.seed,
+                                      log_every=max(1, args.refit_steps // 5))
+    finally:
+        loader.close()
+    clock.report(f"refit, batch {loader.batch_size}", args.refit_steps)
+    gaps = np.diff(marked.marks) * 1e3
+    if len(gaps):
+        print(f"# refit: median step {np.median(gaps):.1f} ms after the first "
+              f"({len(gaps)} steps; loader wait included)", flush=True)
+    print(f"refit done: loss {trlog['loss'][-1]:.4f} acc {trlog['acc'][-1]:.4f}", flush=True)
+    if args.save_path:
+        # the reference's per-epoch resnet_base checkpoints and trlog
+        # history (train_resnet_fit.py:94-100), one artifact here
+        from ..utils.checkpoint import save_pytree
+
+        save_pytree(args.save_path + "_refit", {"params": model.state_dict(), "trlog": trlog})
+        print(f"saved refit backbone + trlog -> {args.save_path}_refit", flush=True)
+    return model
+
+
+class _MarkedLoader:
+    """A train loader that reads the step clock after each batch's step
+    (the next batch is asked for once the step ran, its loss read):
+    ``marks`` holds the times."""
+
+    def __init__(self, loader, clock):
+        self.loader, self.clock, self.marks = loader, clock, []
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield batch
+            self.clock.step_done(len(self.marks))
+            self.marks.append(self.clock._now())
 
 
 def _finish(baseline, summary):
@@ -707,7 +811,7 @@ def run_clip_flat(args, hier, splits, device=None):
 
         src = FileImageSource(res, image_root=args.image_root)
         train_loader = _seen_train_loader(_seen_grouped(args.train_manifest, seen), seen, src,
-                                          args.batch, args.seed, args.num_threads)
+                                          args.batch, args.seed, args.num_threads, args.num_procs)
         batches = iter(train_loader)
     clock = _StepClock(device)
     try:
@@ -744,7 +848,8 @@ def run_clip_flat(args, hier, splits, device=None):
 
         grouped = _test_grouped(args.manifest, splits["rest"])
         loader = GroupedTestLoader(grouped, {c: hier.name_to_id[c] for c in grouped}, src,
-                                   args.eval_batch, num_threads=args.num_threads)
+                                   args.eval_batch, num_threads=args.num_threads,
+                                   num_procs=args.num_procs)
         try:
             for b in loader:
                 total = accumulate(total, tm.eval_step_sorted(

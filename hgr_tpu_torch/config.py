@@ -55,7 +55,7 @@ class Config:
     graph_path: str = "data/process_results/graph_edges_cls.json"
     split_path: str = "data/process_results/splits_for_tree.json"
     num_workers: int = 12
-    num_proc_workers: int = 0   # decode processes: not yet ported
+    num_proc_workers: int = 0   # decode processes (data/mp_decode.py); 0 = threads
     decode_cache: str = ""      # decode cache root (data/decode_cache.py)
     keep_checkpoints: int = 0
     batch_size: int = 256

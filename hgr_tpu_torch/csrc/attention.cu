@@ -6,7 +6,7 @@
 // fp32 scores q.k^T plus an optional additive fp32 [T, T] mask, an fp32
 // max-subtracted softmax, probabilities normalised in fp32 and rounded to
 // v's dtype, then P.V with fp32 accumulators, rounded to the output dtype.
-// Head dim 64, 1 <= T <= 256, bf16 or fp32, q/k/v/o through strides (the
+// Head dim 64, any T >= 1, bf16 or fp32, q/k/v/o through strides (the
 // caller passes views of the packed [B, T, 3D] projection and gets a view of
 // a [B, T, H, Dh] buffer back, so no head transpose is copied). The TPU
 // kernel's padding of T to 8 and Dh to 128 was a layout artefact; here the
@@ -66,10 +66,27 @@
 // - The output tile goes through the warp's own (finished) q rows in shared
 //   memory to 16-byte stores, 128 contiguous bytes per row.
 //
+// Long sequences (T > 256: ViT-L/14's 257 tokens, ViT-L/14@336's 577), in
+// attention_fwd_bf16_long: a whole head no longer fits an item buffer, so an
+// item is (prompt, head, tile of at most 8 row tiles = 128 query rows), the
+// row tiles of a head spread evenly over its items. The block's q rows stay
+// in shared memory; K and V stream through in 64-key blocks, double-buffered
+// cp.async copies, in the same two passes (max and sum over every key block,
+// then q.k^T again and P.V with the final normalisation), with the same
+// device functions. The mask's tile classes are the block's own row tiles
+// against every key tile, in shared memory sized by the runtime T; no mask
+// tile is staged (mixed tiles are read through the cache). It only has to
+// be right: it is not tuned (the short path above serves T <= 256 as before).
+//
 // fp32 (attention_fwd_f32) keeps the first SIMT design: tensor cores would
 // mean TF32, and fp32 is the parity mode. One block per (batch*head, tile of
-// 32 query rows), K and V staged in shared memory, one warp per query row
-// with fp32 FMAs.
+// 32 query rows), one warp per query row with fp32 FMAs. K and V pass through
+// shared memory in tiles of 256 keys, so any T fits: with one tile (T <= 256)
+// each row runs its scores, softmax and P.V in one pass, each score
+// exponentiated once (the kOneTile instantiation); with more, a first pass
+// over the tiles finds each row's max and sum, and a second recomputes the
+// scores and accumulates P.V. A thread holds one row's scores (8 registers)
+// at a time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,7 +98,6 @@
 namespace {
 
 constexpr int kDh = 64;  // head dim
-constexpr int kMaxT = 256;
 
 struct Strides {
   long long b, h, t;  // in elements; the head-dim stride is 1
@@ -92,6 +108,7 @@ struct Strides {
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxWarps = 16;          // warps per block: one per 16 rows, T <= 256
+constexpr int kShortRowTiles = 16;     // the short path's most row tiles (T <= 256)
 constexpr int kRowBytes = kDh * 2;     // one bf16 row: 128 bytes
 constexpr int kChunks = kRowBytes / 16;
 constexpr int kTwoPassTiles = 3;       // key tiles of 48 in the two passes
@@ -323,8 +340,8 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
   uint8_t* codes = smem + 2 * buf_bytes;                          // [RT][RT]
   uint32_t* live = reinterpret_cast<uint32_t*>(codes + ((RT * RT + 15) & ~15));  // [RT]
-  uint32_t* nonzero = live + kMaxT / 16;                          // [RT]
-  float* slots = reinterpret_cast<float*>(nonzero + kMaxT / 16);  // [n_slots][16][kSlotStride]
+  uint32_t* nonzero = live + kShortRowTiles;                          // [RT]
+  float* slots = reinterpret_cast<float*>(nonzero + kShortRowTiles);  // [n_slots][16][kSlotStride]
 
   // every copy of one work item (prompt, head group) into buffer buf, as
   // one cp.async group; rows past T are zero-filled
@@ -548,7 +565,7 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float
   // as leave room for kMinBlocks blocks on an SM
   const size_t budget = kSmemPerSm / kMinBlocks - kSmemReserved;
   const size_t fixed = 2 * (size_t)HG * 3 * Tp * kRowBytes + ((RT * RT + 15) & ~15) +
-                       2 * (kMaxT / 16) * sizeof(uint32_t);
+                       2 * kShortRowTiles * sizeof(uint32_t);
   int n_slots = 0;
   if (mask != nullptr && fixed < budget) n_slots = (int)((budget - fixed) / kSlotBytes);
   if (n_slots > RT * RT) n_slots = RT * RT;
@@ -564,123 +581,395 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16, T > 256: K and V streamed through the block in key blocks
+// ---------------------------------------------------------------------------
+
+constexpr int kLongKT = 4;                         // 16-key tiles a streamed key block
+constexpr int kLongKeys = 16 * kLongKT;            // 64 keys: 8 KB of K and 8 KB of V
+constexpr int kLongRowTiles = 8;                   // most row tiles (warps) an item
+constexpr int kLongThreads = kLongRowTiles * 32;
+
+// One block per item (prompt, head, RTB row tiles); warp w owns row tile w.
+// The device functions above index q rows and key tiles from the start of
+// the head, so the shared-memory bases are shifted back by whole 16-row
+// tiles (2,048 bytes: the swizzle's low bits do not change).
+__global__ void __launch_bounds__(kLongThreads, 2)
+attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ mask,
+                        bf16* __restrict__ o, int H, int T_len, int RTB, int n_qt,
+                        float scale, Strides qs, Strides ks, Strides vs, Strides os) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int KT = kLongKT;
+  const int RT = (T_len + 15) / 16, n_kb = (RT + KT - 1) / KT;
+  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt, b = bh / H, hd = bh % H;
+  const int rt0 = qt * RTB, nrt = min(RTB, RT - rt0), qrow0 = rt0 * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  const int q_bytes = RTB * 16 * kRowBytes, kv_bytes = kLongKeys * kRowBytes;
+  const uint32_t q_s = smem_addr(smem);                // [RTB*16][64], the item's rows
+  const uint32_t kv_s = q_s + q_bytes;                 // [2 stages][K | V][64 keys][64]
+  uint8_t* codes = smem + q_bytes + 4 * kv_bytes;      // [nrt][RT]
+  const int c = threadIdx.x & 7;
+
+  // the item's q rows (past T zero-filled) go out with the first key block
+  {
+    const bf16* src = q + b * qs.b + hd * qs.h + c * 8;
+    for (int r = threadIdx.x >> 3; r < nrt * 16; r += blockDim.x >> 3) {
+      const int gr = qrow0 + r;
+      cp_async16(q_s + swz(r, c), src + min(gr, T_len - 1) * qs.t, gr < T_len ? 16 : 0);
+    }
+  }
+  // key block kb of K and V into stage st, as one cp.async group
+  auto issue = [&](int kb, int st) {
+    for (int t = 0; t < 2; ++t) {
+      const Strides s = t == 0 ? ks : vs;
+      const bf16* src = (t == 0 ? k : v) + b * s.b + hd * s.h + c * 8;
+      const uint32_t dst = kv_s + (2 * st + t) * kv_bytes;
+      for (int r = threadIdx.x >> 3; r < kLongKeys; r += blockDim.x >> 3) {
+        const int gr = kb * kLongKeys + r;
+        cp_async16(dst + swz(r, c), src + min(gr, T_len - 1) * s.t, gr < T_len ? 16 : 0);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  issue(0, 0);
+
+  // what each 16x16 mask tile of the item's row tiles holds, by runtime T
+  // (pad keys count as -inf, pad rows are left out); one warp a tile
+  for (int t = warp; t < nrt * RT; t += n_warps) {
+    const int rt = t / RT, kt = t % RT;
+    bool live = true, zero = kt < RT - 1 || T_len % 16 == 0;
+    if (mask != nullptr) {
+      live = false;
+      zero = true;
+      for (int i = lane; i < 256; i += 32) {
+        const int r = qrow0 + rt * 16 + i / 16, col = kt * 16 + i % 16;
+        if (r < T_len) {
+          const float m = col < T_len ? __ldg(mask + (long long)r * T_len + col) : -INFINITY;
+          live |= m != -INFINITY;
+          zero &= m == 0.f;
+        }
+      }
+      live = __any_sync(0xffffffffu, live);
+      zero = __all_sync(0xffffffffu, zero);
+    }
+    if (lane == 0) codes[t] = !live ? kDead : zero ? kZero : kGlobal;
+  }
+
+  const bool active = warp < nrt;
+  const int row0 = qrow0 + warp * 16;  // this warp's first query row in the head
+  const uint32_t q_g = q_s - (uint32_t)(qrow0 * kRowBytes);
+  const int q_off = -qrow0 * kRowBytes;  // the same shift for byte offsets
+  const uint8_t* row_codes = codes + warp * RT;
+  constexpr float kLog2e = 1.4426950408889634f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mref[2], inv[2];
+  float O[2][4][4] = {};
+  float S[2 * KT][4];
+  // pass 1 over the key blocks (max and sum), then pass 2 (P.V)
+  for (int it = 0; it < 2 * n_kb; ++it) {
+    const int pass = it / n_kb, kb = it % n_kb, st = it & 1;
+    if (it + 1 < 2 * n_kb) {
+      issue((it + 1) % n_kb, (it + 1) & 1);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    if (active) {
+      const int kt0 = kb * KT;
+      const uint32_t k_g = kv_s + 2 * st * kv_bytes - (uint32_t)(kt0 * 16 * kRowBytes);
+      const uint32_t v_g = k_g + kv_bytes;
+      scores<KT>(S, q_g, k_g, row0, kt0, RT, T_len, scale, mask, row_codes, nullptr, lane);
+      if (pass == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float cm = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 2 * KT; ++j) cm = fmaxf(cm, fmaxf(S[j][2 * h], S[j][2 * h + 1]));
+          const float mn = fmaxf(m[h], quad_max(cm));
+          const float mr = mn == -INFINITY ? 0.f : mn;  // a row masked so far
+          float cs = 0.f;
+#pragma unroll
+          for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+            for (int e = 2 * h; e < 2 * h + 2; ++e)
+              cs += exp2_sfu(fmaf(S[j][e], kLog2e, -mr * kLog2e));
+          l[h] = l[h] * exp2_sfu((m[h] - mr) * kLog2e) + quad_sum(cs);
+          m[h] = mn;
+        }
+        if (kb == n_kb - 1) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mref[h] = m[h] == -INFINITY ? 0.f : m[h];
+            inv[h] = 1.f / l[h];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            S[j][e] = exp2_sfu(fmaf(S[j][e], kLog2e, -mref[e >> 1] * kLog2e));
+        uint32_t P[KT][4];
+        pack_p<KT>(P, S, inv);
+        pv_half<KT>(O[0], P, v_g, kt0, RT, row_codes, 0, lane);
+        pv_half<KT>(O[1], P, v_g, kt0, RT, row_codes, 1, lane);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's copies
+  }
+  if (!active) return;
+  // the output tile through this warp's own (finished) q rows
+  stage_half(smem, q_off, O[0], row0, 0, lane);
+  stage_half(smem, q_off, O[1], row0, 1, lane);
+  __syncwarp();
+  bf16* oh = o + b * os.b + hd * os.h;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = row0 + i / kChunks, cc = i % kChunks;
+    if (r < T_len)
+      *reinterpret_cast<uint4*>(oh + r * os.t + cc * 8) =
+          *reinterpret_cast<const uint4*>(smem + q_off + swz(r, cc));
+  }
+}
+
+cudaError_t launch_bf16_long(const bf16* q, const bf16* k, const bf16* v, const float* mask,
+                             bf16* o, int B, int H, int T_len, float scale, Strides qs,
+                             Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+  const int RT = (T_len + 15) / 16;
+  // the head's row tiles spread evenly over as few items of <= 8 as cover it
+  const int fewest = (RT + kLongRowTiles - 1) / kLongRowTiles;
+  const int RTB = (RT + fewest - 1) / fewest;
+  const int n_qt = (RT + RTB - 1) / RTB;
+  const size_t smem = (size_t)RTB * 16 * kRowBytes + 4 * (size_t)kLongKeys * kRowBytes +
+                      (size_t)RTB * RT;
+  const long long n_items = (long long)B * H * n_qt;
+  if (smem > kMaxSmemBytes || n_items > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const cudaError_t e = cudaFuncSetAttribute(
+      attention_fwd_bf16_long, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (e != cudaSuccess) return e;
+  attention_fwd_bf16_long<<<(int)n_items, RTB * 32, smem, stream>>>(
+      q, k, v, mask, o, H, T_len, RTB, n_qt, scale, qs, ks, vs, os);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // fp32: SIMT
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Warps = 8;          // warps per block
 constexpr int kRowsPerBlock = 32;     // query rows per block
-constexpr int kKeysPerLane = kMaxT / 32;
+constexpr int kRowsPerWarp = kRowsPerBlock / kF32Warps;
+constexpr int kKeyTile = 256;         // keys a shared-memory tile of K and V
+constexpr int kKeysPerLane = kKeyTile / 32;
 constexpr int kKPad = kDh + 1;        // K row stride in words (bank spread)
 
+// Rows [j0, j0 + n) of K, and of V when with_v, into shared memory, by the
+// whole block
+__device__ __forceinline__ void f32_stage(const float* kh, const float* vh, Strides ks,
+                                          Strides vs, int j0, int n, float* k_s, float* v_s,
+                                          bool with_v) {
+  for (int i = threadIdx.x; i < n * (kDh / 4); i += blockDim.x) {
+    const int r = i / (kDh / 4), c = i % (kDh / 4);
+    const float4 kv = *reinterpret_cast<const float4*>(kh + (j0 + r) * ks.t + c * 4);
+    float* kd = k_s + r * kKPad + c * 4;
+    kd[0] = kv.x;
+    kd[1] = kv.y;
+    kd[2] = kv.z;
+    kd[3] = kv.w;
+    if (with_v)
+      *reinterpret_cast<float4*>(v_s + r * kDh + c * 4) =
+          *reinterpret_cast<const float4*>(vh + (j0 + r) * vs.t + c * 4);
+  }
+}
+
+// Query row r, pre-scaled as pallas_attention does, into every lane's qf
+// (through the warp's qw)
+__device__ __forceinline__ void f32_q_row(const float* qh, Strides qs, int r, float scale,
+                                          float* qw, int lane, float (&qf)[kDh]) {
+  const float2 qv = *reinterpret_cast<const float2*>(qh + r * qs.t + 2 * lane);
+  qw[2 * lane] = qv.x * scale;
+  qw[2 * lane + 1] = qv.y * scale;
+  __syncwarp();
+#pragma unroll
+  for (int d = 0; d < kDh; ++d) qf[d] = qw[d];
+  __syncwarp();  // qw is rewritten for this warp's next row
+}
+
+// This lane's scores of qf against the staged keys lane + 32 jj < n_keys,
+// plus the mask row's entries; -inf past n_keys
+__device__ __forceinline__ void f32_scores(const float (&qf)[kDh], const float* k_s,
+                                           const float* mrow, int n_keys, int lane,
+                                           float (&sc)[kKeysPerLane]) {
+#pragma unroll
+  for (int jj = 0; jj < kKeysPerLane; ++jj) {
+    const int j = lane + 32 * jj;
+    sc[jj] = -INFINITY;
+    if (j < n_keys) {
+      const float* krow = k_s + j * kKPad;
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < kDh; ++d) acc = fmaf(qf[d], krow[d], acc);
+      sc[jj] = mrow ? acc + mrow[j] : acc;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// P.V over the warp's probabilities pw[0, n_keys): this lane owns output
+// dims 2*lane and 2*lane+1
+__device__ __forceinline__ void f32_pv(const float* pw, const float* v_s, int n_keys, int lane,
+                                       float& a0, float& a1) {
+  for (int j = 0; j < n_keys; ++j) {
+    const float p = pw[j];
+    const float2 vv = *reinterpret_cast<const float2*>(v_s + j * kDh + 2 * lane);
+    a0 = fmaf(p, vv.x, a0);
+    a1 = fmaf(p, vv.y, a1);
+  }
+}
+
+// tile = min(T, kKeyTile): the keys a shared-memory tile holds; kOneTile
+// when it holds all of them (T <= kKeyTile)
+template <bool kOneTile>
 __global__ void __launch_bounds__(kF32Warps * 32)
 attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ mask,
-                  float* __restrict__ o, int H, int T_len, float scale, Strides qs,
+                  float* __restrict__ o, int H, int T_len, int tile, float scale, Strides qs,
                   Strides ks, Strides vs, Strides os) {
   extern __shared__ __align__(16) float smf[];
-  float* v_s = smf;                        // [T][kDh]
-  float* k_s = v_s + T_len * kDh;          // [T][kKPad]
-  float* q_s = k_s + T_len * kKPad;        // [kF32Warps][kDh]
-  float* p_s = q_s + kF32Warps * kDh;      // [kF32Warps][T]
+  float* v_s = smf;                          // [tile][kDh]
+  float* k_s = v_s + tile * kDh;             // [tile][kKPad]
+  float* q_s = k_s + tile * kKPad;           // [kF32Warps][kDh]: a warp's q row
+  float* p_s = q_s + kF32Warps * kDh;        // [kF32Warps][tile]
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const float* qh = q + b * qs.b + h * qs.h;
   const float* kh = k + b * ks.b + h * ks.h;
   const float* vh = v + b * vs.b + h * vs.h;
   float* oh = o + b * os.b + h * os.h;
-
-  for (int i = threadIdx.x; i < T_len * (kDh / 4); i += blockDim.x) {
-    const int r = i / (kDh / 4), c = i % (kDh / 4);
-    const float4 kv = *reinterpret_cast<const float4*>(kh + r * ks.t + c * 4);
-    const float4 vv = *reinterpret_cast<const float4*>(vh + r * vs.t + c * 4);
-    float* kd = k_s + r * kKPad + c * 4;
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
-    *reinterpret_cast<float4*>(v_s + r * kDh + c * 4) = vv;
-  }
-  __syncthreads();
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r_base = blockIdx.y * kRowsPerBlock;
   float* qw = q_s + warp * kDh;
-  float* pw = p_s + warp * T_len;
-  const int r_end = min(T_len, (int)(blockIdx.y + 1) * kRowsPerBlock);
-  for (int r = blockIdx.y * kRowsPerBlock + warp; r < r_end; r += kF32Warps) {
-    // the q row, pre-scaled as pallas_attention does
-    const float2 qv = *reinterpret_cast<const float2*>(qh + r * qs.t + 2 * lane);
-    qw[2 * lane] = qv.x * scale;
-    qw[2 * lane + 1] = qv.y * scale;
-    __syncwarp();
-    float qf[kDh];
-#pragma unroll
-    for (int d = 0; d < kDh; ++d) qf[d] = qw[d];
+  float* pw = p_s + warp * tile;
+  float qf[kDh], sc[kKeysPerLane];
 
-    const float* mrow = mask ? mask + (long long)r * T_len : nullptr;
-    float s[kKeysPerLane];
-    float m = -INFINITY;
+  if constexpr (kOneTile) {
+    // K and V staged once; each row's scores, softmax and P.V in turn, each
+    // score exponentiated once, the output written as the row ends
+    f32_stage(kh, vh, ks, vs, 0, T_len, k_s, v_s, true);
+    __syncthreads();
+    const int r_end = min(T_len, r_base + kRowsPerBlock);
+    for (int r = r_base + warp; r < r_end; r += kF32Warps) {
+      f32_q_row(qh, qs, r, scale, qw, lane, qf);
+      f32_scores(qf, k_s, mask ? mask + (long long)r * T_len : nullptr, T_len, lane, sc);
+      float m = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + 32 * i;
-      s[i] = -INFINITY;
-      if (j < T_len) {
-        const float* krow = k_s + j * kKPad;
-        float acc = 0.f;
+      for (int jj = 0; jj < kKeysPerLane; ++jj) m = fmaxf(m, sc[jj]);
+      m = warp_max(m);
+      float sum = 0.f;
 #pragma unroll
-        for (int d = 0; d < kDh; ++d) acc = fmaf(qf[d], krow[d], acc);
-        s[i] = acc;
-        if (mrow) s[i] += mrow[j];
-        m = fmaxf(m, s[i]);
+      for (int jj = 0; jj < kKeysPerLane; ++jj)
+        if (lane + 32 * jj < T_len) {
+          sc[jj] = expf(sc[jj] - m);
+          sum += sc[jj];
+        }
+      sum = warp_sum(sum);
+#pragma unroll
+      for (int jj = 0; jj < kKeysPerLane; ++jj) {
+        const int j = lane + 32 * jj;
+        if (j < T_len) pw[j] = sc[jj] / sum;
+      }
+      __syncwarp();
+      float a0 = 0.f, a1 = 0.f;
+      f32_pv(pw, v_s, T_len, lane, a0, a1);
+      *reinterpret_cast<float2*>(oh + r * os.t + 2 * lane) = make_float2(a0, a1);
+      __syncwarp();  // pw is rewritten for this warp's next row
+    }
+  } else {
+    // pass 0 finds each row's max and sum over the key tiles, pass 1
+    // recomputes the scores and accumulates P.V
+    const int n_tiles = (T_len + tile - 1) / tile;
+    float m[kRowsPerWarp], l[kRowsPerWarp], a0[kRowsPerWarp], a1[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      m[i] = -INFINITY;
+      l[i] = a0[i] = a1[i] = 0.f;
+    }
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int j0 = t * tile, n_keys = min(tile, T_len - j0);
+        __syncthreads();  // the previous tile is read by every warp
+        f32_stage(kh, vh, ks, vs, j0, n_keys, k_s, v_s, pass == 1);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const int r = r_base + warp + kF32Warps * i;
+          if (r >= T_len) continue;  // the same for the whole warp
+          f32_q_row(qh, qs, r, scale, qw, lane, qf);
+          f32_scores(qf, k_s, mask ? mask + (long long)r * T_len + j0 : nullptr, n_keys, lane,
+                     sc);
+          if (pass == 0) {
+            float cm = -INFINITY;
+#pragma unroll
+            for (int jj = 0; jj < kKeysPerLane; ++jj) cm = fmaxf(cm, sc[jj]);
+            const float mn = fmaxf(m[i], warp_max(cm)), mr = mn == -INFINITY ? 0.f : mn;
+            float cs = 0.f;
+#pragma unroll
+            for (int jj = 0; jj < kKeysPerLane; ++jj)
+              if (lane + 32 * jj < n_keys) cs += expf(sc[jj] - mr);
+            l[i] = l[i] * expf(m[i] - mr) + warp_sum(cs);
+            m[i] = mn;
+          } else {
+            const float mr = m[i] == -INFINITY ? 0.f : m[i];
+#pragma unroll
+            for (int jj = 0; jj < kKeysPerLane; ++jj) {
+              const int j = lane + 32 * jj;
+              if (j < n_keys) pw[j] = expf(sc[jj] - mr) / l[i];
+            }
+            __syncwarp();
+            f32_pv(pw, v_s, n_keys, lane, a0[i], a1[i]);
+            __syncwarp();  // pw is rewritten for this warp's next row
+          }
+        }
       }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      if (lane + 32 * i < T_len) {
-        s[i] = expf(s[i] - m);
-        sum += s[i];
-      }
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = r_base + warp + kF32Warps * i;
+      if (r < T_len)
+        *reinterpret_cast<float2*>(oh + r * os.t + 2 * lane) = make_float2(a0[i], a1[i]);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + 32 * i;
-      if (j < T_len) pw[j] = s[i] / sum;
-    }
-    __syncwarp();
-
-    // P.V: this lane owns output dims 2*lane and 2*lane+1
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < T_len; ++j) {
-      const float p = pw[j];
-      const float2 vv = *reinterpret_cast<const float2*>(v_s + j * kDh + 2 * lane);
-      a0 = fmaf(p, vv.x, a0);
-      a1 = fmaf(p, vv.y, a1);
-    }
-    *reinterpret_cast<float2*>(oh + r * os.t + 2 * lane) = make_float2(a0, a1);
-    __syncwarp();  // qw and pw are rewritten for this warp's next row
   }
 }
 
 cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* mask,
                        float* o, int B, int H, int T_len, float scale, Strides qs,
                        Strides ks, Strides vs, Strides os, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)T_len * kDh + (size_t)T_len * kKPad +
-                                       (size_t)kF32Warps * kDh + (size_t)kF32Warps * T_len);
+  const bool one_tile = T_len <= kKeyTile;
+  const int tile = one_tile ? T_len : kKeyTile;
+  const size_t smem = sizeof(float) * ((size_t)tile * kDh + (size_t)tile * kKPad +
+                                       (size_t)kF32Warps * kDh + (size_t)kF32Warps * tile);
+  auto kernel = one_tile ? attention_fwd_f32<true> : attention_fwd_f32<false>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attention_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(B * H, (T_len + kRowsPerBlock - 1) / kRowsPerBlock);
-  attention_fwd_f32<<<grid, kF32Warps * 32, smem, stream>>>(q, k, v, mask, o, H, T_len,
-                                                            scale, qs, ks, vs, os);
+  kernel<<<grid, kF32Warps * 32, smem, stream>>>(q, k, v, mask, o, H, T_len, tile, scale, qs, ks,
+                                                 vs, os);
   return cudaGetLastError();
 }
 
@@ -697,7 +986,7 @@ int hgr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                       long long k_st, long long v_sb, long long v_sh,
                       long long v_st, long long o_sb, long long o_sh,
                       long long o_st, void* stream) {
-  if (Dh != kDh || T_len < 1 || T_len > kMaxT || B < 1 || H < 1) return -1;
+  if (Dh != kDh || T_len < 1 || B < 1 || H < 1) return -1;
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st};
   const Strides vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -710,6 +999,8 @@ int hgr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
   const int RT = (T_len + 15) / 16;
+  if (RT > kShortRowTiles)
+    return (int)launch_bf16_long(qb, kb, vb, mask, ob, B, H, T_len, scale, qs, ks, vs, os, st);
   // One pass while a warp's scores (8 x RT fp32 registers) fit its register
   // budget without spilling (-Xptxas -v), T <= 96; two passes over 48-key
   // tiles above. Block size and resident blocks per SM set that budget:

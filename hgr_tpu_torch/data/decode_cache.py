@@ -26,12 +26,9 @@ built from a different split/k-shot subsample fails loudly instead of
 silently serving wrong pixels.
 
 Build:  python -m hgr_tpu_torch.data.decode_cache build split.json cache_dir/ \
-            --resolution 224 [--image_root R]
+            --resolution 224 [--image_root R] [--num_procs N]
 Use:    loaders accept any ImageSource — pass ``CachedImageSource(dir)``,
         or set ``--decode_cache dir`` on the main CLI.
-
-Only the thread-pool build is ported: ``num_procs > 0`` (decode processes)
-raises ``NotYetPorted``.
 """
 
 from __future__ import annotations
@@ -41,8 +38,6 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-
-from ..config import NotYetPorted
 
 # Bump when the decode geometry/semantics change: rows from an older-version
 # cache are NOT bit-equal to the current online path, so opening one must
@@ -66,8 +61,8 @@ def build_cache(
 
     Decoding goes through ``FileImageSource`` (native C++ fast path, PIL
     fallback, corrupt-image substitution) — the cache is bit-identical to
-    what the online loader would have produced. ``num_procs > 0`` (the
-    decode process pool) is not yet ported and raises. ``source`` overrides
+    what the online loader would have produced. ``num_procs > 0`` decodes in
+    that many processes (``data/mp_decode.py``). ``source`` overrides
     the image source (any ``ImageSource`` of uint8 rows at ``resolution``:
     e.g. synthetic rows for format-level stress tests, or a custom reader).
 
@@ -77,12 +72,9 @@ def build_cache(
     two concurrent builders (e.g. multi-host on a shared filesystem)
     cannot interleave writes — the loser's rename simply yields to the
     winner's identical, already-complete cache."""
-    if num_procs > 0:
-        raise NotYetPorted("not yet ported to hgr_tpu_torch: decode processes "
-                           "(num_procs > 0, --num_proc_workers)")
     from concurrent.futures import ThreadPoolExecutor
 
-    from .pipeline import FileImageSource
+    from .pipeline import FileImageSource, _decode_rows, _maybe_mp_pool
 
     final_dir = out_dir
     out_dir = f"{out_dir.rstrip(os.sep)}.building.{os.getpid()}"
@@ -98,7 +90,9 @@ def build_cache(
     )
     if source is None:
         source = FileImageSource(resolution, image_root)
-    # the native C++ decode releases the GIL, so threads decode in parallel
+    mp_pool = _maybe_mp_pool(source, num_procs, chunk)
+    # without processes: the native C++ decode releases the GIL, so threads
+    # decode in parallel
     pool = ThreadPoolExecutor(max(1, num_threads))
     class_ptr = [0]
     offsets = [0]
@@ -109,7 +103,7 @@ def build_cache(
                 paths = grouped[cls]
                 for lo in range(0, len(paths), chunk):
                     idxs = list(range(lo, min(lo + chunk, len(paths))))
-                    rows = list(pool.map(lambda i: source.load(cls, paths, i), idxs))
+                    rows = _decode_rows(source, pool, mp_pool, cls, paths, idxs)
                     images[row : row + len(idxs)] = rows
                     row += len(idxs)
                 for p in paths:
@@ -119,6 +113,8 @@ def build_cache(
                 class_ptr.append(row)
     finally:
         pool.shutdown()
+        if mp_pool is not None:
+            mp_pool.close()
     images.flush()
     np.save(os.path.join(out_dir, "class_ptr.npy"),
             np.asarray(class_ptr, np.int64))

@@ -15,13 +15,15 @@ Behaviour of the reference's grouped loaders (``dataset/imagenet_group.py:
   labels, for flat fine-tuning and the CLIP-flat baseline.
 
 A class's last partial batch is zero-padded with a validity mask so that
-device shapes stay fixed. Images are made on the host by a thread pool
-behind a bounded prefetch queue. Sources: ``FileImageSource`` (the native
-libjpeg decoder for JPEGs, PIL otherwise, with the reference's corrupt-image
-fallback), ``data/decode_cache.CachedImageSource`` and
-``SyntheticImageSource``. Manifests: ``load_manifest`` (``{wnid: [paths]}``
-JSON) or ``data/manifest_index.MmapManifest``; ``kshot_subsample`` caps the
-unseen classes. The decode process pool is not yet ported.
+device shapes stay fixed. Images are made on the host by a thread pool, or
+with ``num_procs > 0`` by the worker processes of ``data/mp_decode.py``
+(files only), behind a bounded prefetch queue. Sources:
+``FileImageSource`` (the native libjpeg decoder for JPEGs, PIL otherwise,
+with the reference's corrupt-image fallback),
+``data/decode_cache.CachedImageSource`` and ``SyntheticImageSource``.
+Manifests: ``load_manifest`` (``{wnid: [paths]}`` JSON) or
+``data/manifest_index.MmapManifest``; ``kshot_subsample`` caps the unseen
+classes. This module imports no torch: the decode processes import it.
 """
 
 from __future__ import annotations
@@ -171,6 +173,19 @@ def kshot_subsample(
     return out
 
 
+def _maybe_mp_pool(source, num_procs: int, batch_size: int):
+    """A ``ProcessDecodePool`` where processes apply (``num_procs > 0`` and
+    a ``FileImageSource``), else None: the reference's 12-process
+    DataLoader boundary (``imagenet_group.py:105``; ``hgr_tpu/data/
+    pipeline.py:161-176``)."""
+    if num_procs > 0 and isinstance(source, FileImageSource):
+        from .mp_decode import ProcessDecodePool
+
+        return ProcessDecodePool(source.resolution, batch_size, image_root=source.image_root,
+                                 num_workers=num_procs)
+    return None
+
+
 class Prefetcher:
     """Bounded-queue background producer. An exception in the producer
     thread is re-raised in the consumer, so a failed stream never looks
@@ -237,10 +252,18 @@ class Prefetcher:
             yield item
 
 
-def _batch(source, pool, cls: str, paths: List[str], idxs: List[int], batch_size: int,
-           target: int) -> GroupBatch:
+def _decode_rows(source, pool, mp_pool, cls: str, paths: List[str], idxs: List[int]):
+    """Rows ``paths[idxs]`` of class ``cls``: by the processes of ``mp_pool``
+    when there is one, else by ``source`` in the thread pool."""
+    if mp_pool is not None:
+        return list(mp_pool.decode(cls, paths, idxs))
+    return list(pool.map(lambda i: source.load(cls, paths, i), idxs))
+
+
+def _batch(source, pool, mp_pool, cls: str, paths: List[str], idxs: List[int],
+           batch_size: int, target: int) -> GroupBatch:
     """Rows ``paths[idxs]`` of class ``cls``, zero-padded to ``batch_size``."""
-    imgs = list(pool.map(lambda i: source.load(cls, paths, i), idxs))
+    imgs = _decode_rows(source, pool, mp_pool, cls, paths, idxs)
     h, w, c = imgs[0].shape
     out = np.zeros((batch_size, h, w, c), imgs[0].dtype)
     valid = np.zeros(batch_size, bool)
@@ -261,12 +284,14 @@ class GroupedTestLoader:
         batch_size: int,
         num_threads: int = 8,
         prefetch: int = 4,
+        num_procs: int = 0,
     ):
         self.grouped = {c: p for c, p in grouped.items() if len(p) > 0}
         self.class_ids = class_ids
         self.source = source
         self.batch_size = batch_size
         self._pool = ThreadPoolExecutor(max_workers=num_threads)
+        self.mp_pool = _maybe_mp_pool(source, num_procs, batch_size)
         self._prefetch = prefetch
         self._live: Optional[Prefetcher] = None
         self.num_batches = sum(
@@ -278,11 +303,13 @@ class GroupedTestLoader:
         return self.num_batches
 
     def close(self) -> None:
-        """Stop a live producer, then the decode threads."""
+        """Stop a live producer, then the decode threads and processes."""
         if self._live is not None:
             self._live.stop()
             self._live = None
         self._pool.shutdown(wait=True)
+        if self.mp_pool is not None:
+            self.mp_pool.close()
 
     def __iter__(self) -> Iterator[GroupBatch]:
         if self._live is not None:  # a re-entered loop must not share the producer
@@ -293,7 +320,7 @@ class GroupedTestLoader:
             for cls, paths in self.grouped.items():
                 for start in range(0, len(paths), B):
                     idxs = list(range(start, min(start + B, len(paths))))
-                    yield _batch(self.source, self._pool, cls, paths, idxs, B,
+                    yield _batch(self.source, self._pool, self.mp_pool, cls, paths, idxs, B,
                                  self.class_ids[cls])
 
         self._live = Prefetcher(gen, depth=self._prefetch)
@@ -313,6 +340,7 @@ class GroupedTrainLoader:
         seed: int = 0,
         num_threads: int = 8,
         serial_batches: bool = True,
+        num_procs: int = 0,
     ):
         # serial_batches=False is the reference's non-serial mode
         # (imagenet_group.py:142-143): every episode draws a fresh random
@@ -331,6 +359,7 @@ class GroupedTrainLoader:
         self.classes = list(self.grouped.keys())
         self._cursors: Dict[str, List[int]] = {}
         self._pool = ThreadPoolExecutor(max_workers=num_threads)
+        self.mp_pool = _maybe_mp_pool(source, num_procs, batch_size)
         self._live: Optional[Prefetcher] = None
 
     def _next_indices(self, cls: str) -> List[int]:
@@ -354,11 +383,13 @@ class GroupedTrainLoader:
                 yield self.classes[int(g)]
 
     def close(self) -> None:
-        """Stop a live producer, then the decode threads."""
+        """Stop a live producer, then the decode threads and processes."""
         if self._live is not None:
             self._live.stop()
             self._live = None
         self._pool.shutdown(wait=True)
+        if self.mp_pool is not None:
+            self.mp_pool.close()
 
     def set_epoch(self, epoch: int) -> None:
         """Pin the next ``__iter__``'s streams to ``epoch``: the class order
@@ -391,7 +422,7 @@ class GroupedTrainLoader:
         def gen():
             for _ in range(remaining):
                 cls = next(class_iter)
-                yield _batch(self.source, self._pool, cls, self.grouped[cls],
+                yield _batch(self.source, self._pool, self.mp_pool, cls, self.grouped[cls],
                              self._next_indices(cls), self.batch_size, self.class_ids[cls])
 
         self._live = Prefetcher(gen)
@@ -416,6 +447,7 @@ class FlatTrainLoader:
         num_threads: int = 8,
         prefetch: int = 4,
         drop_last: bool = True,
+        num_procs: int = 0,
     ):
         self.grouped = grouped
         self.items = [(cls, i, class_ids[cls]) for cls, paths in grouped.items()
@@ -425,6 +457,7 @@ class FlatTrainLoader:
         self._seed = seed
         self._epoch = 0
         self._pool = ThreadPoolExecutor(max_workers=num_threads)
+        self.mp_pool = _maybe_mp_pool(source, num_procs, batch_size)
         self._prefetch = prefetch
         self._live: Optional[Prefetcher] = None
         self.drop_last = drop_last
@@ -435,11 +468,13 @@ class FlatTrainLoader:
         return self.num_batches
 
     def close(self) -> None:
-        """Stop a live producer, then the decode threads."""
+        """Stop a live producer, then the decode threads and processes."""
         if self._live is not None:
             self._live.stop()
             self._live = None
         self._pool.shutdown(wait=True)
+        if self.mp_pool is not None:
+            self.mp_pool.close()
 
     def set_epoch(self, epoch: int) -> None:
         """Pin the next ``__iter__``'s shuffle to ``(seed, epoch)``; without
@@ -456,8 +491,12 @@ class FlatTrainLoader:
             B = self.batch_size
             for s in range(self.num_batches):
                 rows = [self.items[i] for i in order[s * B: (s + 1) * B]]
-                imgs = list(self._pool.map(
-                    lambda r: self.source.load(r[0], self.grouped[r[0]], r[1]), rows))
+                if self.mp_pool is not None:  # (path, its class's first image) a row
+                    imgs = list(self.mp_pool.decode_pairs(
+                        [(self.grouped[c][i], self.grouped[c][0]) for c, i, _ in rows]))
+                else:
+                    imgs = list(self._pool.map(
+                        lambda r: self.source.load(r[0], self.grouped[r[0]], r[1]), rows))
                 h, w, c = imgs[0].shape
                 out = np.zeros((B, h, w, c), imgs[0].dtype)
                 valid = np.zeros(B, bool)

@@ -23,9 +23,11 @@ device, over the reference's JSON artifacts or a synthetic stand-in
 (``models/coop.py``) in the bank and in the OM step; ``--coop_train``
 chooses what trains (the context, CLIP, or both).
 
-Paths the port does not run yet raise instead of being ignored:
-multi-device meshes, profiler traces and decode processes
-(``require_ported``).
+``--num_proc_workers N`` decodes image files in N processes
+(``data/mp_decode.py``) in every loader and in the decode cache's build;
+``--trace_dir`` writes a Chrome trace of train steps 1-3
+(``utils/profiling.TraceWindow``). Multi-device meshes, the one path the
+port does not run yet, raise instead of being ignored (``require_ported``).
 """
 
 from __future__ import annotations
@@ -59,8 +61,6 @@ def require_ported(config: Config) -> None:
     """Raise for every option that selects a path the port does not run."""
     refused = {
         "--mesh_data/--mesh_model": config.mesh_data not in (-1, 1) or config.mesh_model != 1,
-        "--num_proc_workers": config.num_proc_workers > 0,
-        "--trace_dir": bool(config.trace_dir),
     }
     on = [name for name, set_ in refused.items() if set_]
     if on:
@@ -160,7 +160,8 @@ def _image_source(config: Config, resolution: int, grouped=None, split: str = ""
         from .data.decode_cache import open_or_build
 
         return open_or_build(os.path.join(config.decode_cache, split or "default"),
-                             grouped, resolution, image_root=config.image_root)
+                             grouped, resolution, image_root=config.image_root,
+                             num_procs=config.num_proc_workers)
     return FileImageSource(resolution, config.image_root)
 
 
@@ -210,6 +211,7 @@ def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[s
         _image_source(config, tm.clip_cfg.image_resolution, grouped, config.data_split_test),
         config.test_batch_size,
         num_threads=config.num_workers,
+        num_procs=config.num_proc_workers,
     )
     logger.log_text(f"number of batches:{loader.num_batches}")
 
@@ -272,6 +274,7 @@ def run_train_flat(config: Config, tm: TreeModel, splits, logger: RunLogger) -> 
         config.batch_size,
         seed=config.seed,
         num_threads=config.num_workers,
+        num_procs=config.num_proc_workers,
     )
     seen_tokens = torch.as_tensor(tm.node_tokens[seen_ids], device=dev).long()
     # optax.chain(clip_by_global_norm, adamw(cosine_lr)) over {"clip"} alone,
@@ -334,6 +337,7 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
         seed=config.seed,
         num_threads=config.num_workers,
         serial_batches=config.serial_batches,
+        num_procs=config.num_proc_workers,
     )
     steps_per_epoch = loader.n_episodes
     text_fn = extra_params = extra_labels = None
@@ -403,15 +407,19 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
             yield batch.images, builder.build(batch.target)
 
     logger.log_config(config)
+    from .utils.profiling import TraceWindow
+
+    tracer = TraceWindow(config.trace_dir)
     try:
-        return _epoch_loop(config, tm, splits, logger, state, step_fn, sampler,
+        return _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, sampler,
                            loader, node_tokens, prefetch_steps, steps_per_epoch, resume_skip)
     finally:
+        tracer.close()
         loader.close()
 
 
-def _epoch_loop(config, tm, splits, logger, state, step_fn, sampler, loader, node_tokens,
-                prefetch_steps, steps_per_epoch, resume_skip=0):
+def _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, sampler, loader,
+                node_tokens, prefetch_steps, steps_per_epoch, resume_skip=0):
     from .train import sched_to_device
     from .utils.checkpoint import AsyncCheckpointSaver
     from .utils.preempt import GracefulShutdown
@@ -434,8 +442,10 @@ def _epoch_loop(config, tm, splits, logger, state, step_fn, sampler, loader, nod
             steps = Prefetcher(prefetch_steps, depth=2)
             try:
                 for i, (images, sched_host) in enumerate(steps):
+                    tracer.before(i)
                     state, loss = step_fn(state, torch.from_numpy(images).to(dev), node_tokens,
                                           sched_to_device(sched_host, dev))
+                    tracer.after(i, loss)
                     if i % config.print_freq == 0:
                         logger.log_train(epoch, skip_base + i, steps_per_epoch, float(loss))
                     steps_done = skip_base + i + 1

@@ -53,10 +53,27 @@ class CLIPConfig:
         return self.vision_width * 32 // 64
 
 
-# The configurations the port runs (hyperparameters of the public OpenAI
-# checkpoints, hgr_tpu/models/clip.py:55-115) and the tiny ones the tests use.
+# The zoo (hyperparameters of the public OpenAI checkpoints,
+# hgr_tpu/models/clip.py:55-115) and the tiny configurations the tests use.
 CONFIGS: Dict[str, CLIPConfig] = {
     "RN50": CLIPConfig(),
+    "RN101": CLIPConfig(embed_dim=512, vision_layers=(3, 4, 23, 3), transformer_width=512),
+    "RN50x4": CLIPConfig(
+        embed_dim=640,
+        image_resolution=288,
+        vision_layers=(4, 6, 10, 6),
+        vision_width=80,
+        transformer_width=640,
+        transformer_heads=10,
+    ),
+    "RN50x16": CLIPConfig(
+        embed_dim=768,
+        image_resolution=384,
+        vision_layers=(6, 8, 18, 8),
+        vision_width=96,
+        transformer_width=768,
+        transformer_heads=12,
+    ),
     "ViT-B/32": CLIPConfig(
         embed_dim=512,
         vision_layers=(12,),
@@ -101,9 +118,7 @@ def get_config(name: str) -> CLIPConfig:
     try:
         return CONFIGS[name]
     except KeyError:
-        raise KeyError(
-            f"arch {name!r} is not yet ported; options: {sorted(CONFIGS)}"
-        ) from None
+        raise KeyError(f"unknown arch {name!r}; options: {sorted(CONFIGS)}") from None
 
 
 class CLIP(nn.Module):

@@ -16,6 +16,7 @@ array-like) leaves and returns an OpenAI-named ``state_dict`` of fp32 torch
 tensors that ``CLIP.load_state_dict`` accepts. It unstacks the scanned
 transformer blocks, transposes conv weights HWIO -> OIHW and linear weights
 ``[in, out]`` -> ``[out, in]``, and repacks ``qkv`` into ``in_proj_weight``.
+``from_jax_resnet`` does the same for the baselines' standard ResNet-50.
 """
 
 from __future__ import annotations
@@ -111,6 +112,28 @@ def from_jax_params(params: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
     _ln(sd, "ln_final", txt["ln_final"])
     sd["text_projection"] = _t(txt["text_projection"])
     sd["logit_scale"] = _t(params["logit_scale"])
+    return sd
+
+
+def from_jax_resnet(params: Mapping[str, Any]) -> StateDict:
+    """JAX standard ResNet-50 tree (``hgr_tpu/models/resnet_std.py``) ->
+    torchvision ``state_dict`` (the inverse of its ``convert_torch_resnet``,
+    ``:184-228``), which ``ResNet50.load_state_dict`` takes; a tree without
+    ``fc`` gives no head."""
+    sd: StateDict = {}
+    _conv(sd, "conv1", params["conv1"])
+    _bn(sd, "bn1", params["bn1"])
+    for li in range(1, 5):
+        for j, p in enumerate(params[f"layer{li}"]):
+            name = f"layer{li}.{j}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{name}.conv{i}", p[f"conv{i}"])
+                _bn(sd, f"{name}.bn{i}", p[f"bn{i}"])
+            if "downsample" in p:
+                _conv(sd, f"{name}.downsample.0", p["downsample"]["conv"])
+                _bn(sd, f"{name}.downsample.1", p["downsample"]["bn"])
+    if "fc" in params:
+        _linear(sd, "fc", params["fc"])
     return sd
 
 

@@ -25,7 +25,6 @@ from ..models.layers import attention_scores
 from . import build
 
 HEAD_DIM = 64
-MAX_T = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_int, _c_ll, _c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -60,8 +59,8 @@ def _check(q, k, v, mask) -> None:
             )
     if q.dtype not in _DTYPES:
         raise ValueError(f"attention kernel takes bfloat16 or float32, not {q.dtype}")
-    if Dh != HEAD_DIM or not 1 <= T <= MAX_T:
-        raise ValueError(f"attention kernel takes Dh == {HEAD_DIM} and 1 <= T <= {MAX_T}; got Dh={Dh}, T={T}")
+    if Dh != HEAD_DIM or T < 1:
+        raise ValueError(f"attention kernel takes Dh == {HEAD_DIM} and T >= 1; got Dh={Dh}, T={T}")
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:

@@ -13,8 +13,8 @@ same depth-sorted one-pass argmax the evaluator uses.
 
 On the card the bank build, and a ViT image tower, run the fused attention
 kernel. ``classify_files`` decodes files in a thread pool
-(``FileImageSource``); the CLI is ``python -m hgr_tpu_torch.serve IMG ...``.
-Decode processes (``num_procs > 0``) are not yet ported and raise.
+(``FileImageSource``) or, with ``num_procs > 0``, in worker processes
+(``data/mp_decode.py``); the CLI is ``python -m hgr_tpu_torch.serve IMG ...``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .config import NotYetPorted
 from .eval.bank import bank_logits
 from .eval.metrics import NEG
 from .models.clip import encode_image
@@ -98,27 +97,36 @@ class ZeroShotClassifier:
     def classify_files(self, paths: Sequence[str], k: int = 5, batch: int = 64,
                        image_root: str = "", num_threads: int = 8,
                        num_procs: int = 0) -> List[List[Tuple[str, float]]]:
-        """Decode files (native JPEG decoder, else PIL) and classify; returns
-        per-image ``[(wnid, score), ...]`` lists. A file that fails to decode
-        raises: serving has no class whose first image could stand in."""
-        if num_procs > 0:
-            raise NotYetPorted("not yet ported to hgr_tpu_torch: decode processes "
-                               "(classify_files num_procs > 0)")
+        """Decode files (native JPEG decoder, else PIL) in ``num_threads``
+        threads or, with ``num_procs > 0``, in that many processes (the
+        loaders' ``--num_proc_workers`` path, for many-core serving hosts),
+        and classify; returns per-image ``[(wnid, score), ...]`` lists. A
+        file that fails to decode raises: serving has no class whose first
+        image could stand in."""
         from concurrent.futures import ThreadPoolExecutor
 
         from .data import FileImageSource
+        from .data.pipeline import _maybe_mp_pool
 
         src = FileImageSource(self.tm.clip_cfg.image_resolution, image_root)
+        mp_pool = _maybe_mp_pool(src, num_procs, batch)
         names = self.tm.hier.names
         out: List[List[Tuple[str, float]]] = []
-        with ThreadPoolExecutor(max_workers=num_threads) as pool:
-            for s in range(0, len(paths), batch):
-                chunk = list(paths[s: s + batch])
-                # raw uint8 rows: encode_image normalises them on the device
-                arr = np.stack(list(pool.map(lambda p: src.load("", [p], 0), chunk)))
-                ids, vals = self.classify(arr, k)
-                out.extend([(names[int(i)], float(v)) for i, v in zip(row_ids, row_vals)]
-                           for row_ids, row_vals in zip(ids, vals))
+        try:
+            with ThreadPoolExecutor(max_workers=num_threads) as pool:
+                for s in range(0, len(paths), batch):
+                    chunk = list(paths[s: s + batch])
+                    if mp_pool is not None:  # a file falls back to itself: it raises
+                        arr = mp_pool.decode_pairs([(p, p) for p in chunk])
+                    else:
+                        arr = np.stack(list(pool.map(lambda p: src.load("", [p], 0), chunk)))
+                    # raw uint8 rows: encode_image normalises them on the device
+                    ids, vals = self.classify(arr, k)
+                    out.extend([(names[int(i)], float(v)) for i, v in zip(row_ids, row_vals)]
+                               for row_ids, row_vals in zip(ids, vals))
+        finally:
+            if mp_pool is not None:
+                mp_pool.close()
         return out
 
 
@@ -154,7 +162,7 @@ def main(argv=None, device=None) -> None:
     parser.add_argument("--image_root", default="", dest="serve_image_root",
                         help="prefix joined to relative image paths")
     parser.add_argument("--num_procs", type=int, default=0, dest="serve_num_procs",
-                        help="decode in N worker processes (not yet ported)")
+                        help="decode in N worker processes")
     ns, rest = parser.parse_known_args(argv)
 
     config = Config.from_args(rest)

@@ -36,13 +36,19 @@ def _qkv(T, seed, B=2, H=3, Dh=64):
 
 
 # each case also runs one length at an edge of the kernel's contract: a
-# single row, four row tiles (ViT-B/32's 50), and the two-pass range (197, 256)
-EDGE_T = {5: 1, 20: 50, 32: 197, 77: 256}
+# single row, four row tiles (ViT-B/32's 50), the two-pass range (197, 256)
+# and the long-sequence path past it (ViT-L/14's 257, ViT-L/14@336's 577)
+EDGE_T = {5: 1, 20: 50, 32: 197, 77: 256, 257: 577}
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_attention_matches_jax(causal):
-    """Every length of ``EDGE_T``, each with its edge length."""
+def test_attention_matches_jax():
+    """Every length of ``EDGE_T``, each with its edge length, causal and
+    not."""
+    for causal in (True, False):
+        _attention_matches_jax(causal)
+
+
+def _attention_matches_jax(causal):
     for t in [t for T in EDGE_T for t in (T, EDGE_T[T])]:
         q, k, v = _qkv(t, seed=t)
         jm = jnp.asarray(jax_causal_mask(t)) if causal else None
@@ -88,7 +94,7 @@ def test_mha_strided_heads_match_contiguous():
 
 BAD_ARGUMENTS = [
     (dict(Dh=32), "Dh == 64"),
-    (dict(T=257), "T <= 256"),
+    (dict(T=0), "T >= 1"),
     (dict(dtype=torch.float16), "bfloat16 or float32"),
     (dict(mask_dtype=torch.float64), "mask must be float32"),
     (dict(odd_stride=True), "16-byte aligned"),

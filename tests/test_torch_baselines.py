@@ -20,12 +20,17 @@ one Adam step within 1e-4 relative + 1e-6, where the gradient is above
   runner's eval functions with one fixed scorer, and the runner itself:
   CNZSL and GCN learn the synthetic problem (their inits cannot match
   JAX's, so the check is learning, as ``tests/test_baseline_runner.py``),
-  the guards exit as JAX's do, and ``--cnn`` and ``--refit_backbone``
-  raise ``NotYetPorted``.
+  the guards exit as JAX's do, and the real-image path: ``--cnn`` (the
+  frozen ResNet-50 featurizing ``--image_root``), ``--refit_backbone`` (DGP
+  stage A') and ``--num_procs`` give JAX's metric counts exactly with one
+  fixed GCN scorer on both sides, fp32, and JAX's own flip draws; the port's
+  feature export reproduces its ``--cnn`` counts through ``--feature_file``.
 """
 
 import dataclasses
+import importlib.util
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,7 +47,9 @@ from hgr_tpu.baselines import clip_flat as jflat  # noqa: E402
 from hgr_tpu.baselines import cnzsl as jcnzsl  # noqa: E402
 from hgr_tpu.baselines import free as jfree  # noqa: E402
 from hgr_tpu.baselines import gcn as jgcn  # noqa: E402
+from hgr_tpu.baselines import features as jfeatures  # noqa: E402
 from hgr_tpu.baselines import materials as jmat  # noqa: E402
+from hgr_tpu.baselines import refit as jrefit  # noqa: E402
 from hgr_tpu.baselines import run as jrun  # noqa: E402
 from hgr_tpu.baselines.features import FeatureFile as JFeatureFile  # noqa: E402
 from hgr_tpu.baselines.features import with_bias_column as j_with_bias_column  # noqa: E402
@@ -54,13 +61,15 @@ from hgr_tpu.models.convert import convert_state_dict as j_convert_state_dict  #
 from hgr_tpu.tree_model import TreeModel as JTreeModel  # noqa: E402
 from hgr_tpu.utils.logging import RunLogger as JRunLogger  # noqa: E402
 from hgr_tpu_torch import driver  # noqa: E402
-from hgr_tpu_torch.baselines import clip_flat, cnzsl, free, gcn, materials, run  # noqa: E402
+from hgr_tpu_torch.baselines import (  # noqa: E402
+    clip_flat, cnzsl, features, free, gcn, materials, refit, run)
 from hgr_tpu_torch.baselines.features import FeatureFile, with_bias_column  # noqa: E402
 from hgr_tpu_torch.baselines.optim import Adam, grads, tree_leaves, tree_map  # noqa: E402
-from hgr_tpu_torch.config import Config, NotYetPorted  # noqa: E402
-from hgr_tpu_torch.data import FlatTrainLoader, SyntheticImageSource  # noqa: E402
+from hgr_tpu_torch.config import Config  # noqa: E402
+from hgr_tpu_torch.data import FileImageSource, FlatTrainLoader, SyntheticImageSource  # noqa: E402
 from hgr_tpu_torch.hierarchy import synthetic_hierarchy  # noqa: E402
 from hgr_tpu_torch.models.convert import from_jax_params  # noqa: E402
+from hgr_tpu_torch.models.resnet_std import resnet50_init  # noqa: E402
 from hgr_tpu_torch.train import freeze_params  # noqa: E402
 from hgr_tpu_torch.utils.checkpoint import load_pytree, save_pytree  # noqa: E402
 from hgr_tpu_torch.utils.logging import RunLogger  # noqa: E402
@@ -489,11 +498,11 @@ def test_loaders_and_eval_match_jax(tmp_path, monkeypatch):
     assert torch.equal(back["pred"], tree["pred"])
 
 
-def test_runner_learns_and_refuses(tmp_path):
+def test_runner_learns_and_refuses(tmp_path, monkeypatch):
     """CNZSL and GCN learn the synthetic problem (120 classes, 40 unseen:
     chance hit@1 is 2.5%); FREE gives every metric; every SystemExit guard
-    that comes before training says what JAX's says; ``--cnn`` and
-    ``--refit_backbone`` raise NotYetPorted after those guards."""
+    that comes before training says what JAX's says; then the real-image
+    path against JAX (``_real_image_runs_match_jax``)."""
     s = run.main(["--baseline", "cnzsl", "--steps", "100", "--eval_batch", "4",
                   "--save_path", str(tmp_path / "cnzsl")], device="cpu")
     assert s["hit@1"] > 25.0 and s["num_samples"] == 160
@@ -537,11 +546,111 @@ def test_runner_learns_and_refuses(tmp_path):
         with pytest.raises(SystemExit) as got:
             run.main(argv, device="cpu")
         assert str(got.value) == str(want.value), argv
-    with pytest.raises(NotYetPorted, match="--cnn"):
-        run.main(["--baseline", "cnzsl", "--image_root", "r", "--manifest", man, "--cnn", "c.pt"],
-                 device="cpu")
-    with pytest.raises(NotYetPorted, match="--refit_backbone"):
-        run.main(["--baseline", "gcn", "--refit_backbone", "--cnn", "c.pt", "--image_root", "r",
-                  "--train_manifest", tr], device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["--baseline", "cnzsl"])
+    _real_image_runs_match_jax(tmp_path, monkeypatch, hier, seen, rest)
+
+
+def _real_image_runs_match_jax(tmp_path, monkeypatch, hier, seen, rest):
+    """``--cnn`` over seeded JPEGs of 6 test classes, and ``--cnn
+    --refit_backbone`` over 6 seen classes' (2 steps of 4), against the JAX
+    runner. Both runners score with one fixed GCN prediction (the GCNs'
+    inits differ) whose test-class rows are their images' mean features, so
+    that there are hits; the JAX featurizer and refit step run in fp32 as
+    the port's do on the CPU, and the port's refit takes JAX's flip draws.
+    The hit and TOR counts must be JAX's exactly, path and point within
+    1e-6. The refit runs at lr 1e-6: the train-mode net at 56 px is chaotic
+    (``tests/test_torch_resnet_std.py``), so a step at the default 1e-4 may
+    already move a near-tied argmax apart; its step is held to JAX's
+    there, the runner's flags, loaders and BatchNorm statistics here."""
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    root = tmp_path / "images"
+    grouped = {}
+    for cls in rest[:6] + seen[:6]:
+        (root / cls).mkdir(parents=True)
+        grouped[cls] = []
+        for j in range(2):
+            img = rng.integers(0, 256, (int(rng.integers(40, 80)), int(rng.integers(40, 80)), 3))
+            Image.fromarray(img.astype(np.uint8)).save(root / cls / f"{j}.jpg", quality=90)
+            grouped[cls].append(f"{cls}/{j}.jpg")
+    (tmp_path / "test6.json").write_text(json.dumps({c: grouped[c] for c in rest[:6]}))
+    (tmp_path / "seen6.json").write_text(json.dumps({c: grouped[c] for c in seen[:6]}))
+    sd = resnet50_init(torch.Generator().manual_seed(0)).state_dict()
+    sd["bn1.num_batches_tracked"] = torch.tensor(0)  # as torchvision's files hold them
+    torch.save(sd, tmp_path / "r50.pth")
+
+    pred = rng.standard_normal((hier.num_nodes, 2048)).astype(np.float32)
+    featurize = features.make_featurizer(resnet50_init(torch.Generator().manual_seed(0)), crop=56)
+    src = FileImageSource(64, image_root=str(root))
+    for c in rest[:6]:
+        rows = featurize(np.stack([src.load(c, grouped[c], j) for j in range(2)]))
+        pred[hier.name_to_id[c]] = rows.mean(0).numpy()
+    pred /= np.linalg.norm(pred, axis=1, keepdims=True)
+
+    def fixed_gcn(pkg):
+        def runner(*a, **kw):
+            if pkg == "jax":
+                def logit_fn(f):
+                    f = jnp.asarray(f)
+                    return (f / jnp.linalg.norm(f, axis=1, keepdims=True)) @ jnp.asarray(pred).T
+            else:
+                def logit_fn(f):
+                    f = torch.as_tensor(f)
+                    return (f / torch.linalg.norm(f, dim=1, keepdim=True)) @ torch.from_numpy(pred).T
+            logit_fn.pred = pred
+            return logit_fn
+        return runner
+
+    monkeypatch.setattr(jrun, "run_gcn", fixed_gcn("jax"))
+    monkeypatch.setattr(run, "run_gcn", fixed_gcn("torch"))
+    j_feat, j_step = jfeatures.make_featurizer, jrefit.make_refit_step
+    monkeypatch.setattr(jfeatures, "make_featurizer",
+                        lambda p, crop=224, dtype=None: j_feat(p, crop, jnp.float32))
+    monkeypatch.setattr(jrefit, "make_refit_step",
+                        lambda tx, crop, dtype=None, augment=True: j_step(tx, crop, jnp.float32,
+                                                                          augment))
+    keys = {"key": jax.random.PRNGKey(0)}  # refit_backbone's key, split once a step
+
+    def jax_flips(g, n, device):
+        keys["key"], k = jax.random.split(keys["key"])
+        return torch.as_tensor(np.array(jax.random.bernoulli(k, shape=(n,))), device=device)
+
+    monkeypatch.setattr(refit, "draw_flips", jax_flips)
+    common = ["--baseline", "gcn", "--feat_dim", "2048", "--image_root", str(root),
+              "--manifest", str(tmp_path / "test6.json"), "--cnn", str(tmp_path / "r50.pth"),
+              "--eval_resolution", "64", "--eval_crop", "56", "--eval_batch", "4",
+              "--num_threads", "2"]
+    refit_flags = ["--refit_backbone", "--train_manifest", str(tmp_path / "seen6.json"),
+                   "--refit_steps", "2", "--refit_batch", "4", "--refit_lr", "1e-6"]
+    for flags in ([], refit_flags):
+        want = jrun.main(common + flags)
+        got = run.main(common + flags + ["--num_procs", "2", "--save_path",
+                                         str(tmp_path / "gcn")], device="cpu")
+        assert got["num_samples"] == want["num_samples"] == 12 and got["hit@1"] > 0
+        for key in ("hit@1", "hit@2", "hit@5", "tor"):
+            assert got[key] == want[key], (flags, key, got, want)
+        for key in ("path_ratio", "point_ratio"):
+            assert got[key] == pytest.approx(want[key], rel=1e-6, abs=1e-9), key
+        if not flags:
+            cnn = got
+    art = load_pytree(str(tmp_path / "gcn_refit"))
+    assert len(art["trlog"]["step_loss"]) == 2 and np.isfinite(art["trlog"]["step_loss"]).all()
+    moved = [k for k, v in art["params"].items() if k in sd and not torch.equal(v, sd[k])]
+    assert "conv1.weight" in moved and "layer4.2.bn3.running_var" in moved
+
+    # the feature export tool, then --feature_file: the --cnn run's counts
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_image_feats",
+        Path(__file__).resolve().parent.parent / "tools" / "export_torch_image_feats.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    ff = tool.main(["--manifest", str(tmp_path / "test6.json"), "--image_root", str(root),
+                    "--cnn", str(tmp_path / "r50.pth"), "--out", str(tmp_path / "f.npz"),
+                    "--resolution", "64", "--crop", "56", "--batch", "4", "--num_procs", "2"],
+                   device="cpu")
+    again = run.main(common[:4] + ["--manifest", str(tmp_path / "test6.json"),
+                                   "--feature_file", ff], device="cpu")
+    assert {k: again[k] for k in ("hit@1", "hit@2", "tor", "num_samples")} == \
+        {k: cnn[k] for k in ("hit@1", "hit@2", "tor", "num_samples")}

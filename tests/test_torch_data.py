@@ -9,8 +9,9 @@ grayscale and CMYK JPEGs, a PNG with alpha, and a corrupt file.
   JAX's PIL rows exactly, and a failing file is its class's first image;
 - manifests: ``build_index``'s files byte for byte, ``MmapManifest`` and its
   lazy grouped view, ``load_manifest`` and ``kshot_subsample``;
-- the decode cache: ``build_cache``'s files byte for byte, from files and
-  from a ``source=``, ``CachedImageSource`` rows, and its refusals.
+- the decode cache: ``build_cache``'s files byte for byte, from files (by
+  threads and by decode processes) and from a ``source=``,
+  ``CachedImageSource`` rows, and its refusals.
 """
 
 import filecmp
@@ -28,7 +29,6 @@ from hgr_tpu.data import manifest_index as jmi  # noqa: E402
 from hgr_tpu.data import pipeline as jpipe  # noqa: E402
 from hgr_tpu.data import transforms as jtf  # noqa: E402
 from hgr_tpu.data.native import load_native as j_load_native  # noqa: E402
-from hgr_tpu_torch.config import NotYetPorted  # noqa: E402
 from hgr_tpu_torch.data import decode_cache, manifest_index, native, pipeline, transforms  # noqa: E402
 
 FIXTURES = Path(__file__).resolve().parent / "torch_fixtures"
@@ -56,12 +56,17 @@ def test_transforms_match_jax():
                                           jtf.preprocess_pil_uint8(img, n_px))
 
 
-@pytest.mark.parametrize("native_on", [True, False])
-def test_file_source_rows_match_jax(native_on):
-    """Every fixture's uint8 rows, at three sizes; the corrupt file (and a
-    missing one) comes back as the class's first image."""
+def test_file_source_rows_match_jax():
+    """Every fixture's uint8 rows, at three sizes, with the native decoder
+    and without; the corrupt file (and a missing one) comes back as the
+    class's first image."""
     assert native.load_native() is not None and j_load_native() is not None, \
         native.native_status()
+    for native_on in (True, False):
+        _file_rows_match_jax(native_on)
+
+
+def _file_rows_match_jax(native_on):
     paths = GOOD + ["corrupt.jpg", "missing.jpg"]
     for res in (32, 45, 224):
         ours = pipeline.FileImageSource(res, str(FIXTURES), native=native_on)
@@ -142,6 +147,9 @@ def test_decode_cache_matches_jax(tmp_path):
     jcache.build_cache(grouped, str(tmp_path / "theirs"), 32, image_root=str(FIXTURES),
                        chunk=2)
     same(tmp_path / "ours", tmp_path / "theirs")
+    decode_cache.build_cache(grouped, str(tmp_path / "procs"), 32, image_root=str(FIXTURES),
+                             chunk=2, num_procs=2)
+    same(tmp_path / "procs", tmp_path / "theirs")
     src = decode_cache.CachedImageSource(str(tmp_path / "ours"), expected_resolution=32)
     online = pipeline.FileImageSource(32, str(FIXTURES))
     for cls, paths in grouped.items():
@@ -161,12 +169,10 @@ def test_decode_cache_matches_jax(tmp_path):
     reopened = decode_cache.open_or_build(str(tmp_path / "rows"), big, 8)
     np.testing.assert_array_equal(reopened.load("y", big["y"], 2), Rows().load("y", big["y"], 2))
 
-    # refusals: a stale path, a missing row, another resolution, processes
+    # refusals: a stale path, a missing row, another resolution
     with pytest.raises(ValueError, match="stale"):
         reopened.load("x", ["x/9"] * 5, 1)
     with pytest.raises(KeyError, match="has no row"):
         reopened.load("z", ["z/0"], 0)
     with pytest.raises(ValueError, match="resolution"):
         decode_cache.CachedImageSource(str(tmp_path / "rows"), expected_resolution=16)
-    with pytest.raises(NotYetPorted, match="decode processes"):
-        decode_cache.build_cache(big, str(tmp_path / "p"), 8, num_procs=2)

@@ -5,8 +5,16 @@ exact -1.0 boundary), the TreeModel tables, the grouped loader, and the
 slice as a whole: the port's ``run_test`` gives the JAX ``run_test``'s
 ``summarize`` dict on the synthetic TEST-RN config with the same weights
 (counts exact; the path/point ratios, fp32 sums of fractions, within 1e-6
-relative). Entry points without ``device="cpu"`` raise on this host.
+relative). Entry points without ``device="cpu"`` raise on this host. An
+option once refused, ``--trace_dir``, writes a Chrome trace of train steps
+through ``torch.profiler`` (``utils/profiling.py``, whose ``TraceWindow``
+and ``StepTimer`` are held to the JAX package's semantics); the other,
+``--num_proc_workers`` (decode processes), is held to JAX on image files in
+``tests/test_torch_realdata.py``. Only ``--mesh_*`` still raises.
 """
+
+import json
+import os
 
 import sys
 
@@ -56,10 +64,14 @@ def _levels_setup(N=300, n_depths=4, B=16, seed=0):
     return logits, depth, train, levels, order, tuple(offsets)
 
 
-@pytest.mark.parametrize("sink", [None, 2])
-def test_level_argmax_matches_jax(sink):
+def test_level_argmax_matches_jax():
     """Both level argmaxes equal JAX's; with ``sink`` a whole level scores
     below FILL, so the oracle leaves the level (the fill rule)."""
+    for sink in (None, 2):
+        _level_argmax_matches_jax(sink)
+
+
+def _level_argmax_matches_jax(sink):
     logits, depth, train, levels, order, offsets = _levels_setup()
     if sink is not None:
         logits[:, depth == sink] = -2.0
@@ -246,19 +258,19 @@ def _profiled(mod):
     return mod([3, 12, 30, 40, 20], seed=1, cross_edges=12)
 
 
-@pytest.mark.parametrize("networkx", [True, False])
-def test_hierarchy_tables_match_jax(monkeypatch, networkx):
+def test_hierarchy_tables_match_jax(monkeypatch):
     """The port's tables equal the JAX package's with networkx, whether or
     not networkx imports on the port's side: the port never uses it, and
     its own bidirectional search picks networkx's chains."""
     want = _profiled(j_profiled)
-    if not networkx:
-        monkeypatch.setitem(sys.modules, "networkx", None)
-    got = _profiled(profiled_hierarchy)
-    assert got.names == want.names and got.name_to_id == want.name_to_id
-    for f in ("depth", "ancestors", "child_indptr", "child_indices",
-              "level_members", "level_sizes", "root_children"):
-        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    for networkx in (True, False):
+        if not networkx:
+            monkeypatch.setitem(sys.modules, "networkx", None)
+        got = _profiled(profiled_hierarchy)
+        assert got.names == want.names and got.name_to_id == want.name_to_id
+        for f in ("depth", "ancestors", "child_indptr", "child_indices",
+                  "level_members", "level_sizes", "root_children"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
 
 
 def test_tree_model_tables_match_jax():
@@ -336,15 +348,68 @@ def test_entry_points_raise_without_cuda():
     assert select_device("cpu").type == "cpu"
 
 
-def test_unported_options_raise():
-    """Each option the port still refuses raises before any work, named in
-    the message; the refusal does not depend on the device."""
-    for flags, name in [
-        (["--train", "False", "--mesh_model", "2"], "--mesh_data/--mesh_model"),
-        (["--train", "False", "--mesh_data", "4"], "--mesh_data/--mesh_model"),
-        (["--train", "False", "--num_proc_workers", "2"], "--num_proc_workers"),
-        (["--train", "False", "--trace_dir", "t"], "--trace_dir"),
-    ]:
-        argv = ["--synthetic", "True", "--arch", "TEST-RN"] + flags
-        with pytest.raises(driver.NotYetPorted, match=name):
+def test_unported_options_raise(tmp_path):
+    """The multi-device layout, the one option the port still refuses,
+    raises before any work, named in the message, whatever the device.
+    ``--trace_dir``, refused until the profiler was ported, runs: two OM
+    steps write one Chrome trace of step 1 onwards, its window closed when
+    the epoch ends early. (``--num_proc_workers``, refused until the decode
+    processes were ported, is held to JAX on image files, where processes
+    apply, in ``tests/test_torch_realdata.py``.)"""
+    for flags in (["--mesh_model", "2"], ["--mesh_data", "4"]):
+        argv = ["--synthetic", "True", "--arch", "TEST-RN", "--train", "False"] + flags
+        with pytest.raises(driver.NotYetPorted, match="--mesh_data/--mesh_model"):
             driver.main(argv, device="cpu")
+    argv = ["--synthetic", "True", "--arch", "TEST-RN", "--folder", str(tmp_path),
+            "--max_test_batches", "2", "--test_batch_size", "8", "--dtype", "float32"]
+    trace_dir = tmp_path / "trace"
+    driver.main(argv + ["--train", "True", "--epochs", "1", "--n_episodes", "2",
+                        "--batch_size", "4", "--num_compare", "6", "--trace_dir", str(trace_dir)],
+                device="cpu")
+    traces = sorted(trace_dir.iterdir())
+    assert len(traces) == 1 and traces[0].suffix == ".json"
+    names = {e.get("name", "") for e in json.load(open(traces[0]))["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+
+
+def test_trace_window_and_step_timer(tmp_path):
+    """``tests/test_utils_misc.py:83-122`` on the port: the timer drops its
+    warm-up steps; a window longer than the epochs starts no second trace on
+    the next epoch's step ``start`` (the re-entry guard), ``close`` writes
+    the still-open window's trace once, and an empty ``log_dir`` does
+    nothing."""
+    from hgr_tpu_torch.utils.profiling import StepTimer, TraceWindow, annotate, capture_trace
+
+    t = StepTimer(warmup=1)
+    for _ in range(4):
+        t.start()
+        with annotate("unit-test"):
+            x = torch.ones(8, 8) @ torch.ones(8, 8)
+        t.stop(x)
+    s = t.summary(items_per_step=8)
+    assert s["steps"] == 3 and s["items_per_sec"] > 0 and s["p95_ms"] >= s["p50_ms"]
+    assert StepTimer().summary() == {}
+
+    w = TraceWindow(str(tmp_path / "t1"), start=1, stop=3)
+    for _ in range(2):  # 2-step epochs end before stop=3
+        for i in range(2):
+            w.before(i)  # the second epoch's i == 1 meets the guard
+            with annotate("window-step"):
+                torch.ones(4) + 1
+            w.after(i)
+    assert w._prof is not None and not w.paths  # the window is still open
+    w.close()
+    w.close()  # once only
+    assert len(w.paths) == 1 and os.listdir(tmp_path / "t1") == [os.path.basename(w.paths[0])]
+    names = {e.get("name") for e in json.load(open(w.paths[0]))["traceEvents"]}
+    assert "window-step" in names
+    w2 = TraceWindow("", start=0, stop=1)
+    w2.before(0)
+    w2.after(0)
+    w2.close()
+    assert w2._prof is None and not w2.paths
+    with capture_trace(str(tmp_path / "t2")):
+        torch.ones(2) * 2
+    assert len(os.listdir(tmp_path / "t2")) == 1
+    with capture_trace(""):
+        pass

@@ -62,7 +62,9 @@ def test_package_import_leaves_jax_unloaded():
         "import hgr_tpu_torch.data.decode_cache, hgr_tpu_torch.data.manifest_index\n"
         "import hgr_tpu_torch.baselines, hgr_tpu_torch.baselines.run\n"
         "import hgr_tpu_torch.baselines.materials, hgr_tpu_torch.baselines.features\n"
-        "import hgr_tpu_torch.models.coop\n"
+        "import hgr_tpu_torch.models.coop, hgr_tpu_torch.models.resnet_std\n"
+        "import hgr_tpu_torch.data.mp_decode, hgr_tpu_torch.baselines.refit\n"
+        "import hgr_tpu_torch.utils.profiling\n"
         "from hgr_tpu_torch.hierarchy import synthetic_hierarchy\n"
         "from hgr_tpu_torch.text import Tokenizer\n"
         "synthetic_hierarchy(3, 3, 4, 0)\n"

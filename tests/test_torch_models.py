@@ -4,7 +4,9 @@ Parameters come from JAX ``clip_init`` and reach the port through
 ``from_jax_params``; inputs are numpy arrays made from a seed. Tolerance:
 the largest absolute difference must stay below 1e-5 of the largest
 absolute JAX feature (fp32 with different summation orders; measured
-about 1e-6 at RN50 width).
+about 1e-6 at RN50 width). The model zoo's configurations and digests are
+JAX's, and RN50x4's image tower (width 80, layers (4, 6, 10, 6), a 40-head
+attention pool over 2,560 channels) is held to JAX's at 64 px.
 """
 
 import dataclasses
@@ -19,7 +21,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from hgr_tpu.models import clip as jclip  # noqa: E402
+from hgr_tpu.models import zoo as jzoo  # noqa: E402
+from hgr_tpu.models.convert import convert_state_dict  # noqa: E402
 from hgr_tpu_torch.models import clip as tclip  # noqa: E402
+from hgr_tpu_torch.models import zoo  # noqa: E402
 from hgr_tpu_torch.models.convert import from_jax_params  # noqa: E402
 
 REL = 1e-5
@@ -88,19 +93,19 @@ def _check_text(pair, lengths, T):
     _close(got, want)
 
 
-@pytest.mark.parametrize("uint8", [False, True])
-def test_image_tower_test_rn(test_rn, uint8):
-    _check_image(test_rn, uint8)
+def test_image_tower_test_rn(test_rn):
+    for uint8 in (False, True):
+        _check_image(test_rn, uint8)
 
 
-@pytest.mark.parametrize("T", [16, 77])
-def test_text_tower_test_rn(test_rn, T):
-    _check_text(test_rn, [4, 9, 13], T)
+def test_text_tower_test_rn(test_rn):
+    for T in (16, 77):
+        _check_text(test_rn, [4, 9, 13], T)
 
 
-@pytest.mark.parametrize("uint8", [False, True])
-def test_image_tower_rn50_width(rn50_width, uint8):
-    _check_image(rn50_width, uint8)
+def test_image_tower_rn50_width(rn50_width):
+    for uint8 in (False, True):
+        _check_image(rn50_width, uint8)
 
 
 def test_text_tower_rn50_width(rn50_width):
@@ -144,11 +149,14 @@ VIT = {
 }
 
 
-@pytest.mark.parametrize("name", list(VIT))
-def test_vit_image_tower_matches_jax(name):
+def test_vit_image_tower_matches_jax():
     """ViT features in fp32 against JAX, rtol 1e-4 + atol 1e-5, from raw
-    uint8 and float images."""
-    arch, over = VIT[name]
+    uint8 and float images, for each configuration of ``VIT``."""
+    for name in VIT:
+        _vit_matches_jax(*VIT[name])
+
+
+def _vit_matches_jax(arch, over):
     params, cfg, m = _pair(arch, **over)
     for uint8 in (False, True):
         x = _images(cfg, uint8)
@@ -179,3 +187,24 @@ def test_remat_gradients_match():
     assert grads[0]["visual.transformer.resblocks.1.mlp.c_fc.weight"].abs().sum() > 0
     for n, g in grads[0].items():
         torch.testing.assert_close(grads[1][n], g, rtol=1e-6, atol=1e-7, msg=n)
+
+
+def test_rn_configs_match_jax():
+    """Every configuration and official digest of the zoo is JAX's; RN50x4's
+    image tower at 64 px (its attention pool: 2,560 channels, 40 heads of
+    64, 5 tokens) matches JAX's with weights drawn by the port and carried
+    to JAX by its ``convert_state_dict`` and back by ``from_jax_params``."""
+    assert set(tclip.CONFIGS) == set(jclip.CONFIGS)
+    for name, cfg in jclip.CONFIGS.items():
+        assert dataclasses.asdict(tclip.get_config(name)) == dataclasses.asdict(cfg), name
+    assert zoo.OFFICIAL_SHA256 == jzoo.OFFICIAL_SHA256
+    assert zoo.available_models() == jzoo.available_models()
+    cfg = dataclasses.replace(tclip.get_config("RN50x4"), image_resolution=64)
+    assert cfg.vision_heads == 40 and cfg.transformer_heads == 10
+    m = tclip.clip_init(cfg, torch.Generator().manual_seed(0)).eval()
+    jcfg = dataclasses.replace(jclip.get_config("RN50x4"), image_resolution=64)
+    params = convert_state_dict({k: v.numpy() for k, v in m.state_dict().items()}, jcfg)
+    back = from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    assert all(torch.equal(back[k], v) for k, v in m.state_dict().items())
+    assert m.visual.attnpool.positional_embedding.shape == (5, 2560)
+    _check_image((params, jcfg, m), uint8=True)

@@ -13,6 +13,11 @@
   carried into a port checkpoint, give JAX's metric counts exactly over
   the files, through a decode cache (byte for byte JAX's) and with
   ``--k_shots``;
+- ``--num_proc_workers 2`` (files decoded by spawned processes): each
+  loader and the cache build it reaches makes a live decode pool; the
+  training run follows JAX's losses, the test gives the threads' and JAX's
+  counts, the cache is byte for byte JAX's, and flat fine-tuning gives the
+  threads' losses exactly;
 - ``classify_files`` and ``python -m hgr_tpu_torch.serve`` on those
   weights: ids exact, scores within 1e-4 (the CLI's, printed to 4
   decimals, within 1.5e-4: one rounding step apart at most).
@@ -140,7 +145,7 @@ def test_load_torch_matches_jax(tmp_path, arch, monkeypatch):
         monkeypatch.setitem(zoo.OFFICIAL_SHA256, "RN50", digest)
         monkeypatch.setitem(jzoo.OFFICIAL_SHA256, "RN50", digest)
         assert zoo.verify_checkpoint(path, "RN50") is jzoo.verify_checkpoint(path, "RN50") is True
-    assert zoo.available_models() == ["RN50", "ViT-B/32", "ViT-B/16"]
+    assert zoo.available_models() == jzoo.available_models()  # the whole zoo is ported
     assert set(zoo.OFFICIAL_SHA256) == set(jzoo.OFFICIAL_SHA256)
     rcfg, model = zoo.load(arch, seed=1, device="cpu")
     assert rcfg == tclip.get_config(arch) and not model.training
@@ -261,6 +266,24 @@ def runs(dataset, tmp_path_factory):
                 train=train, load=["--train", "False", "--load", "True", "--load_path", carried])
 
 
+@pytest.fixture
+def live_pools(monkeypatch):
+    """One entry per decode-process pool a loader or the cache build makes:
+    whether all its workers were running when it was made."""
+    from hgr_tpu_torch.data import pipeline
+
+    made, real = [], pipeline._maybe_mp_pool
+
+    def spy(source, num_procs, batch_size):
+        pool = real(source, num_procs, batch_size)
+        if pool is not None:
+            made.append(all(p.is_alive() for p in pool._procs))
+        return pool
+
+    monkeypatch.setattr(pipeline, "_maybe_mp_pool", spy)
+    return made
+
+
 def _same_metrics(got, want):
     for k in COUNTS:
         assert got[k] == want[k], k
@@ -268,12 +291,15 @@ def _same_metrics(got, want):
         assert got[k] == pytest.approx(want[k], rel=1e-6), k
 
 
-def test_e2e_file_cycle_matches_jax(dataset, runs, tmp_path, monkeypatch, capsys):
+def test_e2e_file_cycle_matches_jax(dataset, runs, tmp_path, monkeypatch, capsys, live_pools):
     monkeypatch.chdir(tmp_path)
     folder = tmp_path / "port"
-    # train from JAX's initial weights (--fetch) over the mmap-indexed manifest
+    procs = ("--num_proc_workers", "2")
+    # train from JAX's initial weights (--fetch) over the mmap-indexed
+    # manifest, the files decoded by 2 processes (JAX's run: threads)
     driver.main(_args(dataset, folder, *runs["train"], "--fetch", "True",
-                      "--fetch_path", runs["init"]), device="cpu")
+                      "--fetch_path", runs["init"], *procs), device="cpu")
+    assert live_pools == [True]
     assert "no BPE merges file" in capsys.readouterr().out
     got, want = _records(folder, event="train"), _records(runs["jfolder"], event="train")
     assert len(got) == len(want) == 3
@@ -284,20 +310,35 @@ def test_e2e_file_cycle_matches_jax(dataset, runs, tmp_path, monkeypatch, capsys
     own = _records(folder)
     assert own["num_samples"] == 6 * 3 + 1  # the corrupt file counts, as its class's first image
     assert all(np.isfinite(v) for v in own.values() if isinstance(v, float))
-    # JAX's trained weights carried across: JAX's counts over the files
+    # JAX's trained weights carried across: JAX's counts over the files, by
+    # threads and by 2 decode processes
     driver.main(_args(dataset, folder, *runs["load"], "--exp_name", "T"), device="cpu")
+    driver.main(_args(dataset, folder, *runs["load"], "--exp_name", "P", *procs), device="cpu")
+    assert live_pools == [True, True]
     _same_metrics(_records(folder, "T"), _records(runs["jfolder"], "T"))
+    _same_metrics(_records(folder, "P"), _records(folder, "T"))
+    _same_metrics(_records(folder, "P"), _records(runs["jfolder"], "T"))
+    # flat fine-tuning over the files: the processes give the threads' losses
+    flat = ("--training_method", "flat", "--epochs", "1", "--fetch", "True",
+            "--fetch_path", runs["init"])
+    driver.main(_args(dataset, folder, *flat, "--exp_name", "F1"), device="cpu")
+    driver.main(_args(dataset, folder, *flat, "--exp_name", "F2", *procs), device="cpu")
+    assert live_pools == [True, True, True]
+    got, want = _records(folder, "F2", event="train"), _records(folder, "F1", event="train")
+    assert len(got) == len(want) == 20 and got == want
 
 
-def test_cached_and_kshot_runs_match_jax(dataset, runs, tmp_path, monkeypatch):
-    """--decode_cache builds the split's cache (byte for byte JAX's), then
-    replays it; both runs and --k_shots give JAX's counts."""
+def test_cached_and_kshot_runs_match_jax(dataset, runs, tmp_path, monkeypatch, live_pools):
+    """--decode_cache builds the split's cache (byte for byte JAX's) by 2
+    decode processes, then replays it; both runs and --k_shots give JAX's
+    counts."""
     monkeypatch.chdir(tmp_path)
     folder, cache = tmp_path / "port", tmp_path / "cache"
     for exp in ("C1", "C2"):
         driver.main(_args(dataset, folder, *runs["load"], "--exp_name", exp,
-                          "--decode_cache", str(cache)), device="cpu")
+                          "--decode_cache", str(cache), "--num_proc_workers", "2"), device="cpu")
         _same_metrics(_records(folder, exp), _records(runs["jfolder"], "C"))
+    assert live_pools == [True]  # the build's; the loaders read the cache
     _same_metrics(_records(folder, "C2"), _records(runs["jfolder"], "T"))
     for f in ("images.u8", "class_ptr.npy", "offsets.npy", "paths.bin", "meta.json"):
         a = (cache / "zsl_test" / f).read_bytes()

@@ -4,10 +4,13 @@
 the same node ids and scores within 1e-5 for every candidate set, ranking
 tied scores lower depth-sorted column first as ``lax.top_k`` does (the test
 makes ties by giving classes the same bank row), and ``predict_paths`` the
-same per-level ids. Decode processes (``num_procs > 0``) raise
-``NotYetPorted``; files and the CLI are held to JAX in
-``tests/test_torch_realdata.py``.
+same per-level ids. ``classify_files`` and the CLI with decode processes
+(``--num_procs``) give what their thread path gives on the fixtures; files
+and the CLI are held to JAX in ``tests/test_torch_realdata.py``.
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,7 +27,7 @@ from hgr_tpu.serve import ZeroShotClassifier as JClassifier  # noqa: E402
 from hgr_tpu.tree_model import TreeModel as JTreeModel  # noqa: E402
 from hgr_tpu_torch import serve  # noqa: E402
 from hgr_tpu_torch.config import Config  # noqa: E402
-from hgr_tpu_torch.driver import NotYetPorted, synthetic_splits  # noqa: E402
+from hgr_tpu_torch.driver import synthetic_splits  # noqa: E402
 from hgr_tpu_torch.hierarchy import synthetic_hierarchy  # noqa: E402
 from hgr_tpu_torch.models.convert import from_jax_params  # noqa: E402
 from hgr_tpu_torch.tree_model import TreeModel  # noqa: E402
@@ -86,12 +89,26 @@ def test_predict_paths_matches_jax(models):
     assert (tm.hier.depth[got] == np.arange(got.shape[1])[None, :]).all()
 
 
-def test_file_paths_not_yet_ported(models):
-    """The file paths are ported but their decode processes are not: both
-    refuse ``num_procs > 0`` before decoding anything."""
+def test_file_paths_not_yet_ported(models, capsys):
+    """The file paths with decode processes (``num_procs > 0``), once not
+    yet ported: ``classify_files`` and ``python -m hgr_tpu_torch.serve
+    --num_procs 2`` give the thread path's ids and scores on the fixtures
+    (in batches of 2, so that a batch spans both workers), and a file that
+    does not decode raises."""
     _, tm, _ = models
-    with pytest.raises(NotYetPorted, match="decode processes"):
-        serve.ZeroShotClassifier(tm).classify_files(["a.jpg"], num_procs=2)
-    with pytest.raises(NotYetPorted, match="decode processes"):
-        serve.main(["a.jpg", "--synthetic", "True", "--arch", "TEST-ViT",
-                    "--num_procs", "2"], device="cpu")
+    fixtures = Path(__file__).resolve().parent / "torch_fixtures"
+    files = sorted(str(p) for p in fixtures.iterdir()
+                   if p.suffix in (".jpg", ".png") and p.name != "corrupt.jpg")
+    clf = serve.ZeroShotClassifier(tm)
+    want = clf.classify_files(files, k=3, batch=2)
+    assert clf.classify_files(files, k=3, batch=2, num_procs=2) == want
+    with pytest.raises(RuntimeError, match="decode worker failed"):
+        clf.classify_files([str(fixtures / "corrupt.jpg")], num_procs=2)
+    argv = [*files, "--synthetic", "True", "--arch", "TEST-ViT", "--k", "3"]
+    outs = []
+    for extra in ([], ["--num_procs", "2"]):
+        capsys.readouterr()
+        serve.main(argv + extra, device="cpu")
+        outs.append([json.loads(x) for x in capsys.readouterr().out.splitlines()
+                     if x.startswith('{"image"')])
+    assert outs[0] == outs[1] and len(outs[0]) == len(files)
