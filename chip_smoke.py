@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. device: require CUDA; print the card's name and power limit;
+1. device: require CUDA; print the card's name and power limit, and
+   whether ``tensorstore`` imports (the Orbax reader's dependency);
 2. build: compile every kernel under ``hgr_tpu_torch/csrc`` with nvcc (one
    process per source, all at once) and print the build time;
 3. kernels against their plain versions on the card, at the main path's
@@ -35,7 +36,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 9. real inputs at RN50 width: the hierarchy as ``graph_edges_cls.json``,
    the splits, 18,278 word-like names, a BPE merges table learned from the
    prompts, an OpenAI-layout ``.pt`` and a decode cache of 2,048 seeded
-   rows at 224 px, all written to a temporary directory; then
+   rows at 224 px (seeded colour grids under noise, which random weights
+   tell apart), all written to a temporary directory; then
    ``build_hierarchy``, ``build_model``, ``load_torch`` and ``run_test``
    from the cache (the bank cut to T = 32, 432 K1 launches, 2,048 images;
    the first test class is the one the weights give a probe batch, so the
@@ -81,16 +83,41 @@ Phases, each of which fails the run (non-zero exit) on any error:
 15. flat fine-tuning at full width (RN50, bf16, 1,000 seen classes): 4
     steps at batch 256 through ``driver.run_train_flat``, then the test
     (K1 0 times in the steps, 432 in the test);
-16. the baselines runner over phase 9's hierarchy and splits (GCN and
-    CLIP-flat as ``python -m hgr_tpu_torch.baselines.run`` subprocesses,
-    CNZSL and FREE by its ``main`` in this process; ``BASELINE_RUNS``: GCN
-    dense_att, CNZSL and FREE
-    at 512-d embeddings and 2,048-d features, CLIP-flat at TEST-RN, whose
+16. the baselines runner over phase 9's hierarchy and splits (GCN as a
+    ``python -m hgr_tpu_torch.baselines.run`` subprocess, CNZSL, FREE and,
+    since PR 7, CLIP-flat by its ``main`` in this process;
+    ``BASELINE_RUNS``: GCN dense_att, CNZSL and FREE at 512-d embeddings and 2,048-d features, CLIP-flat at TEST-RN, whose
     bank reaches K1 at head dim 16, 2 layers x 36 chunks = 72 launches):
     every metric of the final line finite;
 17. one float32 step each of the CoOp OM loss, the flat step, CNZSL, GCN
     and FREE on the card against the port's CPU path, with the same
     weights, inputs and draws.
+
+The mesh over ``torch.distributed`` (one card, so several ranks share it
+over gloo; NCCL refuses two ranks on one GPU), and the offline builders:
+
+a. (after phase 10) phase 9's CLI eval as 4 ranks under ``python -m
+   torch.distributed.run`` with ``--mesh_data 2 --mesh_model 2
+   --dist_backend gloo``, in a folder of its own with ``--load_path`` at
+   phase 9's ``clip_0``: one final record; each image's merged top-20 test
+   logits within ``MESH_VAL_ATOL`` of one process's and its predictions
+   equal (or tied within it); the counts phase 9's; 432 K1 launches on
+   each rank;
+b. (after phase 17) the sharded merge on 4 gloo ranks, meshes (1, 4) and
+   (2, 2), from exact slices of seeded full-logit matrices at the real
+   geometry (ties everywhere, a level sunk below FILL): bitwise the
+   one-device metrics;
+c. (after phase 7) NCCL at world size 1: a 1 x 1 mesh whose collectives run
+   through NCCL, the sharded step equal to ``eval_step_sorted``;
+d. (after b) SPMD OM training on 4 gloo ranks, mesh (2, 2), RN50 bf16 with
+   remat, batch 256 a replica, 256 negatives, 2 steps: parameters bitwise
+   equal on every rank after each step, step 1's loss and gradient (cosine
+   and norm) against one process's mean over the two replicas, the
+   gradient all-reduce timed on each rank; then ``python -m
+   hgr_tpu_torch --train True`` with the mesh under
+   ``torch.distributed.run`` for one step;
+e. ``python -m hgr_tpu_torch.hierarchy.builder`` on a seeded structure
+   XML: the JAX builder's edges (``EXPECTED_BUILDER_SHA256``).
 
 The second-to-last lines are the kernel table (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -888,8 +915,8 @@ CLIP_FLAT_BANK_LAUNCHES = 2 * 36
 
 
 # run in this process (``baselines.run.main``): a runner process spends
-# 18-30 s before its work, and the others keep the CLI's own check
-BASELINES_IN_PROCESS = ("cnzsl", "free")
+# 18-30 s before its work, and GCN keeps the CLI's own check
+BASELINES_IN_PROCESS = ("cnzsl", "free", "clip_flat")
 
 
 def run_baseline(flags, device_index=0, in_process=False):
@@ -1099,7 +1126,10 @@ def write_openai_pt(clip_cfg, path, seed):
 
 class SeededRows:
     """An image source of seeded uint8 rows, keyed by the image's path: what
-    the decode cache is built from where no image files exist."""
+    the decode cache is built from where no image files exist. Each row is
+    a 2 x 2 grid of seeded colours under seeded noise: random weights give
+    rows of uniform noise nearly one feature vector (cosine 0.99999 between
+    two), which would leave every image of a class the same outcome."""
 
     def __init__(self, resolution):
         self.resolution = resolution
@@ -1107,8 +1137,11 @@ class SeededRows:
     def load(self, class_name, paths, idx):
         import zlib
 
+        r = self.resolution
         rng = np.random.default_rng(zlib.crc32(paths[idx].encode()))
-        return rng.integers(0, 256, (self.resolution, self.resolution, 3), dtype=np.uint8)
+        cell = -(-r // 2)
+        grid = np.repeat(np.repeat(rng.integers(0, 256, (2, 2, 3)), cell, 0), cell, 1)[:r, :r]
+        return np.clip(grid + rng.integers(-16, 17, (r, r, 3)), 0, 255).astype(np.uint8)
 
 
 def phase_chains():
@@ -1304,7 +1337,7 @@ def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class
         f"run: {same} ({ {k: got[k] for k in keys} })")
     assert same, (got, summary)
     return dict(tm=tm, args=cli, cfg_args=args, names=names, launches=launches, test4=test4,
-                seen=splits["train"], paths=path)
+                seen=splits["train"], paths=path, summary=summary, save_path=cfg.save_path)
 
 
 def phase_files_and_serving(real, fixtures=None):
@@ -1737,6 +1770,627 @@ def phase_guard(dev):
     assert attention.launches == n + 1
 
 
+# ---- slice 7: the mesh over torch.distributed, and the offline builders ----
+
+MESH_WORLD = 4
+# (a): each image's merged top-20 test logits (cosines) against one
+# process's, and the margin within which a prediction that differs must tie
+# the best. The ranks run the image tower at half the batch and the bank
+# product on quarter shards, shapes for which cuBLAS and cuDNN may pick other
+# kernels, so bf16 features may round differently. Read: 4.3e-8 on the
+# H100, 5.4e-5 on the CPU in fp32; two images of one class differ by about
+# 3e-3 (RN50's random weights on the seeded colour grids)
+MESH_VAL_ATOL = 1e-4
+PRED_DIR_ENV = "CHIP_SMOKE_PRED_DIR"
+COUNT_DIR_ENV = "CHIP_SMOKE_COUNT_DIR"
+# (d): the SPMD step's first loss against one process's mean of the two
+# replica losses (bf16, the towers at other batch sizes), and the cosine and
+# the norm ratio of the gradients the two updates apply
+SPMD_LOSS_RTOL = 1e-4
+SPMD_GRAD_COS = 0.999
+SPMD_GRAD_NORM_RTOL = 1e-2
+# (e): sha256 of graph_edges_cls.json that the JAX package's builder writes
+# from structure_xml(0) and builder_lists(0) (tests/test_torch_builders.py)
+EXPECTED_BUILDER_SHA256 = "3c4cb7ea69ed3abee8e996b41b3870101ccaa861d9aa1b36f1edf8b170c5fd9c"
+
+
+def phase_tensorstore():
+    """Whether the Orbax reader's one dependency imports on this host."""
+    try:
+        import tensorstore
+    except ImportError as e:
+        log(f"[device] import tensorstore: fails ({type(e).__name__}: {e}); the Orbax reader "
+            "(ROADMAP Queue 1 item 6) cannot use it here")
+    else:
+        log(f"[device] import tensorstore: ok, version {tensorstore.__version__}")
+
+
+def torchrun(args, nproc=MESH_WORLD, timeout=600, pred_dir=None):
+    """``driver.main(args)`` in ``nproc`` ranks under ``python -m
+    torch.distributed.run --standalone``, each through this script's
+    ``--cli-rank`` mode (the CLI's entry point, with K1's launches counted;
+    with ``pred_dir``, each rank's merged predictions saved there). Each
+    rank writes its count to a file of its own, since the ranks' standard
+    outputs share one pipe and may interleave. Returns (standard output,
+    each rank's K1 launches)."""
+    import os
+    import tempfile
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), os.path.abspath(__file__), "--cli-rank", *args]
+    with tempfile.TemporaryDirectory() as count_dir:
+        env = dict(os.environ, **{COUNT_DIR_ENV: count_dir},
+                   **({PRED_DIR_ENV: pred_dir} if pred_dir else {}))
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env)
+        assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+        launches = {int(f[len("rank"):]): int(open(os.path.join(count_dir, f)).read())
+                    for f in os.listdir(count_dir)}
+    assert sorted(launches) == list(range(nproc)), (launches, p.stdout[-3000:])
+    return p.stdout, [launches[r] for r in range(nproc)]
+
+
+def cli_rank(argv):
+    """One rank of :func:`torchrun`: ``python -m hgr_tpu_torch``'s
+    ``driver.main`` with K1's count reset just before and read just after.
+    Where ``$CHIP_SMOKE_PRED_DIR`` is set, a spy on the sharded eval keeps
+    each batch's target and this rank's merged predictions
+    (``ShardedEval.merged_preds``) and saves them there as ``rank{r}.pt``."""
+    import os
+
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.parallel.eval_spmd import ShardedEval
+
+    pred_dir, seen = os.environ.get(PRED_DIR_ENV), []
+    if pred_dir:
+        real_merge, real_metrics = ShardedEval.merged_preds, ShardedEval.metrics_from_logits
+
+        def metrics_spy(self, logits, target, valid=None):
+            seen.append(dict(target=int(target)))
+            return real_metrics(self, logits, target, valid)
+
+        def merge_spy(self, logits):
+            out = real_merge(self, logits)
+            seen[-1].update(zip(("vals", "ids", "levels"), (x.cpu() for x in out)))
+            return out
+
+        ShardedEval.metrics_from_logits, ShardedEval.merged_preds = metrics_spy, merge_spy
+    attention.launches = 0
+    driver.main(argv)
+    rank = os.environ["RANK"]
+    with open(os.path.join(os.environ[COUNT_DIR_ENV], f"rank{rank}"), "w") as f:
+        f.write(str(attention.launches))
+    sys.stdout.write(f"[cli-rank {rank}] K1 launches {attention.launches}\n")
+    sys.stdout.flush()
+    if pred_dir:
+        torch.save(seen, os.path.join(pred_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+def _counts(summary):
+    """The summary's percentages as counts of images."""
+    n = summary["num_samples"]
+    return {k: summary[k] * n / 100.0 for k in ("hit@1", "hit@2", "hit@5", "hit@10", "hit@20",
+                                                 "tor", "path_ratio", "point_ratio")}
+
+
+def one_process_preds(tm, cfg):
+    """(a)'s reference, one process on the card: each batch of the run's
+    split as the one-device path scores it (``encode_image``, ``bank_logits``
+    against the whole sorted bank, ``TreeModel.metrics_from_logits``), with
+    each image's test-masked top-maxk logits and ids (a stable sort: the
+    lower column first on ties) and its per-level, then TOR, argmax. Yields
+    (target, metrics, logits, top values, top ids, level ids, level maxima)."""
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.data import GroupedTestLoader
+    from hgr_tpu_torch.eval.bank import bank_logits
+    from hgr_tpu_torch.eval.metrics import NEG, TOPK
+    from hgr_tpu_torch.models.clip import encode_image
+    from hgr_tpu_torch.ops.bank_topk import level_argmax_sorted
+
+    hier, splits = driver.build_hierarchy(cfg)
+    grouped = driver._grouped_split(cfg, cfg.data_split_test, splits[cfg.data_test], splits)
+    src = driver._image_source(cfg, tm.clip_cfg.image_resolution, grouped, cfg.data_split_test)
+    loader = GroupedTestLoader(grouped, {c: tm.hier.name_to_id[c] for c in grouped}, src,
+                               cfg.test_batch_size, num_threads=cfg.num_workers)
+    tb = tm._sorted_tables
+    with torch.inference_mode():
+        bank_s = tm.sort_bank(tm.update_classifier())
+        try:
+            for batch in loader:
+                images = torch.from_numpy(batch.images).to(tm.device)
+                valid = torch.from_numpy(batch.valid).to(tm.device)
+                logits = bank_logits(encode_image(tm.model, images, dtype=tm.dtype), bank_s)
+                masked = torch.where(tb["test_s"][None, :], logits, NEG)
+                vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+                lev, lev_vals = level_argmax_sorted(logits, tm.level_offsets, tb["train_s"])
+                yield (batch.target, tm.metrics_from_logits(logits, batch.target, valid), logits,
+                       vals[:, :max(TOPK)], tb["order"][idx[:, :max(TOPK)]],
+                       tb["order"][lev.long()], lev_vals)
+        finally:
+            loader.close()
+
+
+def phase_mesh_eval(real, bank_launches=432):
+    """(a) The CLI's eval of the real-input phase's weights (RN50, the
+    18,278-class hierarchy padded to 18,432 bank rows, 4 batches of 512 from
+    the decode cache), as 4 ranks on one card under ``torch.distributed.run``
+    with ``--mesh_data 2 --mesh_model 2 --dist_backend gloo``, in a folder of
+    its own and with ``--load_path`` at the ``clip_0`` that phase saved: each
+    rank builds the bank (K1 432 times), takes its quarter of it and its half
+    of each batch, and saves its merged predictions. Those are held image by
+    image to one process's on the card: the top-20 test logits within
+    ``MESH_VAL_ATOL``, and every top-1, level and TOR prediction equal or, in
+    the one-process logits, within ``MESH_VAL_ATOL`` of the best; the counts
+    to one process's, apart by at most the images whose predictions so
+    differ. Returns each rank's K1 launches."""
+    import os
+
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.eval.metrics import FILL, NEG, accumulate, summarize
+
+    tm, work = real["tm"], os.path.dirname(real["paths"]["runs"])
+    folder, pred_dir = os.path.join(work, "mesh_runs"), os.path.join(work, "mesh_preds")
+    os.makedirs(pred_dir)
+    args = [*real["cfg_args"], "--folder", folder, "--load", "True",
+            "--load_path", os.path.join(real["save_path"], "clip_0")]
+    mesh = ["--mesh_data", "2", "--mesh_model", "2", "--dist_backend", "gloo"]
+    t0 = time.time()
+    _, launches = torchrun(args + mesh, pred_dir=pred_dir)
+    wall = time.time() - t0
+    cfg = Config.from_args(args)
+    finals = [r for r in map(json.loads, open(os.path.join(cfg.save_path, "metrics.jsonl")))
+              if r["event"] == "eval" and r["tag"] == "final"]
+    assert len(finals) == 1, finals
+    got, want = finals[0], real["summary"]
+    ranks = [torch.load(os.path.join(pred_dir, f"rank{r}.pt")) for r in range(MESH_WORLD)]
+    # the ranks of a data row hold the same merged predictions
+    for a, b in ((0, 1), (2, 3)):
+        assert all(x["target"] == y["target"] and all(torch.equal(x[k], y[k]) for k in
+                   ("vals", "ids", "levels")) for x, y in zip(ranks[a], ranks[b])), (a, b)
+
+    order_inv = torch.argsort(tm._sorted_tables["order"])
+    depth_s = torch.as_tensor(tm.node_depth, device=tm.device)[tm._sorted_tables["order"]]
+    train_s, test_s = tm._sorted_tables["train_s"], tm._sorted_tables["test_s"]
+    levels = list(range(tm.hier.max_depth + 1))
+    total, n_img, val_err, exact, near, fill_slots = None, 0, 0.0, 0, 0, 0
+    caught = {"halves swapped": 0, "rows shifted by one": 0}
+    batches = list(one_process_preds(tm, cfg))
+    assert len(batches) == len(ranks[0]), (len(batches), len(ranks[0]))
+    for i, (target, m, logits, r_vals, r_ids, r_lev, r_lev_vals) in enumerate(batches):
+        total = m if total is None else accumulate(total, m)
+        d0, d1 = ranks[0][i], ranks[2][i]
+        assert d0["target"] == d1["target"] == target, (i, d0["target"], target)
+        vals = torch.cat([d0["vals"], d1["vals"]]).to(tm.device)
+        ids = torch.cat([d0["ids"], d1["ids"]]).to(tm.device)
+        lev = torch.cat([d0["levels"], d1["levels"]], dim=1).to(tm.device)
+        n = logits.shape[0]
+        n_img += n
+        assert lev.shape == r_lev.shape, (lev.shape, r_lev.shape)
+        real_v = r_vals > NEG / 2
+        err = ((vals - r_vals).abs() * real_v).amax(dim=1)
+        val_err = max(val_err, float(err.max()))
+        for name, shift in (("halves swapped", n // 2), ("rows shifted by one", 1)):
+            other = ((vals - r_vals.roll(shift, 0)).abs() * real_v).amax(dim=1)
+            caught[name] += int((other > MESH_VAL_ATOL).sum())
+        # a prediction that differs must tie the best within the tolerance
+        rows = torch.arange(n, device=tm.device)
+        pos = order_inv[ids[:, 0]]
+        ok = (ids[:, 0] == r_ids[:, 0]) | (test_s[pos] & (logits[rows, pos]
+                                                          >= r_vals[:, 0] - MESH_VAL_ATOL))
+        same = ids[:, 0] == r_ids[:, 0]
+        for j, lv in enumerate(levels + [-1]):
+            pos = order_inv[lev[j]]
+            in_slot = train_s[pos] & (depth_s[pos] == lv) if lv >= 0 else train_s[pos]
+            beats_fill = r_lev_vals[j] > FILL
+            fill_slots += int((~beats_fill).sum())
+            mine = logits[rows, pos]
+            ok &= ~beats_fill | (lev[j] == r_lev[j]) | (in_slot & (mine >= r_lev_vals[j]
+                                                                    - MESH_VAL_ATOL))
+            same &= ~beats_fill | (lev[j] == r_lev[j])
+        assert bool(ok.all()), f"batch {i}: {int((~ok).sum())} images predicted apart"
+        exact += int(same.sum())
+        near += int((~same).sum())
+    one = summarize(total)
+    a, b, c = _counts(got), _counts(want), _counts(one)
+    diff = max(abs(a[k] - b[k]) for k in b)
+    log(f"[mesh-eval] CLI under torch.distributed.run, 4 gloo ranks on one card, mesh 2 x 2, "
+        f"its own folder, --load_path clip_0: {wall:.1f} s of command; K1 launches by rank "
+        f"{launches}; one final record")
+    log(f"[mesh-eval] mesh: { {k: got[k] for k in want if k != 'imgs_per_sec'} }")
+    log(f"[mesh-eval] one process: { {k: want[k] for k in want if k != 'imgs_per_sec'} }")
+    log(f"[mesh-eval] image by image against one process ({n_img} images, {len(batches)} "
+        f"batches): top-20 test logits apart by at most {val_err:.3e} (tol {MESH_VAL_ATOL:g}); "
+        f"every prediction equal on {exact} images, tied within the tolerance on {near}; "
+        f"{fill_slots} level slots below FILL not compared; against the same reference "
+        f"{', '.join(f'{k}: {v} of {n_img} images over the tolerance' for k, v in caught.items())}")
+    log(f"[mesh-eval] largest count difference {diff:.3f} images of {want['num_samples']:.0f} "
+        f"(limit {near} + 1e-3, the images predicted apart and fp32 rounding); mesh {got['imgs_per_sec']:.0f} images/s "
+        f"(rank 0's clock, bank build included)")
+    assert got["num_samples"] == want["num_samples"] == n_img, (got, want, n_img)
+    assert all(abs(b[k] - c[k]) < 1e-6 for k in b), (want, one)  # the reference is the run
+    assert val_err <= MESH_VAL_ATOL, val_err
+    assert all(v >= n_img // 2 for v in caught.values()), caught  # such faults would fail
+    assert diff <= near + 1e-3, (got, want)  # path and point: fp32 sums in another order
+    assert launches == [bank_launches] * MESH_WORLD, launches
+    return launches
+
+
+def _sharded_cases(tm, batch, seed):
+    """(b)'s full-logit matrices [batch, N_pad] on the card: seeded normal
+    logits; the same on a grid of step 1/4 (offset 1/8, so never exactly
+    -1), where equal values fill every top-k; and level 5 sunk to -2 (the
+    FILL case; the (., 4) meshes' boundary 13,824 lies inside level 5)."""
+    g = torch.Generator(device=tm.device).manual_seed(seed)
+    logits = torch.randn((batch, tm.n_pad), generator=g, device=tm.device)
+    sunk = logits.clone()
+    lo, hi = tm.level_offsets[5], tm.level_offsets[6]
+    sunk[:, lo:hi] = -2.0
+    return {"normal": logits, "ties": torch.round(logits * 4) / 4 + 0.125, "fill": sunk}
+
+
+def merge_rank(rank, shapes, batch, seed, device="cuda:0", level_sizes=LEVEL_SIZES):
+    """(b) on one rank: the sharded merge (``ShardedEval.metrics_from_logits``)
+    of this rank's exact slice of each case, at each mesh, against the
+    one-device metrics of the same logits (``TreeModel.metrics_from_logits``
+    on each data slice, summed in data order). Returns, per mesh, case and
+    target, whether the two are bitwise equal and the merged sums."""
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.eval.metrics import accumulate
+    from hgr_tpu_torch.hierarchy import profiled_hierarchy
+    from hgr_tpu_torch.parallel.eval_spmd import make_sharded_eval_step
+    from hgr_tpu_torch.parallel.mesh import make_mesh
+    from hgr_tpu_torch.tree_model import TreeModel
+
+    hier = profiled_hierarchy(level_sizes, seed=0, cross_edges=40)
+    tm = TreeModel.build(Config(arch="RN50"), hier, pad_multiple=1024, device=device)
+    assert level_sizes != LEVEL_SIZES or (
+        tm.n_pad == 18432 and tm.level_offsets[5] < 13824 < tm.level_offsets[6])
+    targets = [int(tm.test_index[0]), int(hier.level(hier.max_depth)[0]),
+               int(hier.level(3)[17]), int(hier.level(6)[0])]
+    valid = torch.ones(batch, dtype=torch.bool, device=tm.device)
+    valid[-12:] = False
+    out = []
+    for shape in shapes:
+        mesh = make_mesh(*shape)
+        step = make_sharded_eval_step(tm, mesh)
+        rows, cols = batch // mesh.data, tm.n_pad // mesh.model
+        d, m = mesh.data_index, mesh.model_index
+        for name, logits in _sharded_cases(tm, batch, seed).items():
+            for t in targets:
+                got = step.metrics_from_logits(
+                    logits[d * rows:(d + 1) * rows, m * cols:(m + 1) * cols], t,
+                    valid[d * rows:(d + 1) * rows])
+                want = None
+                for i in range(mesh.data):
+                    part = tm.metrics_from_logits(logits[i * rows:(i + 1) * rows], t,
+                                                  valid[i * rows:(i + 1) * rows])
+                    want = part if want is None else accumulate(want, part)
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                out.append((shape, name, t, same, [x.tolist() for x in got]))
+    return out
+
+
+def phase_mesh_merge(shapes=((1, 4), (2, 2)), batch=512, seed=7, device="cuda:0",
+                     level_sizes=LEVEL_SIZES):
+    """(b) The merge, exactly: 4 gloo ranks on the card, each with its exact
+    slice of one full-logit matrix at the real geometry (18,432 rows, shard
+    boundaries inside levels), meshes (1, 4) and (2, 2); the merged
+    BatchMetrics must equal the one-device metrics bit for bit, on every
+    rank."""
+    from hgr_tpu_torch.parallel.distributed import run_ranks
+
+    t0 = time.time()
+    ranks = run_ranks(merge_rank, MESH_WORLD, (shapes, batch, seed, device, level_sizes),
+                      timeout_s=600)
+    checked = len(ranks[0])
+    bad = [(r, row[:3]) for r, rows in enumerate(ranks) for row in rows if not row[3]]
+    agree = all([row[4] for row in rows] == [row[4] for row in ranks[0]] for rows in ranks)
+    fill = [row for row in ranks[0] if row[1] == "fill"]
+    log(f"[mesh-merge] meshes {list(shapes)}, cases normal / ties / fill x 4 targets, batch "
+        f"{batch} (12 rows padding): {checked} merges a rank, bitwise equal to one device: "
+        f"{not bad}, ranks agree: {agree}; {time.time() - t0:.1f} s with the start of 4 ranks")
+    log(f"[mesh-merge] fill case, mesh {fill[-1][0]}, target {fill[-1][2]}: {fill[-1][4]}")
+    assert not bad, bad
+    assert agree
+
+
+def phase_nccl(dev, tm, bank, batch=512):
+    """(c) NCCL at world size 1 on the card: ``init_distributed(backend=
+    "nccl")``, a 1 x 1 mesh whose two groups run every collective through
+    NCCL, and the sharded step on one RN50 batch equal to
+    ``eval_step_sorted`` bit for bit."""
+    from hgr_tpu_torch.parallel import distributed
+    from hgr_tpu_torch.parallel.eval_spmd import make_sharded_eval_step
+    from hgr_tpu_torch.parallel.mesh import make_mesh
+
+    assert distributed.init_distributed(f"localhost:{distributed._free_port()}", 1, 0,
+                                        backend="nccl", timeout_s=120) == (0, 1)
+    try:
+        assert distributed.dist.get_backend() == "nccl"
+        mesh = make_mesh(1, 1)
+        bank_s = mesh.bank_shard(tm.sort_bank(bank))
+        res = tm.clip_cfg.image_resolution
+        gen = torch.Generator(device=dev).manual_seed(3)
+        images = torch.randn((batch, res, res, 3), generator=gen, device=dev)
+        valid = torch.ones(batch, dtype=torch.bool, device=dev)
+        target = int(tm.test_index[0])
+        got = make_sharded_eval_step(tm, mesh)(bank_s, images, target, valid)
+        want = tm.eval_step_sorted(bank_s, images, target, valid)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"[nccl] world 1 over NCCL, mesh 1 x 1: sharded step equal to eval_step_sorted bit "
+            f"for bit: {same} ({[x.tolist() for x in got]})")
+        assert same
+    finally:
+        distributed.dist.destroy_process_group()
+
+
+def spmd_inputs(hier, train_index, cfg, steps, replicas, res, seed=0):
+    """(d)'s inputs, the same in every process: per step, seeded uint8
+    images [replicas, batch, res, res, 3] and the stacked schedules of one
+    deepest-level class a replica (built in step-then-replica order)."""
+    from hgr_tpu_torch.train import NegativeSampler, ScheduleBuilder
+    from hgr_tpu_torch.train.spmd import stack_schedules
+
+    rng = np.random.default_rng(seed)
+    builder = ScheduleBuilder(hier, NegativeSampler(hier, train_index, cfg.num_compare, seed=seed),
+                              cfg.out_ratio, cfg.in_ratio, cfg.num_compare)
+    deep = hier.level(hier.max_depth)
+    out = []
+    for s in range(steps):
+        images = rng.integers(0, 256, (replicas, cfg.batch_size, res, res, 3), dtype=np.uint8)
+        scheds = [builder.build(int(deep[(s * replicas + r) * 7 % len(deep)]))
+                  for r in range(replicas)]
+        out.append((images, scheds, stack_schedules(scheds)))
+    return out
+
+
+def _fingerprint(params):
+    """An exact fingerprint of the trained tensors: the sum of their bit
+    patterns as integers (equal tensors give equal sums; a change in any
+    bit changes the sum unless another cancels it)."""
+    return int(sum(t.detach().contiguous().view(torch.int32).long().sum() for t in params))
+
+
+def _spmd_setup(cfg, device, level_sizes):
+    from hgr_tpu_torch.hierarchy import profiled_hierarchy
+    from hgr_tpu_torch.tree_model import TreeModel
+
+    hier = profiled_hierarchy(level_sizes, seed=0, cross_edges=40)
+    tm = TreeModel.build(cfg, hier, pad_multiple=1024, device=device)
+    tm.init_params(0)
+    return hier, tm
+
+
+def spmd_rank(rank, cfg, steps, grads_path, device="cuda:0", level_sizes=LEVEL_SIZES):
+    """(d) on one rank: ``steps`` SPMD OM steps on mesh (2, 2). Returns the
+    losses, the parameters' fingerprint after each step, each step's ms, the
+    ms of each step's gradient all-reduce over the world and the numbers it
+    sums, and the peak memory; rank 0 saves the gradient step 1's update
+    applies."""
+    from hgr_tpu_torch.parallel.mesh import make_mesh
+    from hgr_tpu_torch.train import init_train_state, make_optimizer
+    from hgr_tpu_torch.train import spmd
+    from hgr_tpu_torch.train.spmd import make_spmd_train_step
+
+    dev = torch.device(device)
+    hier, tm = _spmd_setup(cfg, dev, level_sizes)
+    mesh = make_mesh(2, 2)
+    tx = make_optimizer(cfg, 10)
+    state = init_train_state(tm.model, tm.layer_weight, tx)
+    step = make_spmd_train_step(cfg, tx, mesh, dtype=tm.dtype)
+    tokens = torch.as_tensor(tm.node_tokens, device=dev).long()
+    inputs = spmd_inputs(hier, tm.train_index, cfg, steps, mesh.data,
+                         tm.clip_cfg.image_resolution)
+    # a spy on the path, not on what it computes: the gradients the first
+    # update applies (summed over the world and scaled, before the clip)
+    real_update, seen = tx.update, {}
+
+    def update_spy(params, st):
+        if not seen:
+            g = tx.groups(params)
+            seen["grads"] = [t.grad.detach().to("cpu", torch.float32, copy=True)
+                             for t in g["clip"] + g["lw"]]
+        return real_update(params, st)
+
+    tx.update = update_spy
+    # and a timer on the gradient all-reduce (synchronised on both sides, so
+    # the backward's tail is not counted in it)
+    real_sum, sum_ms, summed = spmd.all_sum_flat_, [], []
+
+    def sum_spy(tensors, group, scale=None):
+        _sync(dev)
+        t0 = time.time()
+        real_sum(tensors, group, scale=scale)
+        _sync(dev)
+        sum_ms.append((time.time() - t0) * 1e3)
+        summed.append(sum(t.numel() for t in tensors))
+
+    spmd.all_sum_flat_ = sum_spy
+    _reset_peak(dev)
+    losses, prints, ms = [], [], []
+    for images, _, stacked in inputs:
+        _sync(dev)
+        t0 = time.time()
+        state, loss = step(state, images, tokens, stacked)
+        losses.append(float(loss))
+        ms.append((time.time() - t0) * 1e3)
+        g = tx.groups(state.params)
+        prints.append(_fingerprint(g["clip"] + g["lw"]))
+    if rank == 0:
+        torch.save(seen["grads"], grads_path)
+    return dict(losses=losses, prints=prints, ms=ms, sum_ms=sum_ms, summed=summed,
+                peak=_peak_gib(dev))
+
+
+def phase_mesh_train(dev, work, steps=2, batch=256, num_compare=256, arch="RN50",
+                     level_sizes=LEVEL_SIZES):
+    """(d) SPMD OM training: 4 gloo ranks on the card, mesh (2, 2), RN50 in
+    bf16 with remat, batch 256 a replica, 256 negatives, ``steps`` steps:
+    every rank's parameters bitwise equal after each step; step 1's loss
+    against one process's mean of the two replica losses on the same
+    batches, and the gradient that step's update applies against that
+    process's mean gradient (cosine). Then ``python -m hgr_tpu_torch
+    --train True`` with the mesh under ``torch.distributed.run``, 2 episodes
+    (one step of 2 replicas). Returns each CLI rank's K1 launches in it."""
+    import os
+    import shutil
+
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.parallel.distributed import run_ranks
+    from hgr_tpu_torch.train import freeze_params, make_om_loss_fn, make_optimizer, \
+        sched_to_device
+
+    cfg = Config(arch=arch, remat=True, batch_size=batch, num_compare=num_compare,
+                 dtype="bfloat16" if dev.type == "cuda" else "float32")
+    grads_path = os.path.join(work, "spmd_grads.pt")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = run_ranks(spmd_rank, MESH_WORLD, (cfg, steps, grads_path, str(dev), level_sizes),
+                      timeout_s=900)
+    wall = time.time() - t0
+    for r, out in enumerate(ranks):
+        log(f"[mesh-train] rank {r}: losses {out['losses']}, step ms "
+            f"{[round(x, 1) for x in out['ms']]} (median {statistics.median(out['ms']):.1f}), "
+            f"of which the gradient all-reduce of {out['summed'][0]:,} numbers "
+            f"{[round(x, 1) for x in out['sum_ms']]}, peak memory {out['peak']:.2f} GiB, "
+            f"fingerprints {out['prints']}")
+    same = all(out["prints"] == ranks[0]["prints"] for out in ranks)
+    assert same, [out["prints"] for out in ranks]
+    assert len(set(ranks[0]["prints"])) == steps, "the parameters did not move"
+
+    # one process: the mean of the two replica losses on step 1's batches
+    hier, tm = _spmd_setup(cfg, dev, level_sizes)
+    images, scheds, _ = spmd_inputs(hier, tm.train_index, cfg, 1, 2,
+                                    tm.clip_cfg.image_resolution)[0]
+    params = freeze_params({"clip": tm.model, "layer_weight": tm.layer_weight}, ())
+    loss_fn = make_om_loss_fn(tm.dtype, cfg.training_method, cfg.weights, cfg.weighting,
+                              remat=True)
+    tokens = torch.as_tensor(tm.node_tokens, device=dev).long()
+    loss = 0.0
+    for r, sched in enumerate(scheds):
+        part = loss_fn(params, torch.from_numpy(images[r]).to(dev), tokens,
+                       sched_to_device(sched, dev)) / len(scheds)
+        part.backward()
+        loss += float(part.detach())
+    g = make_optimizer(cfg, 10).groups(params)
+    want = torch.cat([t.grad.detach().float().flatten() for t in g["clip"] + g["lw"]])
+    got = torch.cat([x.flatten() for x in torch.load(grads_path)]).to(dev)
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=0))
+    ratio = float(got.norm() / want.norm())
+    rel = abs(ranks[0]["losses"][0] - loss) / abs(loss)
+    log(f"[mesh-train] 4 ranks x {steps} steps in {wall:.1f} s with their start; parameters "
+        f"bitwise equal on every rank after each step: {same}; step 1's loss "
+        f"{ranks[0]['losses'][0]:.6f} against one process's mean of the replica losses "
+        f"{loss:.6f} (rel {rel:.1e}, tol {SPMD_LOSS_RTOL:g}); the gradient step 1 applies, "
+        f"cosine {cos:.6f} with one process's mean gradient (tol {SPMD_GRAD_COS}), norm ratio "
+        f"{ratio:.6f} (tol 1 +- {SPMD_GRAD_NORM_RTOL:g}); on {_card_name(dev)}")
+    assert rel <= SPMD_LOSS_RTOL and cos >= SPMD_GRAD_COS
+    assert abs(ratio - 1) <= SPMD_GRAD_NORM_RTOL, ratio
+    del tm, params, want, got
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    folder = os.path.join(work, "mesh_train")
+    args = ["--synthetic", "True", "--arch", arch, "--train", "True", "--epochs", "1",
+            "--n_episodes", "2", "--batch_size", str(batch), "--num_compare", str(num_compare),
+            "--synthetic_images_per_class", str(batch), "--print_freq", "1", "--folder", folder,
+            "--mesh_data", "2", "--mesh_model", "2", "--dist_backend", "gloo"]
+    t0 = time.time()
+    _, launches = torchrun(args)
+    save = Config.from_args(args).save_path
+    records = [json.loads(line) for line in open(os.path.join(save, "metrics.jsonl"))]
+    losses = [r["loss"] for r in records if r["event"] == "train"]
+    log(f"[mesh-train] CLI `python -m hgr_tpu_torch --train True --n_episodes 2 --mesh_data 2 "
+        f"--mesh_model 2 --dist_backend gloo` under torch.distributed.run: {time.time() - t0:.1f} "
+        f"s of command, rank 0 logged losses {losses}, wrote {sorted(os.listdir(save))}; K1 "
+        f"launches by rank {launches} (the train steps run the plain attention)")
+    assert len(losses) == 1 and math.isfinite(losses[0])
+    assert os.path.isdir(os.path.join(save, "clip_0")) and launches == [0] * MESH_WORLD
+    shutil.rmtree(folder, ignore_errors=True)
+    return launches
+
+
+def structure_xml(seed, n=160):
+    """A seeded ImageNet ``structure_release.xml``: synsets under fall11 in
+    a random tree, some under a second parent too (so edges repeat), then
+    the misc subtree, whose food subtree n00021265 the builder re-attaches."""
+    rng = np.random.default_rng(seed)
+    kids = {i: [] for i in range(n)}
+    for i in range(1, n):
+        kids[int(rng.integers(0, i))].append(i)
+    for i in rng.choice(np.arange(5, n), 12, replace=False):
+        kids[int(rng.integers(0, 5))].append(int(i))
+
+    def emit(i, depth):
+        body = "".join(emit(c, depth + 1) for c in kids[i] if depth < 12)
+        return f'<synset wnid="n{i:08d}">{body}</synset>'
+
+    food = "".join(f'<synset wnid="f{j:07d}"/>' for j in range(4))
+    misc = (f'<synset wnid="misc"><synset wnid="junk1"/><synset wnid="n00021265">{food}'
+            f'</synset><synset wnid="junk2"/></synset>')
+    return ('<ImageNetStructure><releaseData>fall2011</releaseData><synset wnid="fall11">'
+            + "".join(emit(c, 1) for c in kids[0]) + misc + "</synset></ImageNetStructure>")
+
+
+def builder_lists(seed, nodes):
+    """Seeded official class lists and a winter list over ``nodes`` (the
+    XML's synsets, sorted), with one wnid outside the graph."""
+    rng = np.random.default_rng(seed + 100)
+
+    def pick(k):
+        return [nodes[i] for i in rng.choice(len(nodes), k, replace=False)]
+
+    testsets = {"train": pick(20), "all": pick(60), "2-hops": pick(15), "3-hops": pick(25),
+                "3-hops-pure": pick(10)}
+    return testsets, pick(len(nodes) * 3 // 4) + ["n99999999"]
+
+
+def write_builder_inputs(folder, seed=0):
+    """``structure_release.xml``, ``testsets.json`` and ``winter.txt`` in
+    ``folder``; returns the builder CLI's arguments."""
+    import os
+    import re
+
+    xml = structure_xml(seed)
+    nodes = sorted(set(re.findall(r'wnid="([^"]+)"', xml)) - {"fall11", "misc", "junk1", "junk2"})
+    testsets, winter = builder_lists(seed, nodes)
+    paths = {k: os.path.join(folder, f) for k, f in (
+        ("xml", "structure_release.xml"), ("testsets", "testsets.json"), ("winter", "winter.txt"))}
+    with open(paths["xml"], "w") as f:
+        f.write(xml)
+    with open(paths["testsets"], "w") as f:
+        json.dump(testsets, f)
+    with open(paths["winter"], "w") as f:
+        f.write("\n".join(winter) + "\n")
+    return ["--testsets", paths["testsets"], "--winter", paths["winter"], "--xml", paths["xml"],
+            "--out", os.path.join(folder, "out"), "--no-strict"]
+
+
+def phase_builder(work):
+    """(e) ``python -m hgr_tpu_torch.hierarchy.builder`` on a seeded
+    structure XML: its ``graph_edges_cls.json`` must be the JAX builder's
+    (``EXPECTED_BUILDER_SHA256``)."""
+    import hashlib
+    import os
+
+    folder = os.path.join(work, "builder")
+    os.makedirs(folder)
+    args = write_builder_inputs(folder)
+    t0 = time.time()
+    p = subprocess.run([sys.executable, "-m", "hgr_tpu_torch.hierarchy.builder", *args],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-2000:]
+    path = os.path.join(folder, "out", "graph_edges_cls.json")
+    digest = hashlib.sha256(open(path, "rb").read()).hexdigest()
+    edges = json.load(open(path))
+    log(f"[builder] CLI in {time.time() - t0:.1f} s: {len(edges)} edges, sha256 {digest[:16]}..., "
+        f"equal to the JAX builder's: {digest == EXPECTED_BUILDER_SHA256}; "
+        f"{p.stdout.strip().splitlines()[-1]}")
+    assert digest == EXPECTED_BUILDER_SHA256
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -1744,6 +2398,7 @@ def main() -> int:
     import os
 
     name = phase_device()
+    phase_tensorstore()
     phase_build()
     from hgr_tpu_torch.device import select_device
 
@@ -1754,6 +2409,7 @@ def main() -> int:
     tm, bank, summary, rn50 = phase_slice(dev)
     phase_plain_bank(tm, bank)
     phase_small_reference(tm, bank)
+    phase_nccl(dev, tm, bank)
     del tm, bank
     vit, _, _, vit_launches = phase_slice(dev, arch="ViT-B/32", batches=2, image_launches=12)
     phase_vit_features(vit)
@@ -1764,6 +2420,7 @@ def main() -> int:
         vit_l14 = phase_vit_l14(dev, work)
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
+        mesh_eval = phase_mesh_eval(real)
         real_launches = real.pop("launches")
         decoded = phase_decode(dev, real, n_procs)
         phase_baseline_images(dev, real, decoded, n_procs)
@@ -1780,6 +2437,9 @@ def main() -> int:
         clip_flat = phase_baselines(f"{work}/graph_edges_cls.json",
                                     f"{work}/splits_for_tree.json", dev.index or 0)
         phase_steps_reference(dev)
+        phase_mesh_merge()
+        mesh_train = phase_mesh_train(dev, work)
+        phase_builder(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1794,7 +2454,8 @@ def main() -> int:
                "rn50_coop_test_after_train": coop["test"],
                "rn50_flat_train_steps": flat["train_steps"],
                "rn50_flat_test_after_train": flat["test"],
-               "test_rn_clip_flat_baseline_bank": clip_flat}
+               "test_rn_clip_flat_baseline_bank": clip_flat,
+               "rn50_mesh_eval": sum(mesh_eval), "rn50_mesh_train_steps": sum(mesh_train)}
     kernels = [dict(
         name="attention",
         route="cuda",
@@ -1812,4 +2473,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--cli-rank"]:  # one rank of torchrun(), not a smoke run
+        cli_rank(sys.argv[2:])
+    else:
+        sys.exit(main())

@@ -42,8 +42,8 @@ def load_backbone(path: str, device=None):
       ``state_dict``, or a tree whose ``params`` is one (the runner's
       ``{save_path}_refit``).
 
-    A directory of the JAX package (an Orbax pytree) is refused: its reader
-    is ROADMAP Queue 1 item 6.
+    A directory of the JAX package (an Orbax pytree) raises
+    ``NotYetPorted``: its reader is ROADMAP Queue 1 item 6.
     """
     from ..models.resnet_std import convert_torch_resnet
     from ..utils.checkpoint import STATE_FILE, load_pytree
@@ -54,11 +54,15 @@ def load_backbone(path: str, device=None):
     elif os.path.exists(os.path.join(path, STATE_FILE)):
         sd = load_pytree(path)
         sd = sd.get("params", sd)
+    elif os.path.isdir(path):
+        from ..config import NotYetPorted
+
+        raise NotYetPorted(
+            f"--cnn {path}: a directory without {STATE_FILE}, such as the JAX package's Orbax "
+            "checkpoint; reading those is ROADMAP Queue 1 item 6, not yet ported")
     else:
-        raise ValueError(
-            f"--cnn {path}: neither a torch .pt/.pth checkpoint nor a save_pytree directory "
-            f"(no {STATE_FILE}); reading the JAX package's Orbax checkpoints is ROADMAP "
-            "Queue 1 item 6, not yet ported")
+        raise ValueError(f"--cnn {path}: neither a torch .pt/.pth checkpoint nor a "
+                         "save_pytree directory")
     return convert_torch_resnet(sd).to(device)
 
 

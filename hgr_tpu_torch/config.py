@@ -2,9 +2,10 @@
 
 The port's own copy of ``hgr_tpu/config.py``: the same ``Config`` fields,
 flag names and defaults (themselves the reference's, ``main.py:14-70``), so
-``python -m hgr_tpu_torch`` takes the reference's command lines. Fields that
-select a path the port does not run yet are refused by the driver
-(``driver.require_ported``), never ignored.
+``python -m hgr_tpu_torch`` takes the reference's command lines; every
+field selects a path the port runs. ``dist_backend`` is the port's one
+field of its own: torch names the collectives' transport, which JAX's
+runtime picks itself.
 """
 
 from __future__ import annotations
@@ -114,8 +115,11 @@ class Config:
     synthetic_images_per_class: int = 8
 
     # ---- accelerator section (names kept from the JAX package) -----------
-    mesh_data: int = -1   # multi-device layout: not yet ported (one card)
+    # the (data, model) mesh over torch.distributed (parallel/mesh.py); it
+    # applies when the run has more than one rank
+    mesh_data: int = -1
     mesh_model: int = 1
+    dist_backend: str = "nccl"     # nccl: a card a rank; gloo: ranks may share one
     dtype: str = "bfloat16"        # activation/compute dtype
     param_dtype: str = "float32"   # master params
     # kept for command-line compatibility: on the card every attention run
@@ -138,6 +142,7 @@ class Config:
             "dtype": ("bfloat16", "float32"),
             "coop_train": ("ctx", "clip", "both"),
             "class_token_position": ("end", "middle", "front"),
+            "dist_backend": ("nccl", "gloo"),
         }
         for name, options in _check.items():
             v = getattr(self, name)

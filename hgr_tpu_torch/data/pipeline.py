@@ -128,13 +128,17 @@ class FileImageSource:
 class SyntheticImageSource:
     """Deterministic pseudo-images keyed by (class, idx). The seed is the
     JAX package's, ``hash(class_name) ^ idx``, so the two packages see the
-    same images within one process."""
+    same images within one process. ``hash`` of a string differs between
+    processes, so a multi-process run passes rank 0's ``{class: hash}`` as
+    ``seeds``, and every rank sees rank 0's images."""
 
-    def __init__(self, resolution: int):
+    def __init__(self, resolution: int, seeds: Optional[Dict[str, int]] = None):
         self.resolution = resolution
+        self.seeds = seeds
 
     def load(self, class_name: str, paths: Sequence[str], idx: int) -> np.ndarray:
-        seed = (hash(class_name) ^ idx) & 0xFFFFFFFF
+        base = hash(class_name) if self.seeds is None else self.seeds[class_name]
+        seed = (base ^ idx) & 0xFFFFFFFF
         rng = np.random.default_rng(seed)
         return rng.standard_normal(
             (self.resolution, self.resolution, 3)

@@ -26,8 +26,16 @@ chooses what trains (the context, CLIP, or both).
 ``--num_proc_workers N`` decodes image files in N processes
 (``data/mp_decode.py``) in every loader and in the decode cache's build;
 ``--trace_dir`` writes a Chrome trace of train steps 1-3
-(``utils/profiling.TraceWindow``). Multi-device meshes, the one path the
-port does not run yet, raise instead of being ignored (``require_ported``).
+(``utils/profiling.TraceWindow``).
+
+Multi-process runs (``python -m torch.distributed.run --nproc_per_node N -m
+hgr_tpu_torch ...``, ``--dist_backend nccl|gloo``) lay the ranks out as the
+``(data, model)`` mesh of ``--mesh_data/--mesh_model`` under JAX's
+conditions (``hgr_tpu/driver.py:177-204,437-457``): ``run_test`` splits each
+batch over ``data`` and, when ``model > 1``, shards the class bank over
+``model`` (``parallel/eval_spmd.py``); ``run_train`` trains one class a
+data replica a step (``train/spmd.py``). Only rank 0 logs and writes
+checkpoints, and a SIGTERM on any rank stops every rank at the same step.
 """
 
 from __future__ import annotations
@@ -35,12 +43,12 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import Config, NotYetPorted
+from .config import Config
 from .data import (
     FileImageSource,
     GroupedTestLoader,
@@ -52,19 +60,28 @@ from .data import (
 )
 from .eval.metrics import accumulate, summarize, zeros_metrics
 from .hierarchy import Hierarchy, synthetic_hierarchy
+from .parallel.distributed import (any_rank, from_rank0, init_distributed, is_writer,
+                                   rank_and_world, rank_device)
+from .parallel.eval_spmd import all_sum_metrics, make_sharded_eval_step
+from .parallel.mesh import Mesh, make_mesh
 from .tree_model import TreeModel
 from .utils.checkpoint import restore_params
-from .utils.logging import RunLogger
+from .utils.logging import RunLogger, SilentLogger
 
 
-def require_ported(config: Config) -> None:
-    """Raise for every option that selects a path the port does not run."""
-    refused = {
-        "--mesh_data/--mesh_model": config.mesh_data not in (-1, 1) or config.mesh_model != 1,
-    }
-    on = [name for name, set_ in refused.items() if set_]
-    if on:
-        raise NotYetPorted(f"not yet ported to hgr_tpu_torch: {', '.join(on)}")
+def eval_mesh(config: Config) -> Optional[Mesh]:
+    """The eval mesh, when the run has more than one rank and the mesh
+    flags ask for one (``hgr_tpu/driver.py:179``), else None."""
+    if rank_and_world()[1] > 1 and (config.mesh_model > 1 or config.mesh_data != 1):
+        return make_mesh(data=config.mesh_data, model=config.mesh_model)
+    return None
+
+
+def train_mesh(config: Config) -> Optional[Mesh]:
+    """The train mesh under ``hgr_tpu/driver.py:440``'s condition, else None."""
+    if rank_and_world()[1] > 1 and config.mesh_model >= 1 and config.mesh_data != 1:
+        return make_mesh(data=config.mesh_data, model=config.mesh_model)
+    return None
 
 
 def synthetic_splits(hier: Hierarchy, seed: int) -> Dict[str, list]:
@@ -82,7 +99,6 @@ def build_hierarchy(config: Config) -> Tuple[Hierarchy, Dict[str, list]]:
     """Hierarchy and splits: synthetic, or the JSON artifacts
     (``--graph_path``, ``--split_path``, and ``--hops_path``'s hop2/hop3/...
     class lists merged into the splits)."""
-    require_ported(config)
     if config.synthetic:
         hier = synthetic_hierarchy(
             branching=config.synthetic_branching,
@@ -108,7 +124,6 @@ def build_model(
     ``--load`` (``--load_path``, or ``clip_{--from_epoch}`` under the save
     path) where set. Without ``--synthetic`` the prompts are BPE-tokenised;
     a missing merges file gives synthetic tokens, as in JAX."""
-    require_ported(config)
     tokenizer = names = None
     if not config.synthetic:
         from .text import Tokenizer
@@ -152,10 +167,14 @@ def build_model(
 
 
 def _image_source(config: Config, resolution: int, grouped=None, split: str = ""):
-    """Synthetic images, the split's decode cache (built on first use), or
-    the image files under ``--image_root``."""
+    """Synthetic images (in a multi-process run, rank 0's), the split's
+    decode cache (built on first use), or the image files under
+    ``--image_root``."""
     if config.synthetic:
-        return SyntheticImageSource(resolution)
+        seeds = None
+        if grouped is not None and rank_and_world()[1] > 1:
+            seeds = from_rank0({c: hash(c) for c in grouped})
+        return SyntheticImageSource(resolution, seeds)
     if config.decode_cache and grouped is not None:
         from .data.decode_cache import open_or_build
 
@@ -189,7 +208,6 @@ def _grouped_split(config: Config, split: str, candidates, splits) -> Dict[str, 
 
 def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[str, float]:
     """Zero-shot evaluation (reference ``test()``, ``main.py:104-222``)."""
-    require_ported(config)
     dev = tm.device
     if config.coop:
         from .eval.bank import build_bank_ids
@@ -204,12 +222,23 @@ def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[s
         bank = tm.update_classifier()
     bank_s = tm.sort_bank(bank)
 
+    # more than one rank: the batch splits over data and, with model > 1,
+    # the bank over model, each rank's shard from the full bank it built
+    mesh = eval_mesh(config)
+    sharded = None
+    if mesh is not None and mesh.model > 1:
+        sharded = make_sharded_eval_step(tm, mesh)
+        bank_s = mesh.bank_shard(bank_s)
+
     grouped = _grouped_split(config, config.data_split_test, splits[config.data_test], splits)
+    # the batch axis splits over data: round the batch up to a multiple of
+    # it (the padded rows carry valid=False)
+    data_shards = 1 if mesh is None else mesh.data
     loader = GroupedTestLoader(
         grouped,
         {c: tm.hier.name_to_id[c] for c in grouped},
         _image_source(config, tm.clip_cfg.image_resolution, grouped, config.data_split_test),
-        config.test_batch_size,
+        config.test_batch_size + (-config.test_batch_size) % data_shards,
         num_threads=config.num_workers,
         num_procs=config.num_proc_workers,
     )
@@ -220,11 +249,17 @@ def run_test(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Dict[s
     n_img = 0
     try:
         for i, batch in enumerate(loader):
-            images = torch.from_numpy(batch.images).to(dev)
-            valid = torch.from_numpy(batch.valid).to(dev)
-            total = accumulate(
-                total, tm.eval_step_sorted(bank_s, images, batch.target, valid=valid)
-            )
+            images, valid = torch.from_numpy(batch.images), torch.from_numpy(batch.valid)
+            if mesh is not None:
+                images, valid = mesh.batch_shard(images), mesh.batch_shard(valid)
+            images, valid = images.to(dev), valid.to(dev)
+            if sharded is not None:
+                m = sharded(bank_s, images, batch.target, valid)
+            else:
+                m = tm.eval_step_sorted(bank_s, images, batch.target, valid=valid)
+                if mesh is not None:
+                    m = all_sum_metrics(m, mesh.data_group)
+            total = accumulate(total, m)
             n_img += int(batch.valid.sum())
             if i % config.print_freq == 0:
                 logger.log_eval(summarize(total), tag=f"batch {i}/{loader.num_batches}")
@@ -251,7 +286,8 @@ def run_train_flat(config: Config, tm: TreeModel, splits, logger: RunLogger) -> 
     over the seen classes' prompts, the global-norm clip, then AdamW on the
     cosine schedule over the CLIP tensors alone (``layer_weight`` stays).
     A checkpoint each epoch; ``--resume`` does not apply. Returns the final
-    TrainState."""
+    TrainState. It reads no mesh, as in JAX: in a run of several ranks each
+    trains the same model on the same batches, and rank 0 alone writes."""
     from contextlib import closing
 
     from .baselines.clip_flat import make_flat_train_step
@@ -261,7 +297,6 @@ def run_train_flat(config: Config, tm: TreeModel, splits, logger: RunLogger) -> 
     from .utils.checkpoint import AsyncCheckpointSaver
     from .utils.preempt import GracefulShutdown
 
-    require_ported(config)
     dev = tm.device
     grouped = _grouped_split(config, config.data_split_train, splits[config.data_train],
                              splits)
@@ -286,6 +321,7 @@ def run_train_flat(config: Config, tm: TreeModel, splits, logger: RunLogger) -> 
     state = TrainState(params={"clip": tm.model, "layer_weight": tm.layer_weight}, opt_state=opt)
     step = make_flat_train_step(tx, dtype=tm.dtype)
     logger.log_config(config)
+    stop = False
     with AsyncCheckpointSaver(keep=config.keep_checkpoints) as saver, \
             GracefulShutdown() as shutdown, closing(loader):
         for epoch in range(config.from_epoch + 1, config.epochs):
@@ -298,12 +334,14 @@ def run_train_flat(config: Config, tm: TreeModel, splits, logger: RunLogger) -> 
                                          seen_tokens, labels)
                 if i % config.print_freq == 0:
                     logger.log_train(epoch, i, len(loader), float(loss))
-                if shutdown.requested:
+                stop = any_rank(shutdown.requested, dev)
+                if stop:
                     break  # SIGTERM: the checkpoint below still runs
             state.step = (epoch + 1) * len(loader)
-            saver.save(config.save_path, epoch, state)
+            if is_writer():
+                saver.save(config.save_path, epoch, state)
             logger.log_text(f"Model saved. epoch={epoch}")
-            if shutdown.requested:
+            if stop:
                 logger.log_text(f"preempted (SIGTERM): saved epoch={epoch}")
                 break
             if config.test_after_train:
@@ -315,7 +353,9 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
     """OM fine-tuning (reference ``train()`` + driver, ``main.py:72-101,
     225-258``); returns the final TrainState. With ``--coop`` the text path
     is the prompt learner and ``--coop_train`` labels what trains
-    (``hgr_tpu/driver.py:370-382``)."""
+    (``hgr_tpu/driver.py:370-382``). On a mesh with ``data`` > 1 each step
+    takes ``data`` consecutive batches, replica d the d-th of them
+    (``hgr_tpu/driver.py:437-500``)."""
     from .models.layers import attention_scores
     from .train import (
         NegativeSampler,
@@ -324,8 +364,8 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
         make_optimizer,
         make_train_step,
     )
+    from .train.spmd import make_spmd_train_step, stack_schedules
 
-    require_ported(config)
     grouped = _grouped_split(config, config.data_split_train, splits[config.data_train],
                              splits)
     loader = GroupedTrainLoader(
@@ -339,7 +379,6 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
         serial_batches=config.serial_batches,
         num_procs=config.num_proc_workers,
     )
-    steps_per_epoch = loader.n_episodes
     text_fn = extra_params = extra_labels = None
     if config.coop:
         static, ctx = tm.coop_setup(config.seed)
@@ -351,7 +390,9 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
             "clip": {"coop_ctx": "frozen"},
             "both": {"coop_ctx": "clip"},
         }[config.coop_train]
-    tx = make_optimizer(config, config.epochs * steps_per_epoch, extra_labels=extra_labels)
+    # the schedule's length counts batches, before any mesh rounding, as in
+    # JAX (hgr_tpu/driver.py:368)
+    tx = make_optimizer(config, config.epochs * loader.n_episodes, extra_labels=extra_labels)
     state = init_train_state(tm.model, tm.layer_weight, tx, extra_params=extra_params)
     resume_meta = None
     if config.resume:
@@ -372,6 +413,17 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
     # CoOp skips the whole image tower's)
     frozen = tuple(k for k, v in (extra_labels or {}).items() if v == "frozen")
     step_fn = make_train_step(config, tx, dtype=tm.dtype, text_fn=text_fn, frozen=frozen)
+
+    # more than one replica: one class a replica a step (train/spmd.py); a
+    # step takes n_replicas batches, so the episodes round up to a multiple
+    mesh = train_mesh(config)
+    n_replicas = 1 if mesh is None else mesh.data
+    if n_replicas > 1:
+        step_fn = make_spmd_train_step(config, tx, mesh, dtype=tm.dtype, text_fn=text_fn,
+                                       frozen=frozen)
+        loader.n_episodes += (-loader.n_episodes) % n_replicas
+    num_batches = loader.n_episodes
+    steps_per_epoch = num_batches // n_replicas
 
     sampler = NegativeSampler(tm.hier, tm.train_index, config.num_compare, k=config.k,
                               seed=config.seed,
@@ -399,26 +451,35 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
 
     def prefetch_steps():
         """Batches and their pair schedules, made in a background thread so
-        that schedule building overlaps the device step."""
+        that schedule building overlaps the device step. Every rank builds
+        every replica's schedule, so the sampler's stream is JAX's."""
         skip = pending_skip.pop("steps", 0)  # the first epoch only
         if skip:
-            loader.skip_next(skip)
-        for batch in loader:
-            yield batch.images, builder.build(batch.target)
+            loader.skip_next(skip * n_replicas)
+        it = iter(loader)
+        if n_replicas > 1:
+            for _ in range(steps_per_epoch - skip):
+                batches = [next(it) for _ in range(n_replicas)]
+                yield (np.stack([b.images for b in batches]),
+                       stack_schedules([builder.build(b.target) for b in batches]))
+        else:
+            for batch in it:
+                yield batch.images, builder.build(batch.target)
 
     logger.log_config(config)
     from .utils.profiling import TraceWindow
 
     tracer = TraceWindow(config.trace_dir)
     try:
-        return _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, sampler,
-                           loader, node_tokens, prefetch_steps, steps_per_epoch, resume_skip)
+        return _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, n_replicas,
+                           sampler, loader, node_tokens, prefetch_steps, steps_per_epoch,
+                           resume_skip)
     finally:
         tracer.close()
         loader.close()
 
 
-def _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, sampler, loader,
+def _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, n_replicas, sampler, loader,
                 node_tokens, prefetch_steps, steps_per_epoch, resume_skip=0):
     from .train import sched_to_device
     from .utils.checkpoint import AsyncCheckpointSaver
@@ -439,19 +500,25 @@ def _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, sampler, loa
                 sampler.set_class_feats(bank[: tm.hier.num_nodes].float().cpu().numpy())
             skip_base = resume_skip if epoch == config.from_epoch + 1 else 0
             steps_done = skip_base
+            stop = False
             steps = Prefetcher(prefetch_steps, depth=2)
             try:
                 for i, (images, sched_host) in enumerate(steps):
                     tracer.before(i)
-                    state, loss = step_fn(state, torch.from_numpy(images).to(dev), node_tokens,
-                                          sched_to_device(sched_host, dev))
+                    if n_replicas > 1:  # the SPMD step moves its replica's share
+                        state, loss = step_fn(state, images, node_tokens, sched_host)
+                    else:
+                        state, loss = step_fn(state, torch.from_numpy(images).to(dev),
+                                              node_tokens, sched_to_device(sched_host, dev))
                     tracer.after(i, loss)
                     if i % config.print_freq == 0:
                         logger.log_train(epoch, skip_base + i, steps_per_epoch, float(loss))
                     steps_done = skip_base + i + 1
-                    if shutdown.requested:
-                        # SIGTERM: stop at this step boundary; the checkpoint
-                        # below still runs, then the run exits for --resume
+                    # SIGTERM on any rank stops every rank at this step
+                    # boundary; the checkpoint below still runs, then the run
+                    # exits for --resume
+                    stop = any_rank(shutdown.requested, dev)
+                    if stop:
                         break
             finally:
                 steps.stop()
@@ -464,14 +531,16 @@ def _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, sampler, loa
                 "epoch": epoch,
                 "steps": steps_run,
                 "step_ms": round(epoch_dt / max(steps_run, 1) * 1e3, 1),
-                "imgs_per_sec": round(steps_run * config.batch_size / max(epoch_dt, 1e-9), 1),
+                "imgs_per_sec": round(steps_run * n_replicas * config.batch_size
+                                      / max(epoch_dt, 1e-9), 1),
             })
             if config.coop:
                 tm.coop_ctx = state.params["coop_ctx"]
-            saver.save(config.save_path, epoch, state,
-                       meta={"steps_done": steps_done, "steps_per_epoch": steps_per_epoch})
+            if is_writer():
+                saver.save(config.save_path, epoch, state,
+                           meta={"steps_done": steps_done, "steps_per_epoch": steps_per_epoch})
             logger.log_text(f"Model saved. epoch={epoch}")
-            if shutdown.requested:
+            if stop:
                 logger.log_text(
                     f"preempted (SIGTERM): saved epoch={epoch} after {steps_done}/"
                     f"{steps_per_epoch} steps; --resume True re-enters this epoch at "
@@ -485,16 +554,31 @@ def _epoch_loop(config, tm, splits, logger, tracer, state, step_fn, sampler, loa
 
 def main(argv=None, device=None) -> Any:
     """``python -m hgr_tpu_torch [flags]``; ``device`` (from Python only)
-    replaces ``cuda:{--device}``."""
+    replaces ``cuda:{--device}``. Under ``torch.distributed.run`` (or in a
+    process group the caller made) every rank runs this, on the mesh of
+    ``--mesh_data/--mesh_model``; only rank 0 logs."""
+    from .parallel import distributed
+
     config = Config.from_args(argv)
-    hier, splits = build_hierarchy(config)
-    print("Creating models", flush=True)
-    tm = build_model(config, hier, splits, device=device)
-    logger = RunLogger(config.save_path)
-    if config.train:
-        print("Training.", flush=True)
-        if config.training_method == "flat":
-            return run_train_flat(config, tm, splits, logger)
-        return run_train(config, tm, splits, logger)
-    print("Direct testing.", flush=True)
-    return run_test(config, tm, splits, logger)
+    owns_group = not distributed.initialised()
+    init_distributed(backend=config.dist_backend)
+    try:
+        device = rank_device(device, config.device, config.dist_backend)
+        writer = is_writer()
+        hier, splits = build_hierarchy(config)
+        if writer:
+            print("Creating models", flush=True)
+        tm = build_model(config, hier, splits, device=device)
+        logger = RunLogger(config.save_path) if writer else SilentLogger(config.save_path)
+        if config.train:
+            if writer:
+                print("Training.", flush=True)
+            if config.training_method == "flat":
+                return run_train_flat(config, tm, splits, logger)
+            return run_train(config, tm, splits, logger)
+        if writer:
+            print("Direct testing.", flush=True)
+        return run_test(config, tm, splits, logger)
+    finally:
+        if owns_group and distributed.initialised():
+            distributed.dist.destroy_process_group()

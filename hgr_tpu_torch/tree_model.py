@@ -306,8 +306,15 @@ class TreeModel:
         valid: Optional[torch.Tensor] = None,
     ) -> BatchMetrics:
         """:meth:`eval_step_sorted` from the batch's image features."""
+        return self.metrics_from_logits(bank_logits(feats, bank_sorted), target, valid)
+
+    @torch.inference_mode()
+    def metrics_from_logits(
+        self, logits_s: torch.Tensor, target: int, valid: Optional[torch.Tensor] = None,
+    ) -> BatchMetrics:
+        """:meth:`metrics_sorted` from the batch's [B, N_pad] logits against
+        the depth-sorted bank."""
         tb = self._sorted_tables
-        logits_s = bank_logits(feats, bank_sorted)
         preds_s, vals = level_argmax_sorted(logits_s, self.level_offsets, tb["train_s"])
         preds_global = tb["order"][preds_s.long()]
         return metrics_from_preds(

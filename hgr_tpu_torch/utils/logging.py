@@ -81,3 +81,16 @@ class RunLogger:
         with open(path, "a") as f:
             f.write(f"{weights},{out_ratio},{in_ratio}:\n")
             f.write(format_report(summary) + "\n")
+
+
+class SilentLogger(RunLogger):
+    """The logger of a rank that writes nothing: every rank but 0 of a
+    multi-process run."""
+
+    def __init__(self, save_path: str):
+        self.save_path = save_path
+        self.text_path = self.jsonl_path = os.devnull
+        self.echo = False
+
+    def log_global_summary(self, *args, **kwargs) -> None:
+        pass

@@ -10,7 +10,8 @@ option once refused, ``--trace_dir``, writes a Chrome trace of train steps
 through ``torch.profiler`` (``utils/profiling.py``, whose ``TraceWindow``
 and ``StepTimer`` are held to the JAX package's semantics); the other,
 ``--num_proc_workers`` (decode processes), is held to JAX on image files in
-``tests/test_torch_realdata.py``. Only ``--mesh_*`` still raises.
+``tests/test_torch_realdata.py``. The mesh flags are ignored in a
+one-process run, as in JAX; the mesh is ``tests/test_torch_parallel.py``'s.
 """
 
 import json
@@ -349,17 +350,30 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_unported_options_raise(tmp_path):
-    """The multi-device layout, the one option the port still refuses,
-    raises before any work, named in the message, whatever the device.
-    ``--trace_dir``, refused until the profiler was ported, runs: two OM
-    steps write one Chrome trace of step 1 onwards, its window closed when
-    the epoch ends early. (``--num_proc_workers``, refused until the decode
-    processes were ported, is held to JAX on image files, where processes
-    apply, in ``tests/test_torch_realdata.py``.)"""
+    """The Orbax branch of ``load_backbone``, the one path the port still
+    refuses, raises ``NotYetPorted``, named in the message. The mesh flags,
+    refused until the mesh was ported, run: in a one-process run they are
+    ignored, as JAX ignores them on one device (``hgr_tpu/driver.py:179``),
+    and give the run's own summary (the mesh itself is held to JAX in
+    ``tests/test_torch_parallel.py``). ``--trace_dir``, refused until the
+    profiler was ported, runs: two OM steps write one Chrome trace of step
+    1 onwards, its window closed when the epoch ends early.
+    (``--num_proc_workers``, refused until the decode processes were
+    ported, is held to JAX on image files, where processes apply, in
+    ``tests/test_torch_realdata.py``.)"""
+    from hgr_tpu_torch.baselines.features import load_backbone
+    from hgr_tpu_torch.config import NotYetPorted
+
+    (tmp_path / "orbax").mkdir()
+    with pytest.raises(NotYetPorted, match="Orbax"):
+        load_backbone(str(tmp_path / "orbax"))
+    base = ["--synthetic", "True", "--arch", "TEST-RN", "--train", "False", "--dtype", "float32",
+            "--max_test_batches", "2", "--test_batch_size", "8", "--folder", str(tmp_path / "m")]
+    want = driver.main(base, device="cpu")
     for flags in (["--mesh_model", "2"], ["--mesh_data", "4"]):
-        argv = ["--synthetic", "True", "--arch", "TEST-RN", "--train", "False"] + flags
-        with pytest.raises(driver.NotYetPorted, match="--mesh_data/--mesh_model"):
-            driver.main(argv, device="cpu")
+        got = driver.main(base + flags, device="cpu")
+        assert {k: v for k, v in got.items() if k != "imgs_per_sec"} == {
+            k: v for k, v in want.items() if k != "imgs_per_sec"}, flags
     argv = ["--synthetic", "True", "--arch", "TEST-RN", "--folder", str(tmp_path),
             "--max_test_batches", "2", "--test_batch_size", "8", "--dtype", "float32"]
     trace_dir = tmp_path / "trace"

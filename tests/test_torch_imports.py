@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX and nothing of ``hgr_tpu``.
 
 An AST scan of every module of ``hgr_tpu_torch`` (the baselines included),
-of ``chip_smoke.py`` and of the port's tools (``tools/*torch*.py``) finds
+of ``chip_smoke.py`` and of the port's tools (``tools/*torch*.py``), the
+mesh (``parallel/*``, ``train/spmd.py``) and the offline builders included, finds
 no import of ``jax`` (or ``jaxlib``, ``optax``, ``orbax``), of ``networkx``
 or ``regex`` (the port has its own chain search and word splitter), and
 none of ``hgr_tpu`` other than ``hgr_tpu_torch``; importing the package in
@@ -49,6 +50,9 @@ def test_no_jax_or_reference_imports():
     assert len(FILES) > 30 and REPO / "chip_smoke.py" in FILES
     assert {"run.py", "gcn.py", "free.py", "cnzsl.py"} <= {
         p.name for p in FILES if p.parent.name == "baselines"}
+    assert {"mesh.py", "distributed.py", "collectives.py", "eval_spmd.py"} <= {
+        p.name for p in FILES if p.parent.name == "parallel"}
+    assert {"spmd.py", "builder.py", "splits.py"} <= {p.name for p in FILES}
     assert not bad, f"imports of JAX or the JAX package: {bad}"
 
 
@@ -65,6 +69,10 @@ def test_package_import_leaves_jax_unloaded():
         "import hgr_tpu_torch.models.coop, hgr_tpu_torch.models.resnet_std\n"
         "import hgr_tpu_torch.data.mp_decode, hgr_tpu_torch.baselines.refit\n"
         "import hgr_tpu_torch.utils.profiling\n"
+        "import hgr_tpu_torch.parallel, hgr_tpu_torch.parallel.mesh\n"
+        "import hgr_tpu_torch.parallel.distributed, hgr_tpu_torch.parallel.collectives\n"
+        "import hgr_tpu_torch.parallel.eval_spmd, hgr_tpu_torch.train.spmd\n"
+        "import hgr_tpu_torch.hierarchy.builder, hgr_tpu_torch.data.splits\n"
         "from hgr_tpu_torch.hierarchy import synthetic_hierarchy\n"
         "from hgr_tpu_torch.text import Tokenizer\n"
         "synthetic_hierarchy(3, 3, 4, 0)\n"

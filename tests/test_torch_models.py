@@ -93,19 +93,17 @@ def _check_text(pair, lengths, T):
     _close(got, want)
 
 
-def test_image_tower_test_rn(test_rn):
-    for uint8 in (False, True):
-        _check_image(test_rn, uint8)
+def test_image_tower_test_rn(test_rn, rn50_width):
+    """TEST-RN, then RN50's widths at a cut resolution, from float and uint8
+    images."""
+    for setup in (test_rn, rn50_width):
+        for uint8 in (False, True):
+            _check_image(setup, uint8)
 
 
 def test_text_tower_test_rn(test_rn):
     for T in (16, 77):
         _check_text(test_rn, [4, 9, 13], T)
-
-
-def test_image_tower_rn50_width(rn50_width):
-    for uint8 in (False, True):
-        _check_image(rn50_width, uint8)
 
 
 def test_text_tower_rn50_width(rn50_width):

@@ -103,8 +103,14 @@ def _openai_files(tmp_path, arch):
     return jcfg
 
 
-@pytest.mark.parametrize("arch", list(WIDTHS))
-def test_load_torch_matches_jax(tmp_path, arch, monkeypatch):
+def test_load_torch_matches_jax(tmp_path, monkeypatch):
+    """Every configuration of ``WIDTHS`` (TEST-RN and TEST-ViT)."""
+    for arch in WIDTHS:
+        _load_torch_matches_jax(tmp_path / arch, arch, monkeypatch)
+
+
+def _load_torch_matches_jax(tmp_path, arch, monkeypatch):
+    tmp_path.mkdir()
     jcfg = _openai_files(tmp_path, arch)
     rng = np.random.default_rng(0)
     res = jcfg.image_resolution

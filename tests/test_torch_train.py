@@ -185,8 +185,13 @@ OM_CASES = {  # (training_method, weights, weighting)
 }
 
 
-@pytest.mark.parametrize("case", list(OM_CASES))
-def test_om_loss_and_grads_match_jax(setup, case):
+def test_om_loss_and_grads_match_jax(setup):
+    """Every case of ``OM_CASES``: the OM and hierarchical methods under each weighting."""
+    for case in OM_CASES:
+        _om_loss_and_grads_match_jax(setup, case)
+
+
+def _om_loss_and_grads_match_jax(setup, case):
     method, weights, weighting = OM_CASES[case]
     _, _, jtm, _, images = setup
     cfg, _, tm, (sched, jsched) = _port(setup, training_method=method, weights=weights,
@@ -216,8 +221,13 @@ def test_om_loss_and_grads_match_jax(setup, case):
 OPT_CASES = {"plain": {}, "accum2": dict(accum_steps=2), "frozen": dict(frozen=True)}
 
 
-@pytest.mark.parametrize("case", list(OPT_CASES))
-def test_optimizer_step_matches_optax(setup, case):
+def test_optimizer_step_matches_optax(setup):
+    """Every case of ``OPT_CASES``: plain, ``accum_steps=2`` and a frozen group."""
+    for case in OPT_CASES:
+        _optimizer_step_matches_optax(setup, case)
+
+
+def _optimizer_step_matches_optax(setup, case):
     """The train step against the JAX one: AdamW after the global-norm clip
     on the CLIP tensors, SGD on layer_weight; with ``accum_steps=2`` the
     first call moves nothing; a group labelled frozen stays as it was."""
