@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. device: require CUDA; print the card's name and power limit, and
-   whether ``tensorstore`` imports (the Orbax reader's dependency);
+1. device: require CUDA; print the card's name and power limit, whether
+   the system's ``libzstd.so.1`` loads (the Orbax reader's one library) and
+   its version, and whether g++ is on the path;
 2. build: compile every kernel under ``hgr_tpu_torch/csrc`` with nvcc (one
    process per source, all at once) and print the build time;
 3. kernels against their plain versions on the card, at the main path's
@@ -95,6 +96,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 The mesh over ``torch.distributed`` (one card, so several ranks share it
 over gloo; NCCL refuses two ranks on one GPU), and the offline builders:
+
+The JAX package's Orbax checkpoints (``phase_orbax``, after a), from the
+committed fixtures of ``tests/torch_fixtures/make_orbax_fixtures.py``:
+
+o. the RN50 ``clip_0`` (with optax's state at step 7) read and timed (MB/s
+   beside the card's name and power limit), every leaf of it and of the
+   ResNet-50 ``_refit`` held to JAX's digests; ``python -m hgr_tpu_torch
+   --load True --load_path <fixture>`` over one batch of phase 9's decode
+   cache in a process of its own (432 K1 launches); the fp32 image, text
+   and ResNet-50 (``--cnn``) features of seeded inputs, TF32 off, within
+   ``ORBAX_FEAT_RTOL`` of JAX's CPU features; ``--resume`` from the fixture
+   for one OM step at batch 256 through ``driver.run_train``: the loss
+   finite, the step going on from 7, the update AdamW's on the carried
+   moments, and its norm's ratio to a fresh AdamW step's printed.
 
 a. (after phase 10) phase 9's CLI eval as 4 ranks under ``python -m
    torch.distributed.run`` with ``--mesh_data 2 --mesh_model 2
@@ -1794,15 +1809,242 @@ SPMD_GRAD_NORM_RTOL = 1e-2
 EXPECTED_BUILDER_SHA256 = "3c4cb7ea69ed3abee8e996b41b3870101ccaa861d9aa1b36f1edf8b170c5fd9c"
 
 
-def phase_tensorstore():
-    """Whether the Orbax reader's one dependency imports on this host."""
+def phase_zstd():
+    """What the Orbax reader needs of this host: the system's
+    ``libzstd.so.1`` (its version), and g++, which would build a decoder of
+    the port's own if the library were missing."""
+    import shutil
+
+    from hgr_tpu_torch.utils import zstd
+
     try:
-        import tensorstore
-    except ImportError as e:
-        log(f"[device] import tensorstore: fails ({type(e).__name__}: {e}); the Orbax reader "
-            "(ROADMAP Queue 1 item 6) cannot use it here")
+        version = zstd.version("chip_smoke")
+    except zstd.ZstdUnavailable as e:
+        log(f"[device] {zstd.LIBRARY}: does not load ({e}); the Orbax phase will fail")
     else:
-        log(f"[device] import tensorstore: ok, version {tensorstore.__version__}")
+        log(f"[device] {zstd.LIBRARY}: loads, ZSTD_versionNumber {version}")
+    log(f"[device] g++ on the path: {shutil.which('g++') or 'no'}")
+
+
+# the Orbax fixtures (tests/torch_fixtures/make_orbax_fixtures.py): JAX's
+# checkpoints of RN50 (with optax's state at step 7) and of a ResNet-50
+# _refit, each leaf's digest, and JAX's fp32 CPU features of seeded inputs
+ORBAX_SEEDS = dict(n_images=8, n_prompts=64, image_seed=11, prompt_seed=12)
+ORBAX_STEP = 7
+# fp32 on the card, TF32 off, against JAX's fp32 features on the CPU: the
+# largest difference over the largest feature (0.7e-6 for the RN50 image
+# tower on the CPU)
+ORBAX_FEAT_RTOL = 1e-4
+# the resumed update's norm against AdamW's formula on the carried moments
+# (the update is about 1e-5 of the weights, so fp32 weights carry it to
+# about 1%)
+ORBAX_UPDATE_RTOL = 2e-2
+
+
+def orbax_inputs(resolution, context_length, vocab_size, n_images, n_prompts, image_seed,
+                 prompt_seed):
+    """The fixtures' seeded inputs, made as ``make_orbax_fixtures.inputs``
+    makes them: uint8 images and prompt tokens (start, 1-30 ids, end, zeros)."""
+    images = np.random.default_rng(image_seed).integers(
+        0, 256, (n_images, resolution, resolution, 3), dtype=np.uint8)
+    rng = np.random.default_rng(prompt_seed)
+    tokens = np.zeros((n_prompts, context_length), np.int32)
+    for row in tokens:
+        n = int(rng.integers(1, 31))
+        row[0] = vocab_size - 2
+        row[1:n + 1] = rng.integers(1, vocab_size - 2, n)
+        row[n + 1] = vocab_size - 1
+    return images, tokens
+
+
+def leaf_digest(value):
+    """dtype, shape and SHA-256 of a leaf as ``digests.json`` holds them."""
+    import hashlib
+
+    if isinstance(value, torch.Tensor):
+        dtype = str(value.dtype).removeprefix("torch.")
+        a = (value.view(torch.uint16) if value.dtype == torch.bfloat16 else value)
+        a = a.contiguous().numpy()
+    else:
+        a = np.asarray(value)
+        dtype = str(a.dtype)
+    return {"dtype": dtype, "shape": list(a.shape),
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+
+def cli_count(args, timeout=600):
+    """The CLI (``driver.main(args)``) in a process of its own through this
+    script's ``--cli-rank`` mode, as one rank of no world; K1's launches are
+    read from its count file, as :func:`torchrun` reads each rank's.
+    Returns (standard output, launches)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as count_dir:
+        env = dict(os.environ, RANK="0", **{COUNT_DIR_ENV: count_dir})
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-rank", *args],
+                           capture_output=True, text=True, timeout=timeout, env=env)
+        assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+        with open(os.path.join(count_dir, "rank0")) as f:
+            return p.stdout, int(f.read())
+
+
+def phase_orbax(dev, real, work, batch=256, num_compare=256, level_sizes=LEVEL_SIZES,
+                bank_launches=432, fixtures=None):
+    """The JAX package's Orbax checkpoints on the card, from the committed
+    fixtures at full width:
+
+    (a) the RN50 ``clip_0`` as a user loads it: the read of its params
+        timed (MB/s), every leaf of both fixtures held to ``digests.json``;
+        ``python -m hgr_tpu_torch --load True --load_path <fixture>`` over
+        one batch of phase 9's decode cache, in a process of its own (K1
+        builds the bank: ``bank_launches``); the fp32 image and text
+        features of the seeded inputs, TF32 off, against JAX's;
+    (b) the ResNet-50 ``_refit`` as ``--cnn``: ``load_backbone`` and the
+        featurizer in fp32 against JAX's features;
+    (c) ``--resume`` from the RN50 fixture for one OM step at ``batch``
+        through ``driver.run_train`` (on a hierarchy of ``level_sizes``,
+        whose 13 levels the fixture's ``layer_weight`` has): the loss
+        finite, the step count going
+        on from the fixture's, the update AdamW's on the carried moments,
+        and its norm against a fresh AdamW step's on the same gradient.
+
+    Returns K1's launches in (a)'s CLI run."""
+    import hashlib
+    import os
+    import shutil
+    from pathlib import Path
+
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.baselines.features import load_backbone, make_featurizer
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.hierarchy import profiled_hierarchy
+    from hgr_tpu_torch.models.clip import CLIP, encode_image, encode_text, get_config
+    from hgr_tpu_torch.train import cosine_lr, init_train_state, make_optimizer
+    from hgr_tpu_torch.utils.checkpoint import restore_checkpoint, restore_params
+    from hgr_tpu_torch.utils.logging import RunLogger
+    from hgr_tpu_torch.utils.orbax import read_leaves
+
+    fixtures = Path(fixtures or Path(__file__).resolve().parent / "tests" / "torch_fixtures"
+                    / "orbax")
+    ckpt, refit = str(fixtures / "rn50" / "clip_0"), str(fixtures / "rn50_refit")
+    digests = json.loads((fixtures / "digests.json").read_text())
+    expected = np.load(fixtures / "expected.npz")
+
+    # (a) the read, timed, and every leaf against JAX's digests
+    t0 = time.time()
+    params = read_leaves(ckpt, ("params",))
+    read_s = time.time() - t0
+    nbytes = sum(v.numel() * v.element_size() for v in params.values())
+    log(f"[orbax] read params of {ckpt}: {len(params)} arrays, {nbytes / 1e6:.1f} MB decoded in "
+        f"{read_s:.3f} s = {nbytes / 1e6 / read_s:.0f} MB/s (host: OCDBT, zarr, libzstd; tiled "
+        f"fixture, so zstd's rate is above a trained checkpoint's) | {smi_name_power()}")
+    del params
+    for name in ("rn50/clip_0", "rn50_refit"):
+        leaves = read_leaves(str(fixtures / name))
+        got = {".".join(map(str, k)): leaf_digest(v) for k, v in leaves.items()
+               if not isinstance(v, (type(None), tuple, list, dict))}
+        bad = sorted(k for k in digests[name] if got.get(k) != digests[name][k])
+        log(f"[orbax] {name}: {len(got)} leaves, {len(digests[name]) - len(bad)} of "
+            f"{len(digests[name])} equal to JAX's digests")
+        assert not bad and len(got) == len(digests[name]), bad[:5]
+        del leaves
+
+    # the CLI's --load on phase 9's files, one batch, K1's launches counted
+    folder = os.path.join(work, "orbax_cli")
+    cli = real["cfg_args"] + ["--load", "True", "--load_path", ckpt, "--max_test_batches", "1",
+                              "--folder", folder, "--device", str(dev.index or 0)]
+    t0 = time.time()
+    _, launches = cli_count(cli)
+    final = _final_eval(Config.from_args(cli).save_path)
+    log(f"[orbax] CLI `python -m hgr_tpu_torch --load True --load_path {ckpt} ...` in "
+        f"{time.time() - t0:.1f} s: K1 launches {launches}; final {json.dumps(final)}")
+    assert launches == bank_launches, f"K1 launched {launches} times, not {bank_launches}"
+    assert final["num_samples"] > 0 and all(
+        math.isfinite(v) for v in final.values() if isinstance(v, float)), final
+
+    # fp32 features of the seeded inputs against JAX's, TF32 off
+    cfg = get_config("RN50")
+    images, tokens = orbax_inputs(cfg.image_resolution, cfg.context_length, cfg.vocab_size,
+                                  **ORBAX_SEEDS)
+    assert hashlib.sha256(images.tobytes()).hexdigest() == str(expected["images_sha256"])
+    assert hashlib.sha256(tokens.tobytes()).hexdigest() == str(expected["tokens_sha256"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = CLIP(cfg).to(dev)
+        model.load_state_dict(restore_params(ckpt, cfg)["clip"])
+        model.eval()
+        with torch.inference_mode():
+            feats = {
+                "image_feats": encode_image(model, torch.from_numpy(images).to(dev),
+                                            dtype=torch.float32),
+                "text_feats": encode_text(model, torch.from_numpy(tokens).to(dev).long(),
+                                          dtype=torch.float32)}
+        del model
+        backbone = load_backbone(refit, device=dev)
+        feats["resnet_feats"] = make_featurizer(backbone, crop=224, dtype=torch.float32)(images)
+        del backbone
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    for key, got in feats.items():
+        want = expected[key]
+        err = float(np.abs(got.float().cpu().numpy() - want).max() / np.abs(want).max())
+        log(f"[orbax] {key} {tuple(want.shape)} fp32 on the card (TF32 off) against JAX's on "
+            f"the CPU: largest difference {err:.2e} of the largest feature (tol "
+            f"{ORBAX_FEAT_RTOL:g})")
+        assert bool(torch.isfinite(got).all()) and err <= ORBAX_FEAT_RTOL, (key, err)
+
+    # (c) --resume: one OM step from the fixture's optax state
+    cfg = Config(arch="RN50", synthetic=True, train=True, remat=True, batch_size=batch,
+                 num_compare=num_compare, epochs=2, n_episodes=1, resume=True, from_epoch=0,
+                 test_after_train=False, synthetic_images_per_class=batch, print_freq=1,
+                 folder=os.path.join(work, "orbax_resume"))
+    shutil.copytree(ckpt, os.path.join(cfg.save_path, "clip_0"))
+    hier = profiled_hierarchy(level_sizes, seed=0, cross_edges=40)
+    splits = driver.synthetic_splits(hier, cfg.seed)
+    tm = driver.build_model(cfg, hier, splits, device=dev)
+    total = cfg.epochs * cfg.n_episodes
+    before = init_train_state(CLIP(tm.clip_cfg).to(dev), torch.zeros_like(tm.layer_weight),
+                              make_optimizer(cfg, total))
+    restore_checkpoint(ckpt, before)
+    assert before.step == ORBAX_STEP and before.opt_state.count == ORBAX_STEP
+    logger = RunLogger(cfg.save_path, echo=False)
+    t0 = time.time()
+    after = driver.run_train(cfg, tm, splits, logger)
+    wall = time.time() - t0
+    losses = [r["loss"] for r in map(json.loads, open(logger.jsonl_path))
+              if r["event"] == "train"]
+    assert len(losses) == 1 and math.isfinite(losses[0]), losses
+    assert after.step == ORBAX_STEP + 1 and after.opt_state.count == ORBAX_STEP + 1, after.step
+    b1, b2 = after.opt_state.adamw.param_groups[0]["betas"]
+    eps = after.opt_state.adamw.param_groups[0]["eps"]
+    lr = cosine_lr(cfg.lr, cfg.warmup_length, total)
+    bc1, bc2 = 1 - b1 ** (ORBAX_STEP + 1), 1 - b2 ** (ORBAX_STEP + 1)
+    old = before.opt_state.adamw.state_dict()["state"]
+    new = after.opt_state.adamw.state_dict()["state"]
+    theta0 = list(before.params["clip"].state_dict().values())
+    theta1 = list(after.params["clip"].state_dict().values())
+    sq = {"actual": 0.0, "adamw": 0.0, "fresh": 0.0}
+    for i, (t0_, t1_) in enumerate(zip(theta0, theta1)):
+        m, v = new[i]["exp_avg"].float(), new[i]["exp_avg_sq"].float()
+        g = (m - b1 * old[i]["exp_avg"].float()) / (1 - b1)  # the step's (clipped) gradient
+        sq["actual"] += float(((t1_ - t0_).float() ** 2).sum())
+        sq["adamw"] += float(((lr(ORBAX_STEP) / bc1 * m / (v.sqrt() / bc2 ** 0.5 + eps)) ** 2)
+                             .sum())
+        sq["fresh"] += float(((lr(0) * g / (g.abs() + eps)) ** 2).sum())
+    norm = {k: v ** 0.5 for k, v in sq.items()}
+    rel = abs(norm["actual"] - norm["adamw"]) / norm["adamw"]
+    log(f"[orbax] --resume from {ckpt}: step {before.step} -> {after.step}, updates "
+        f"{after.opt_state.count}, loss {losses[0]:.4f}, run_train {wall:.1f} s; update norm "
+        f"{norm['actual']:.4e}, AdamW's on the carried moments {norm['adamw']:.4e} (off by "
+        f"{rel:.2e}, tol {ORBAX_UPDATE_RTOL:g}); a fresh AdamW step on the same gradient "
+        f"{norm['fresh']:.4e}: ratio {norm['actual'] / norm['fresh']:.4f}")
+    assert rel <= ORBAX_UPDATE_RTOL, rel
+    del tm, before, after
+    shutil.rmtree(cfg.save_path, ignore_errors=True)
+    shutil.rmtree(folder, ignore_errors=True)
+    return launches
 
 
 def torchrun(args, nproc=MESH_WORLD, timeout=600, pred_dir=None):
@@ -2398,7 +2640,7 @@ def main() -> int:
     import os
 
     name = phase_device()
-    phase_tensorstore()
+    phase_zstd()
     phase_build()
     from hgr_tpu_torch.device import select_device
 
@@ -2421,6 +2663,7 @@ def main() -> int:
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
         mesh_eval = phase_mesh_eval(real)
+        orbax_load = phase_orbax(dev, real, work)
         real_launches = real.pop("launches")
         decoded = phase_decode(dev, real, n_procs)
         phase_baseline_images(dev, real, decoded, n_procs)
@@ -2446,6 +2689,7 @@ def main() -> int:
     by_path = {"rn50_eval": rn50, "vit_b32_eval": vit_launches, "rn50x4_eval": rn50x4,
                "vit_l14_eval": vit_l14,
                "rn50_real_inputs_eval": real_launches,
+               "rn50_orbax_load_eval": orbax_load,
                "rn50_files_num_proc_workers_eval": decoded["launches"],
                "export_text_feats": text,
                **({} if serving is None else {"rn50_serve_classify_files": serving}),

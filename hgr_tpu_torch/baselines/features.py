@@ -8,7 +8,8 @@ torchvision eval transform Resize(256) + CenterCrop(224) + ImageNet
 normalisation (``train_resnet_fit.py:32-41``).
 
 - :func:`load_backbone` - the frozen ResNet-50 (``models/resnet_std``) from
-  a torchvision checkpoint or from the port's own ``save_pytree`` artifact;
+  a torchvision checkpoint or from a ``save_pytree`` artifact, the port's or
+  the JAX package's;
 - :func:`preprocess_for_backbone` - the centre crop with torchvision's
   half-to-even origin and the ImageNet normalisation, on the device;
 - :func:`make_featurizer` - uint8 ``[B, R, R, 3]`` -> ``[B, 2048]`` fp32,
@@ -40,13 +41,14 @@ def load_backbone(path: str, device=None):
       198-202``; the file is trusted);
     - a directory written by ``utils/checkpoint.save_pytree``: a
       ``state_dict``, or a tree whose ``params`` is one (the runner's
-      ``{save_path}_refit``).
-
-    A directory of the JAX package (an Orbax pytree) raises
-    ``NotYetPorted``: its reader is ROADMAP Queue 1 item 6.
+      ``{save_path}_refit``);
+    - a directory written by the JAX package's ``save_pytree`` (Orbax): its
+      ResNet-50 tree, or a tree whose ``params`` is one (the JAX runner's
+      ``{save_path}_refit``), converted by ``models/convert.from_jax_resnet``.
     """
+    from ..models.convert import from_jax_resnet
     from ..models.resnet_std import convert_torch_resnet
-    from ..utils.checkpoint import STATE_FILE, load_pytree
+    from ..utils.checkpoint import STATE_FILE, is_orbax_dir, load_pytree
 
     if path.endswith((".pt", ".pth")):
         obj = torch.load(path, map_location="cpu", weights_only=False)
@@ -54,15 +56,13 @@ def load_backbone(path: str, device=None):
     elif os.path.exists(os.path.join(path, STATE_FILE)):
         sd = load_pytree(path)
         sd = sd.get("params", sd)
-    elif os.path.isdir(path):
-        from ..config import NotYetPorted
-
-        raise NotYetPorted(
-            f"--cnn {path}: a directory without {STATE_FILE}, such as the JAX package's Orbax "
-            "checkpoint; reading those is ROADMAP Queue 1 item 6, not yet ported")
+    elif is_orbax_dir(path):
+        tree = load_pytree(path)
+        sd = from_jax_resnet(tree.get("params", tree))
     else:
         raise ValueError(f"--cnn {path}: neither a torch .pt/.pth checkpoint nor a "
-                         "save_pytree directory")
+                         "save_pytree directory (state.pt, or Orbax's _METADATA and "
+                         "manifest.ocdbt)")
     return convert_torch_resnet(sd).to(device)
 
 

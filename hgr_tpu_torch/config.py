@@ -17,10 +17,6 @@ from dataclasses import dataclass, fields
 from typing import List, Optional
 
 
-class NotYetPorted(NotImplementedError):
-    """An option or path of the JAX package that the port does not run yet."""
-
-
 def _parse_bool(v: str) -> bool:
     if isinstance(v, bool):
         return v

@@ -149,19 +149,24 @@ def build_model(
     )
     tm.init_params(config.seed)
 
-    def apply(restored):
-        tm.model.load_state_dict(restored["clip"])
+    def apply(path):
+        """The weights of the checkpoint ``path``: the port's, or the JAX
+        package's Orbax directory, converted for ``--arch``."""
+        restored = restore_params(path, tm.clip_cfg)
+        try:
+            tm.model.load_state_dict(restored["clip"])
+        except RuntimeError as e:
+            raise RuntimeError(f"{path} is not a checkpoint of --arch {config.arch}: {e}") from e
         with torch.no_grad():
             tm.layer_weight.copy_(restored["layer_weight"])
         if "coop_ctx" in restored:  # a checkpoint of CoOp training
             tm.coop_ctx = restored["coop_ctx"].to(tm.device)
 
     if config.fetch and config.fetch_path:
-        apply(restore_params(config.fetch_path))
+        apply(config.fetch_path)
     if config.load:
-        path = (config.load_path if config.load_path != "none"
-                else os.path.join(config.save_path, f"clip_{config.from_epoch}"))
-        apply(restore_params(path))
+        apply(config.load_path if config.load_path != "none"
+              else os.path.join(config.save_path, f"clip_{config.from_epoch}"))
         print("successfully loaded", flush=True)
     return tm
 

@@ -104,7 +104,10 @@ BAD_ARGUMENTS = [
 
 def test_kernel_argument_checks():
     """What the kernel does not take is refused before any launch, each
-    case with its own message."""
+    case with its own message: arguments, devices other than the CPU and
+    CUDA, and calls that autograd would record."""
+    _cuda_route_refuses_other_devices()
+    _kernel_refuses_autograd()
     for bad, match in BAD_ARGUMENTS:
         T, Dh = bad.get("T", 8), bad.get("Dh", 64)
         dtype = bad.get("dtype", torch.float32)
@@ -136,7 +139,7 @@ def _check_head_dim_padding():
         k1.pad_head_dim(*map(torch.from_numpy, _qkv(4, seed=5, Dh=80)))
 
 
-def test_cuda_route_refuses_other_devices():
+def _cuda_route_refuses_other_devices():
     q = torch.zeros(1, 1, 4, 64, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         k1.attention(q, q, q)
@@ -145,7 +148,7 @@ def test_cuda_route_refuses_other_devices():
                           torch.zeros(1, 1, 4, 64))
 
 
-def test_kernel_refuses_autograd():
+def _kernel_refuses_autograd():
     """The kernel has no backward, so a call autograd would record raises
     (before any launch) and names the plain attention; without gradients,
     or with inputs that need none, it goes on. ``attention_cuda`` runs this

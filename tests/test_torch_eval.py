@@ -67,9 +67,11 @@ def _levels_setup(N=300, n_depths=4, B=16, seed=0):
 
 def test_level_argmax_matches_jax():
     """Both level argmaxes equal JAX's; with ``sink`` a whole level scores
-    below FILL, so the oracle leaves the level (the fill rule)."""
+    below FILL, so the oracle leaves the level (the fill rule); on ties the
+    first index wins, as in JAX."""
     for sink in (None, 2):
         _level_argmax_matches_jax(sink)
+    _level_argmax_first_index_on_ties()
 
 
 def _level_argmax_matches_jax(sink):
@@ -91,7 +93,7 @@ def _level_argmax_matches_jax(sink):
         assert (gv.numpy()[sink] <= ttopk.FILL).all()
 
 
-def test_level_argmax_first_index_on_ties():
+def _level_argmax_first_index_on_ties():
     logits = np.zeros((3, 10), np.float32)
     logits[:, [2, 5, 7]] = 1.0
     train = np.ones(10, bool)
@@ -350,8 +352,10 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_unported_options_raise(tmp_path):
-    """The Orbax branch of ``load_backbone``, the one path the port still
-    refuses, raises ``NotYetPorted``, named in the message. The mesh flags,
+    """The options the port once refused run. ``load_backbone`` reads a JAX
+    Orbax directory (refused until the reader was ported; its features are
+    held to JAX in ``tests/test_torch_orbax.py``), and a directory with
+    neither ``state.pt`` nor ``_METADATA`` still raises. The mesh flags,
     refused until the mesh was ported, run: in a one-process run they are
     ignored, as JAX ignores them on one device (``hgr_tpu/driver.py:179``),
     and give the run's own summary (the mesh itself is held to JAX in
@@ -361,12 +365,19 @@ def test_unported_options_raise(tmp_path):
     (``--num_proc_workers``, refused until the decode processes were
     ported, is held to JAX on image files, where processes apply, in
     ``tests/test_torch_realdata.py``.)"""
+    from hgr_tpu.models.resnet_std import resnet50_init
+    from hgr_tpu.utils.checkpoint import save_pytree
     from hgr_tpu_torch.baselines.features import load_backbone
-    from hgr_tpu_torch.config import NotYetPorted
 
-    (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotYetPorted, match="Orbax"):
-        load_backbone(str(tmp_path / "orbax"))
+    params = resnet50_init(jax.random.PRNGKey(0), num_classes=10)
+    save_pytree(str(tmp_path / "orbax"), {"params": params, "trlog": {"loss": [1.0]}})
+    model = load_backbone(str(tmp_path / "orbax"))
+    assert model.fc.weight.shape == (10, 2048)
+    assert torch.equal(model.conv1.weight, torch.from_numpy(
+        np.asarray(params["conv1"]["w"]).transpose(3, 2, 0, 1).copy()))
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match="_METADATA"):
+        load_backbone(str(tmp_path / "empty"))
     base = ["--synthetic", "True", "--arch", "TEST-RN", "--train", "False", "--dtype", "float32",
             "--max_test_batches", "2", "--test_batch_size", "8", "--folder", str(tmp_path / "m")]
     want = driver.main(base, device="cpu")

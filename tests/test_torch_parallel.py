@@ -109,8 +109,13 @@ def _check_eval(got_ranks, want, geometry):
                                                      f"mesh={shape} target={t}")
 
 
-@pytest.mark.parametrize("geometry", ["synthetic", "real"])
-def test_sharded_eval_matches_jax(geometry):
+def test_sharded_eval_matches_jax():
+    """Both geometries, one after the other (see :func:`_sharded_eval_matches_jax`)."""
+    for geometry in ("synthetic", "real"):
+        _sharded_eval_matches_jax(geometry)
+
+
+def _sharded_eval_matches_jax(geometry):
     """``synthetic``: the small hierarchy with the bank each side builds
     from the same weights, two targets, and the FILL case (level 1 sunk to
     -2 for every image: the level's prediction leaves it, a miss);
@@ -246,8 +251,13 @@ def _mean_loss_grads(over, hier, sd, scheds, images, ctx):
     return grads
 
 
-@pytest.mark.parametrize("variant", ["OM", "coop"])
-def test_spmd_step_matches_jax(variant):
+def test_spmd_step_matches_jax():
+    """Both variants, one after the other (see :func:`_spmd_step_matches_jax`)."""
+    for variant in ("OM", "coop"):
+        _spmd_step_matches_jax(variant)
+
+
+def _spmd_step_matches_jax(variant):
     """One step at (2, 2) and (4, 1): OM on TEST-RN over every CLIP tensor
     and ``layer_weight``; CoOp ``ctx`` on TEST-ViT, the context trained and
     CLIP frozen (bitwise unchanged)."""
