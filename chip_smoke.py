@@ -12,9 +12,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    process per source, all at once) and print the build time;
 3. kernels against their plain versions on the card, at the main path's
    shapes and the edges of K1's contract (``KERNEL_CASES``: T from 1 to
-   577, the long-sequence path past 256 included), each with q/k/v
-   as strided views of the packed projection and as contiguous tensors,
-   with the stated tolerances; times of kernel, plain version and the
+   577, the tiled bf16 kernel's 64-row tile edges from T = 97, causal,
+   unmasked and band masks), each with q/k/v as strided views of the
+   packed projection and as contiguous tensors, with the stated tolerances; times of kernel, plain version and the
    library yardstick (``scaled_dot_product_attention``, never called by the
    port), and each case's bound;
 4. the ancestor chains of the smoke's hierarchy, held to the JAX package's
@@ -28,8 +28,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 8. ViT-B/32 eval at full width against the same bank: ``run_test`` over 2
    batches of 512, where K1 also runs the image tower (T = 50, no mask, 12
    layers), so 432 + 12 x 2 = 456 launches; one batch's features through K1
-   held to the plain attention's; then RN50x4 (288 px, its bank at 10
-   heads: 432 launches) over one batch;
+   held to the plain attention's; ViT-B/16 the same way over one batch (T =
+   197 in the image tower: 432 + 12 = 444 launches); then RN50x4 (288 px,
+   its bank at 10 heads: 432 launches) over one batch;
 8b. ViT-L/14 at full width through the user's route: an OpenAI-layout fp16
    ``.pt`` with seeded weights (428 M parameters), ``load_torch`` and
    ``run_test`` over one batch of 512 (432 + 24 launches at T = 257); one
@@ -157,17 +158,21 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
               torch.float32: 67e12}            # fp32 outside the tensor cores
 LEVEL_SIZES = [10, 800, 4000, 5000, 4000, 2500, 1000, 500, 250, 120, 60, 30, 8]
-# phase 3's (shape, causal settings): the bank build's T = 32, CLIP's full
+# phase 3's (shape, mask settings[, dtypes]); a mask setting is True (causal),
+# False (none) or "band" (BAND_MASK): the bank build's T = 32, CLIP's full
 # context 77 and a short prompt 20; ViT-B/32's 50 and ViT-B/16's 197 (12
 # heads) without mask; T = 48 and 96, the last lengths of the three- and
-# six-row-tile instantiations, so that every bf16 instantiation is held to
-# the plain version; the edges T = 256 (two passes over key tiles) and T = 1;
-# the TEST configurations' head dim 16 (padded to 64 by the wrapper), which
-# the baselines runner's CLIP-flat bank reaches at TEST-RN; past T = 256 the
-# long-sequence path: ViT-L/14's 257 and ViT-L/14@336's 577 tokens (16
-# heads, no mask) and a causal T = 300; RN50x4's bank (10 heads); and, in
-# bf16 only, one launch of ViT-L/14's eval step (a batch of 512 through
-# each of its 24 layers), which reads K1's share of that step
+# six-row-tile instantiations, so that every instantiation of the short bf16
+# kernel is held to the plain version; T = 256 and T = 1; the TEST
+# configurations' head dim 16 (padded to 64 by the wrapper), which the
+# baselines runner's CLIP-flat bank reaches at TEST-RN; ViT-L/14's 257 and
+# ViT-L/14@336's 577 tokens (16 heads, no mask) and a causal T = 300;
+# RN50x4's bank (10 heads); in bf16 only, one launch of ViT-L/14's eval step
+# (a batch of 512 through each of its 24 layers) and of ViT-B/16's (12
+# heads, T = 197), which read K1's share of those steps; and the edges of
+# the tiled bf16 kernel (T >= 97): its first T, the 64-row tile edges 128,
+# 129, 192, 193, 320 and 321, a single head (one block, no neighbours) and a
+# band mask, whose 64-key blocks are dead or mixed
 KERNEL_CASES = [
     ((512, 8, 32, 64), (True, False)),
     ((512, 8, 77, 64), (True, False)),
@@ -185,7 +190,14 @@ KERNEL_CASES = [
     ((8, 8, 300, 64), (True,)),
     ((512, 10, 32, 64), (True,)),
     ((512, 16, 257, 64), (False,), (torch.bfloat16,)),
+    ((512, 12, 197, 64), (False,), (torch.bfloat16,)),
+    *(((8, 8, t, 64), (True, False), (torch.bfloat16,)) for t in (97, 128, 129, 192, 193, 320, 321)),
+    ((1, 1, 257, 64), (True, False), (torch.bfloat16,)),
+    ((8, 8, 300, 64), ("band",), (torch.bfloat16,)),
 ]
+# the band mask's half-width and its seed: -inf outside |row - key| <= 80,
+# seeded values in [-2, 2) inside
+BAND_MASK = dict(width=80, seed=5)
 MAIN_SHAPE = (512, 8, 32, 64)                 # the bank build's: 512 prompts, T = 32
 # sha256 of ``ancestors.tobytes()`` of profiled_hierarchy(LEVEL_SIZES, seed=0,
 # cross_edges=40): the JAX package's chains with networkx, which the port's
@@ -375,6 +387,15 @@ def qkv_views(shape, dtype, layout, g, dev):
     return [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3)]
 
 
+def band_mask(T, dev, width, seed):
+    """An additive [T, T] mask that is neither causal nor zero: -inf outside
+    the band |row - key| <= width, seeded values in [-2, 2) inside it."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.rand((T, T), generator=g, device=dev) * 4 - 2
+    i = torch.arange(T, device=dev)
+    return torch.where((i[:, None] - i[None, :]).abs() <= width, vals, float("-inf"))
+
+
 def phase_kernels(dev):
     """K1 against attention_scores on the card, with times and bounds."""
     import torch.nn.functional as F
@@ -384,31 +405,35 @@ def phase_kernels(dev):
 
     g = torch.Generator(device=dev).manual_seed(0)
     main = None
-    for shape, causals, *dtypes in KERNEL_CASES:
+    for shape, masks, *dtypes in KERNEL_CASES:
         for dtype in (dtypes[0] if dtypes else (torch.bfloat16, torch.float32)):
             for layout in ("packed", "contiguous"):
                 q, k, v = qkv_views(shape, dtype, layout, g, dev)
-                for causal in causals:
+                for kind in masks:
+                    T = shape[2]
+                    mask = (band_mask(T, dev, **BAND_MASK) if kind == "band"
+                            else causal_mask(T, device=dev) if kind else None)
                     row = check_attention(attention, attention_scores, F.scaled_dot_product_attention,
-                                          q, k, v, causal_mask(shape[2], device=dev) if causal else None)
+                                          q, k, v, mask, causal=kind is True)
                     name = str(dtype).split(".")[-1]
                     eager = row.pop("eager_ms")
-                    log(f"[kernel] attention {shape} {name} {layout} causal={causal}: max_abs_err "
+                    log(f"[kernel] attention {shape} {name} {layout} mask={kind}: max_abs_err "
                         f"{row['max_abs_err']:.3e} (tol {TOL[dtype][0]:g} + {TOL[dtype][1]:g}|p|) ok | "
                         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
                         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
                         f"| {row['bound_ms'] / row['ms']:.1%} of bound | kernel eager "
                         f"{eager:.4f} ms a call, host included")
-                    if shape == MAIN_SHAPE and dtype == torch.bfloat16 and layout == "packed" and causal:
+                    if shape == MAIN_SHAPE and dtype == torch.bfloat16 and layout == "packed" and kind is True:
                         main = row
     return main
 
 
-def check_attention(kernel, plain, sdpa, q, k, v, mask):
+def check_attention(kernel, plain, sdpa, q, k, v, mask, causal):
     """One case of phase 3: the kernel held to its plain version (raises
     beyond TOL), then the three timed on the device; returns the
     kernel-table fields and ``eager_ms``, the kernel's time a call from
-    Python, host included."""
+    Python, host included. SDPA gets ``is_causal`` for a causal mask and the
+    mask itself for any other."""
     got = kernel(q, k, v, mask)
     want = plain(q, k, v, mask)
     torch.cuda.synchronize()
@@ -419,12 +444,13 @@ def check_attention(kernel, plain, sdpa, q, k, v, mask):
         raise AssertionError(f"attention kernel disagrees with its plain version at "
                              f"{tuple(q.shape)} {q.dtype} strides {q.stride()} "
                              f"mask={mask is not None}: {err}")
-    causal = mask is not None
     bound, by = attention_bound_ms(tuple(q.shape), q.dtype, mask)
+    library = (dict(is_causal=True) if causal else {} if mask is None
+               else dict(attn_mask=mask.to(q.dtype)))
     return dict(
         ms=graph_ms(lambda: kernel(q, k, v, mask)),
         plain_ms=graph_ms(lambda: plain(q, k, v, mask)),
-        library_ms=graph_ms(lambda: sdpa(q, k, v, is_causal=causal)),
+        library_ms=graph_ms(lambda: sdpa(q, k, v, **library)),
         bound_ms=bound, bound_by=by, max_abs_err=err,
         eager_ms=cuda_ms(lambda: kernel(q, k, v, mask)),
     )
@@ -2656,6 +2682,9 @@ def main() -> int:
     vit, _, _, vit_launches = phase_slice(dev, arch="ViT-B/32", batches=2, image_launches=12)
     phase_vit_features(vit)
     del vit
+    vit16, _, _, vit16_launches = phase_slice(dev, arch="ViT-B/16", batches=1, image_launches=12)
+    phase_vit_features(vit16)
+    del vit16
     rn50x4 = phase_slice(dev, arch="RN50x4", batches=1)[3]
     work = tempfile.mkdtemp(prefix="hgr_real_inputs_")
     try:
@@ -2686,7 +2715,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    by_path = {"rn50_eval": rn50, "vit_b32_eval": vit_launches, "rn50x4_eval": rn50x4,
+    by_path = {"rn50_eval": rn50, "vit_b32_eval": vit_launches, "vit_b16_eval": vit16_launches,
+               "rn50x4_eval": rn50x4,
                "vit_l14_eval": vit_l14,
                "rn50_real_inputs_eval": real_launches,
                "rn50_orbax_load_eval": orbax_load,

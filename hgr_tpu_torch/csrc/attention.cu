@@ -12,13 +12,18 @@
 // kernel's padding of T to 8 and Dh to 128 was a layout artefact; here the
 // ragged edge is masked in the kernel.
 //
-// What bounds it on the H100: bytes. At the bank build's shape (512 prompts
-// x 8 heads, T = 32, Dh = 64, bf16) q, k, v and o move 4 x 16.8 MB = 67 MB
-// a launch for 1.07 GFLOP of products: 16 FLOP per byte, far under the ~295
-// at which bf16 tensor cores become the limit, so the floor is about 20 us
-// at 3.35 TB/s. The bank build launches it 12 layers x 36 chunks = 432 times.
+// K1 has three device kernels: attention_fwd_bf16 (bf16, T <= 96),
+// attention_fwd_bf16_tiled (bf16, T >= 97) and attention_fwd_f32 (fp32,
+// any T). All three are launched by hgr_attention_fwd at the bottom.
 //
-// bf16 design (attention_fwd_bf16), each part for a reason:
+// What bounds the short kernel on the H100: bytes. At the bank build's
+// shape (512 prompts x 8 heads, T = 32, Dh = 64, bf16) q, k, v and o move 4
+// x 16.8 MB = 67 MB a launch for 1.07 GFLOP of products: 16 FLOP per byte,
+// far under the ~295 at which bf16 tensor cores become the limit, so the
+// floor is about 20 us at 3.35 TB/s. The bank build launches it 12 layers x
+// 36 chunks = 432 times.
+//
+// Short bf16 design (attention_fwd_bf16, T <= 96), each part for a reason:
 // - One block owns one prompt and a group of HG heads at a time (an item)
 //   and covers all T query rows of each, so each head's K and V are read
 //   from device memory once. One warp per 16 query rows; HG is the largest
@@ -42,16 +47,12 @@
 //   the SFU's ex2), rounded to bf16 and repacked straight into the A
 //   fragments of P.V, which runs in two halves of 32 output dims so that
 //   fewer accumulators are live at once.
-// - One pass while a warp's scores fit its registers without spilling
-//   (T <= 96, from -Xptxas -v); above that two passes over 48-key tiles: the
-//   first finds each row's max and sum, the second recomputes q.k^T and
-//   accumulates P.V with the final normalisation. No flash-style rescaling
-//   of P.V: that would round unnormalised probabilities to bf16, which
-//   _attn_kernel does not do. Each instantiation's block size and resident
-//   blocks (template arguments) set its register budget. ldmatrix addresses
-//   are a per-lane base XOR a compile-time chunk plus a compile-time row
-//   offset, so they hold no register per tile: that is what lets T = 77 (80
-//   keys, 40 score registers) run one pass with 3 blocks of 5 warps an SM.
+// - One pass: a warp's scores fit its registers without spilling up to T =
+//   96 (-Xptxas -v). Each instantiation's block size and resident blocks
+//   (template arguments) set its register budget. ldmatrix addresses are a
+//   per-lane base XOR a compile-time chunk plus a compile-time row offset,
+//   so they hold no register per tile: that is what lets T = 77 (80 keys, 40
+//   score registers) run with 3 blocks of 5 warps an SM.
 // - The [T, T] mask is the same for every block. Each block sorts its 16x16
 //   tiles once: all -inf (the tile is skipped: its probabilities are exactly
 //   0), all 0 (nothing to add), or mixed. Mixed tiles go into shared-memory
@@ -66,18 +67,63 @@
 // - The output tile goes through the warp's own (finished) q rows in shared
 //   memory to 16-byte stores, 128 contiguous bytes per row.
 //
-// Long sequences (T > 256: ViT-L/14's 257 tokens, ViT-L/14@336's 577), in
-// attention_fwd_bf16_long: a whole head no longer fits an item buffer, so an
-// item is (prompt, head, tile of at most 8 row tiles = 128 query rows), the
-// row tiles of a head spread evenly over its items. The block's q rows stay
-// in shared memory; K and V stream through in 64-key blocks, double-buffered
-// cp.async copies, in the same two passes (max and sum over every key block,
-// then q.k^T again and P.V with the final normalisation), with the same
-// device functions. The mask's tile classes are the block's own row tiles
-// against every key tile, in shared memory sized by the runtime T; no mask
-// tile is staged (mixed tiles are read through the cache). It only has to
-// be right: it is not tuned (the short path above serves T <= 256 as before).
-//
+// Long bf16 design (attention_fwd_bf16_tiled, T >= 97: ViT-B/16's 197,
+// ViT-L/14's 257, ViT-L/14@336's 577). A head no longer fits a block, and
+// the work per byte grows with T: at ViT-L/14's (512, 16, 257) the bytes
+// take 0.32 ms at 3.35 TB/s, the three products (q.k^T twice, P.V) 0.21 ms
+// on the tensor cores, and the two exponentials a score about 0.27 ms on
+// the SFUs (16 ex2 a clock an SM). So the kernel is bound by bytes and the
+// SFU, and its design keeps the tensor cores, the SFUs and the copies
+// working at once:
+// - Tiles. A block is one warpgroup (4 warps, 16 query rows each) on a
+//   64-row query tile of one (prompt, head). The grid is (B*H x query
+//   tiles) with the tile fastest, so the tiles of one head run together and
+//   their re-reads of K and V hit the L2. Four blocks an SM without a mask
+//   (50 KB of shared memory and at most 128 registers a thread each; three
+//   with one, whose code needs more registers), so that while one
+//   warpgroup exponentiates the others' products and copies run: the
+//   warpgroups of an SM, not a pipeline within one, hide each other's
+//   latencies. No producer warp: a fifth warp would leave room for fewer
+//   blocks an SM (an SM grants registers to groups of four warps), and
+//   setmaxnreg, which could shrink its share, works on whole warpgroups.
+// - Products on wgmma, A from registers: S = q.K^T as m64n64k16 with q's A
+//   fragments loaded once by ldmatrix (reading q from shared memory for
+//   every product doubled the shared-memory traffic of q.k^T), and O +=
+//   P.V with P in registers (the S accumulator rounded to bf16 is wgmma's
+//   A-fragment layout) and V read through the transpose bit (V is
+//   key-major). K and V sit in the 128-byte swizzle (16-byte chunk c of row
+//   r at c ^ (r & 7)) on a 1,024-byte boundary, which TMA writes and the
+//   descriptors read. Each product's four k16 steps are issued together
+//   and waited once.
+// - Copies. A ring of 5 slots of 8 KB (a 64-key block of K or of V) filled
+//   by TMA through tensor maps over the caller's strided views (dims Dh, H,
+//   T, B; boxes of 64 x 64), one mbarrier a slot. Rows past T come back as
+//   zeros. Thread 0 loads Q once and refills slots as soon as every warp is
+//   done with them (a block barrier); the first pass loads K only, so its
+//   copies run five blocks ahead.
+// - Exact two passes, as _attn_kernel's normalisation demands (no
+//   flash-style rescaling of P.V, which would round unnormalised
+//   probabilities to bf16): pass 1 finds each row's max and sum of
+//   exp(s - m) over every key block; pass 2 recomputes q.k^T and
+//   accumulates P.V with P = exp(s - m) / l rounded to bf16. ex2.approx
+//   with the log2(e) and softmax-scale fold.
+// - wgmma stays asynchronous only if no branch that differs between the
+//   warps of the warpgroup touches a product's registers, and the products
+//   in flight fit the registers; ptxas serializes every wgmma of the kernel
+//   otherwise. So a warp whose rows all lie past T computes like the others
+//   and only skips its stores, and P.V is waited before the next block.
+// - The ragged tail: the last key block's products run at N = 64 on zeros
+//   past T, but only its groups of 8 keys that reach below T are
+//   exponentiated (T = 257: 8 of 64 keys), and its P.V takes as many k16
+//   steps as they need.
+// - The mask. A pre-pass kernel sorts the mask's 64 x 64 blocks once a
+//   launch into dead (skipped by the copies and the products alike: exactly
+//   zero probability, about half the blocks of a causal mask), zero
+//   (nothing to add) and mixed (added from device memory through the L2).
+//   Without a mask nothing is read, there is no pre-pass, and the kernel is
+//   compiled without the mask's code (its instantiation kMask = false).
+// - The output goes through the (finished) Q tile to 16-byte stores.
+
 // fp32 (attention_fwd_f32) keeps the first SIMT design: tensor cores would
 // mean TF32, and fp32 is the parity mode. One block per (batch*head, tile of
 // 32 query rows), one warp per query row with fp32 FMAs. K and V pass through
@@ -88,6 +134,7 @@
 // scores and accumulates P.V. A thread holds one row's scores (8 registers)
 // at a time.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -107,11 +154,10 @@ struct Strides {
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxWarps = 16;          // warps per block: one per 16 rows, T <= 256
-constexpr int kShortRowTiles = 16;     // the short path's most row tiles (T <= 256)
+constexpr int kShortRowTiles = 16;     // most row tiles of the short kernel's bitmasks
+constexpr int kShortMaxT = 96;         // the short kernel's longest T; the tiled one's above
 constexpr int kRowBytes = kDh * 2;     // one bf16 row: 128 bytes
 constexpr int kChunks = kRowBytes / 16;
-constexpr int kTwoPassTiles = 3;       // key tiles of 48 in the two passes
 constexpr int kSmemPerSm = 228 * 1024; // an SM's shared memory
 constexpr int kSmemReserved = 1024;    // the system's share of each block
 constexpr int kMaxSmemBytes = 227 * 1024;
@@ -416,7 +462,6 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  const int n_pass = (RT + KT - 1) / KT;
   constexpr float kLog2e = 1.4426950408889634f;
   for (int n = 0; item < n_items; item += gridDim.x, ++n) {
     // the next item's copies go out before this one is computed
@@ -436,68 +481,40 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint32_t q_s = base + q_off, k_s = q_s + tile, v_s = k_s + tile;
       const uint8_t* row_codes = codes + rt * RT;
 
-      // pass 1: each row's max m and sum l of exp(s - m), in fp32; S keeps
-      // exp(s - m) when one pass covers all keys
+      // each row's max m and sum l of exp(s - m), in fp32; S keeps exp(s - m)
       float S[2 * KT][4];
-      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-      for (int p = 0; p < n_pass; ++p) {
-        scores<KT>(S, q_s, k_s, row0, p * KT, RT, T_len, scale, mask, row_codes, slots, lane);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float cm = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < 2 * KT; ++j) cm = fmaxf(cm, fmaxf(S[j][2 * h], S[j][2 * h + 1]));
-          const float mn = fmaxf(m[h], quad_max(cm));
-          const float mref = mn == -INFINITY ? 0.f : mn;  // a row masked so far
-          float cs = 0.f;
-#pragma unroll
-          for (int j = 0; j < 2 * KT; ++j)
-#pragma unroll
-            for (int e = 2 * h; e < 2 * h + 2; ++e) {
-              S[j][e] = exp2_sfu(fmaf(S[j][e], kLog2e, -mref * kLog2e));
-              cs += S[j][e];
-            }
-          l[h] = l[h] * exp2_sfu((m[h] - mref) * kLog2e) + quad_sum(cs);
-          m[h] = mn;
-        }
-      }
-      float mref[2], inv[2];
+      float m[2], l[2], inv[2];
+      scores<KT>(S, q_s, k_s, row0, 0, RT, T_len, scale, mask, row_codes, slots, lane);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mref[h] = m[h] == -INFINITY ? 0.f : m[h];
+        float cm = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 2 * KT; ++j) cm = fmaxf(cm, fmaxf(S[j][2 * h], S[j][2 * h + 1]));
+        m[h] = quad_max(cm);
+        const float mref = m[h] == -INFINITY ? 0.f : m[h];  // a row masked throughout
+        float cs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            S[j][e] = exp2_sfu(fmaf(S[j][e], kLog2e, -mref * kLog2e));
+            cs += S[j][e];
+          }
+        l[h] = quad_sum(cs);
         inv[h] = 1.f / l[h];
       }
 
-      // pass 2: P = exp(s - m) / l rounded to bf16, O += P.V; the output
-      // tile goes through this warp's own q rows to 16-byte stores
-      if (n_pass == 1) {
-        // q is read: the halves of O take turns, each staged when done
-        uint32_t P[KT][4];
-        pack_p<KT>(P, S, inv);
-        __syncwarp();
+      // P = exp(s - m) / l rounded to bf16, O += P.V; q is read, so the
+      // halves of O take turns, each staged in this warp's own q rows when
+      // done, then 16-byte stores
+      uint32_t P[KT][4];
+      pack_p<KT>(P, S, inv);
+      __syncwarp();
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float O[4][4] = {};
-          pv_half<KT>(O, P, v_s, 0, RT, row_codes, half, lane);
-          stage_half(smem, q_off, O, row0, half, lane);
-        }
-      } else {
-        float O[2][4][4] = {};
-        for (int p = 0; p < n_pass; ++p) {
-          scores<KT>(S, q_s, k_s, row0, p * KT, RT, T_len, scale, mask, row_codes, slots, lane);
-#pragma unroll
-          for (int j = 0; j < 2 * KT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              S[j][e] = exp2_sfu(fmaf(S[j][e], kLog2e, -mref[e >> 1] * kLog2e));
-          uint32_t P[KT][4];
-          pack_p<KT>(P, S, inv);
-          pv_half<KT>(O[0], P, v_s, p * KT, RT, row_codes, 0, lane);
-          pv_half<KT>(O[1], P, v_s, p * KT, RT, row_codes, 1, lane);
-        }
-        __syncwarp();
-        stage_half(smem, q_off, O[0], row0, 0, lane);
-        stage_half(smem, q_off, O[1], row0, 1, lane);
+      for (int half = 0; half < 2; ++half) {
+        float O[4][4] = {};
+        pv_half<KT>(O, P, v_s, 0, RT, row_codes, half, lane);
+        stage_half(smem, q_off, O, row0, half, lane);
       }
       __syncwarp();
       bf16* oh = o + b * os.b + (h0 + hi) * os.h;
@@ -583,175 +600,487 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float
 
 
 // ---------------------------------------------------------------------------
-// bf16, T > 256: K and V streamed through the block in key blocks
+// bf16, T >= 97: 64-row query tiles on wgmma, K and V through a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int kLongKT = 4;                         // 16-key tiles a streamed key block
-constexpr int kLongKeys = 16 * kLongKT;            // 64 keys: 8 KB of K and 8 KB of V
-constexpr int kLongRowTiles = 8;                   // most row tiles (warps) an item
-constexpr int kLongThreads = kLongRowTiles * 32;
+constexpr int kTile = 64;                          // query rows a block; keys a K/V block
+constexpr int kTileBytes = kTile * kRowBytes;      // one [64][64] bf16 tile: 8 KB
+constexpr int kSlots = 5;                          // ring slots, each a K or a V tile
+constexpr int kTiledThreads = 128;                 // one warpgroup
+// the aligned Q tile, the ring, an mbarrier a slot and Q's, and room to
+// align the dynamic base to 1,024 bytes (the 128-byte swizzle's period):
+// 50 KB, four blocks an SM
+constexpr int kTiledSmemBytes = 1024 + kTileBytes + kSlots * kTileBytes + (kSlots + 1) * 8;
+constexpr int kTensorMapRefused = -2;              // hgr_attention_fwd's code for it
 
-// One block per item (prompt, head, RTB row tiles); warp w owns row tile w.
-// The device functions above index q rows and key tiles from the start of
-// the head, so the shared-memory bases are shifted back by whole 16-row
-// tiles (2,048 bytes: the swizzle's low bits do not change).
-__global__ void __launch_bounds__(kLongThreads, 2)
-attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const float* __restrict__ mask,
-                        bf16* __restrict__ o, int H, int T_len, int RTB, int n_qt,
-                        float scale, Strides qs, Strides ks, Strides vs, Strides os) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  constexpr int KT = kLongKT;
-  const int RT = (T_len + 15) / 16, n_kb = (RT + KT - 1) / KT;
-  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt, b = bh / H, hd = bh % H;
-  const int rt0 = qt * RTB, nrt = min(RTB, RT - rt0), qrow0 = rt0 * 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
-  const int q_bytes = RTB * 16 * kRowBytes, kv_bytes = kLongKeys * kRowBytes;
-  const uint32_t q_s = smem_addr(smem);                // [RTB*16][64], the item's rows
-  const uint32_t kv_s = q_s + q_bytes;                 // [2 stages][K | V][64 keys][64]
-  uint8_t* codes = smem + q_bytes + 4 * kv_bytes;      // [nrt][RT]
-  const int c = threadIdx.x & 7;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
 
-  // the item's q rows (past T zero-filled) go out with the first key block
-  {
-    const bf16* src = q + b * qs.b + hd * qs.h + c * 8;
-    for (int r = threadIdx.x >> 3; r < nrt * 16; r += blockDim.x >> 3) {
-      const int gr = qrow0 + r;
-      cp_async16(q_s + swz(r, c), src + min(gr, T_len - 1) * qs.t, gr < T_len ? 16 : 0);
+// thread 0's arrival, with the bytes its copies will complete
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one 64 x 64 box (rows t.., all 64 dims of head h, prompt b) of a tensor
+// map over (Dh, H, T, B) into swizzled shared memory; rows past T are zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int h, int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+// wgmma's descriptor of a bf16 tile in the 128-byte swizzle: start address,
+// 8-row groups 1,024 bytes apart (the leading offset is unused). It reads K
+// (K-major) and, with the transpose bit, key-major V; one k16 step is +32
+// bytes (+2) along K's rows, +2,048 (+128) down V's keys.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator registers across a wgmma
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// m64nNk16 products, bf16 in, fp32 accumulators d[N / 8][4]: a warp holds
+// rows 16 w + lane / 4 (elements 0, 1) and + 8 (elements 2, 3), columns
+// 8 i + 2 (lane % 4) and + 1, as mma.sync's m16n8 C fragment. d (+)= a . b
+// with a (64 rows x 16 bf16) from registers in mma.sync's A-fragment layout
+// (each warp its 16 rows) and b (16 x N) from shared memory: K-major (q.k^T:
+// b's rows are keys) when kTransB is 0, N-major (P.V: V's rows are keys)
+// when it is 1. acc = 0 overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+}
+
+// What each 64 x 64 block of the mask holds for the real rows of query tile
+// blockIdx.y against the real keys of key block blockIdx.x: all -inf
+// (kDead), all 0 (kZero) or anything else (kGlobal); one byte a block in
+// codes[query tile][key block]
+__global__ void __launch_bounds__(256)
+attention_mask_codes(const float* __restrict__ mask, int T_len, uint8_t* __restrict__ codes) {
+  const int c = blockIdx.x * kTile + (threadIdx.x & (kTile - 1));
+  const int r_end = min(T_len, (int)(blockIdx.y + 1) * kTile);
+  bool live = false, zero = true;
+  if (c < T_len)
+    for (int r = blockIdx.y * kTile + threadIdx.x / kTile; r < r_end; r += blockDim.x / kTile) {
+      const float m = __ldg(mask + (long long)r * T_len + c);
+      live |= m != -INFINITY;
+      zero &= m == 0.f;
+    }
+  live = __syncthreads_or(live);
+  zero = __syncthreads_and(zero);
+  if (threadIdx.x == 0)
+    codes[blockIdx.y * gridDim.x + blockIdx.x] = !live ? kDead : zero ? kZero : kGlobal;
+}
+
+// What the warpgroup's steps share. Ring position pos (the count of tiles
+// loaded so far) is slot pos % kSlots, in its (pos / kSlots)th use. A block
+// takes one position in the first pass (K) and two in the second (K, V).
+// This lane's query rows are row and row + 8.
+struct Tiled {
+  uint32_t ring, full;
+  const CUtensorMap *k_map, *v_map;
+  const float* mask;
+  const uint8_t* codes;  // this query tile's codes a key block, or null
+  float scale;
+  int T_len, n_kb, hd, b, row, lane;
+  int load_pos, load_pass, load_kb;  // the next load: ring position, pass, key block
+  bool load_v;                       // ... and whether it is V's tile
+
+  __device__ __forceinline__ uint32_t slot(int pos) const {
+    return ring + (pos % kSlots) * kTileBytes;
+  }
+  __device__ __forceinline__ uint8_t code(int kb) const {
+    return codes != nullptr ? codes[kb] : kZero;
+  }
+  __device__ __forceinline__ void wait_full(int pos) const {
+    mbar_wait(full + 8 * (pos % kSlots), (pos / kSlots) & 1);
+  }
+  // the next key block after kb that the mask leaves live (n_kb: none);
+  // without a mask (kMask false) every block is
+  template <bool kMask = true>
+  __device__ __forceinline__ int next_live(int kb) const {
+    if constexpr (!kMask) return kb + 1;
+    do ++kb;
+    while (kb < n_kb && code(kb) == kDead);
+    return kb;
+  }
+  // thread 0 loads the next tile (a live block's K in the first pass, its
+  // K then V in the second) at ring position load_pos; every thread keeps
+  // the count
+  __device__ __forceinline__ void load_next() {
+    if (load_pass > 1) return;
+    if (threadIdx.x == 0) {
+      const uint32_t bar = full + 8 * (load_pos % kSlots);
+      mbar_expect_tx(bar, kTileBytes);
+      tma_load(slot(load_pos), load_v ? v_map : k_map, bar, hd, load_kb * kTile, b);
+    }
+    ++load_pos;
+    load_v = load_pass == 1 && !load_v;
+    if (load_v) return;
+    load_kb = next_live(load_kb);
+    if (load_kb == n_kb) {
+      ++load_pass;
+      load_kb = next_live(-1);
     }
   }
-  // key block kb of K and V into stage st, as one cp.async group
-  auto issue = [&](int kb, int st) {
-    for (int t = 0; t < 2; ++t) {
-      const Strides s = t == 0 ? ks : vs;
-      const bf16* src = (t == 0 ? k : v) + b * s.b + hd * s.h + c * 8;
-      const uint32_t dst = kv_s + (2 * st + t) * kv_bytes;
-      for (int r = threadIdx.x >> 3; r < kLongKeys; r += blockDim.x >> 3) {
-        const int gr = kb * kLongKeys + r;
-        cp_async16(dst + swz(r, c), src + min(gr, T_len - 1) * s.t, gr < T_len ? 16 : 0);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  issue(0, 0);
-
-  // what each 16x16 mask tile of the item's row tiles holds, by runtime T
-  // (pad keys count as -inf, pad rows are left out); one warp a tile
-  for (int t = warp; t < nrt * RT; t += n_warps) {
-    const int rt = t / RT, kt = t % RT;
-    bool live = true, zero = kt < RT - 1 || T_len % 16 == 0;
-    if (mask != nullptr) {
-      live = false;
-      zero = true;
-      for (int i = lane; i < 256; i += 32) {
-        const int r = qrow0 + rt * 16 + i / 16, col = kt * 16 + i % 16;
-        if (r < T_len) {
-          const float m = col < T_len ? __ldg(mask + (long long)r * T_len + col) : -INFINITY;
-          live |= m != -INFINITY;
-          zero &= m == 0.f;
-        }
-      }
-      live = __any_sync(0xffffffffu, live);
-      zero = __all_sync(0xffffffffu, zero);
-    }
-    if (lane == 0) codes[t] = !live ? kDead : zero ? kZero : kGlobal;
-  }
-
-  const bool active = warp < nrt;
-  const int row0 = qrow0 + warp * 16;  // this warp's first query row in the head
-  const uint32_t q_g = q_s - (uint32_t)(qrow0 * kRowBytes);
-  const int q_off = -qrow0 * kRowBytes;  // the same shift for byte offsets
-  const uint8_t* row_codes = codes + warp * RT;
-  constexpr float kLog2e = 1.4426950408889634f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mref[2], inv[2];
-  float O[2][4][4] = {};
-  float S[2 * KT][4];
-  // pass 1 over the key blocks (max and sum), then pass 2 (P.V)
-  for (int it = 0; it < 2 * n_kb; ++it) {
-    const int pass = it / n_kb, kb = it % n_kb, st = it & 1;
-    if (it + 1 < 2 * n_kb) {
-      issue((it + 1) % n_kb, (it + 1) & 1);
-    } else {
-      asm volatile("cp.async.commit_group;\n" ::);
-    }
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  // every warp is done with the n oldest tiles in use: load into their slots
+  __device__ __forceinline__ void refill(int n) {
     __syncthreads();
-    if (active) {
-      const int kt0 = kb * KT;
-      const uint32_t k_g = kv_s + 2 * st * kv_bytes - (uint32_t)(kt0 * 16 * kRowBytes);
-      const uint32_t v_g = k_g + kv_bytes;
-      scores<KT>(S, q_g, k_g, row0, kt0, RT, T_len, scale, mask, row_codes, nullptr, lane);
-      if (pass == 0) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float cm = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < 2 * KT; ++j) cm = fmaxf(cm, fmaxf(S[j][2 * h], S[j][2 * h + 1]));
-          const float mn = fmaxf(m[h], quad_max(cm));
-          const float mr = mn == -INFINITY ? 0.f : mn;  // a row masked so far
-          float cs = 0.f;
-#pragma unroll
-          for (int j = 0; j < 2 * KT; ++j)
-#pragma unroll
-            for (int e = 2 * h; e < 2 * h + 2; ++e)
-              cs += exp2_sfu(fmaf(S[j][e], kLog2e, -mr * kLog2e));
-          l[h] = l[h] * exp2_sfu((m[h] - mr) * kLog2e) + quad_sum(cs);
-          m[h] = mn;
-        }
-        if (kb == n_kb - 1) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            mref[h] = m[h] == -INFINITY ? 0.f : m[h];
-            inv[h] = 1.f / l[h];
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 2 * KT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            S[j][e] = exp2_sfu(fmaf(S[j][e], kLog2e, -mref[e >> 1] * kLog2e));
-        uint32_t P[KT][4];
-        pack_p<KT>(P, S, inv);
-        pv_half<KT>(O[0], P, v_g, kt0, RT, row_codes, 0, lane);
-        pv_half<KT>(O[1], P, v_g, kt0, RT, row_codes, 1, lane);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's copies
+    for (int i = 0; i < n; ++i) load_next();
   }
-  if (!active) return;
-  // the output tile through this warp's own (finished) q rows
-  stage_half(smem, q_off, O[0], row0, 0, lane);
-  stage_half(smem, q_off, O[1], row0, 1, lane);
+};
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// S = q.K^T for the 64 keys of the K tile at b_desc, q's A fragments qf
+// from registers; issued, not waited
+__device__ __forceinline__ void issue_s(float (&S)[8][4], const uint32_t (&qf)[4][4],
+                                        uint64_t b_desc) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) wgmma_rs<0>(S, qf[kk], b_desc + 2 * kk, kk);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// the scores of mixed key block kb (the first key kb * 64): scaled (a power
+// of two: exact), plus the mask read through the L2, -inf past T
+__device__ __forceinline__ void prep(float (&S)[8][4], const Tiled& t, int kb) {
+  const int c2 = 2 * (t.lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = t.row + 8 * (e >> 1), c = kb * kTile + 8 * j + c2 + (e & 1);
+      float x = S[j][e] * t.scale;
+      if (r < t.T_len && c < t.T_len) x += __ldg(t.mask + (long long)r * t.T_len + c);
+      S[j][e] = c < t.T_len ? x : -INFINITY;
+    }
+}
+
+// The scores s of a block are mul * S: S scaled and masked by prep (mul =
+// 1), or plain q.k^T (mul = the softmax scale, a power of two for Dh = 64:
+// then fmaf(S, mul * log2 e, .) rounds as fmaf(s, log2 e, .) does).
+//
+// the first pass: the block folded into each row's max m and sum l of exp(s - m)
+template <int NG>
+__device__ __forceinline__ void fold(const float (&S)[NG][4], float mul, float (&m)[2],
+                                     float (&l)[2]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float k = mul * kLog2e;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float cm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) cm = fmaxf(cm, fmaxf(S[j][2 * h], S[j][2 * h + 1]));
+    const float mn = fmaxf(m[h], quad_max(cm) * mul);
+    const float mr = mn == -INFINITY ? 0.f : mn;  // a row masked so far
+    float cs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) cs += exp2_sfu(fmaf(S[j][e], k, -mr * kLog2e));
+    l[h] = l[h] * exp2_sfu((m[h] - mr) * kLog2e) + quad_sum(cs);
+    m[h] = mn;
+  }
+}
+
+// the second pass: O += P.V for the V at ring position pos, P = exp(s - mref) * inv
+// rounded to bf16 in A fragments of 16 keys (groups 2j and 2j + 1; a group
+// past the block's 8 NG keys is zero); issued, not waited
+template <int NG>
+__device__ __forceinline__ void issue_pv(float (&O)[8][4], const float (&S)[NG][4], float mul,
+                                         const float (&mref)[2], const float (&inv)[2],
+                                         const Tiled& t, int pos) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float k = mul * kLog2e;
+  constexpr int KS = (NG + 1) / 2;
+  uint32_t P[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int g = 2 * j + half;
+        uint32_t p = 0u;
+        if (g < NG)
+          p = pack_bf16(exp2_sfu(fmaf(S[g][2 * h], k, -mref[h] * kLog2e)) * inv[h],
+                        exp2_sfu(fmaf(S[g][2 * h + 1], k, -mref[h] * kLog2e)) * inv[h]);
+        P[j][2 * half + h] = p;
+      }
+  const uint32_t v_s = t.slot(pos + 1);
+  t.wait_full(pos + 1);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < KS; ++j) wgmma_rs<1>(O, P[j], sw128_desc(v_s + j * 16 * kRowBytes), 1);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// One live key block kb at ring position pos of pass `pass`: q.k^T issued and
+// waited, K's slot (and the previous block's V slot, v_free) refilled, then
+// the scores folded (pass 0) or P.V issued and waited (pass 1; V is the
+// tile at pos + 1). NG groups of 8 keys hold the block's keys below T (the
+// last block's may be fewer): exponentials for those only. kMask: the
+// block is mixed (scaled and masked by prep; NG is 8) rather than plain.
+// Every warp runs the same code, its rows past T or not: ptxas serializes
+// every wgmma of the kernel when a branch that differs between the warps of
+// the warpgroup touches a product's registers, or when the products in
+// flight would need more registers than the launch bound leaves.
+template <int pass, int NG, bool kMask>
+__device__ __forceinline__ void tiled_block(const uint32_t (&qf)[4][4], int kb, int pos,
+                                            bool v_free, Tiled& t, float (&m)[2],
+                                            float (&l)[2], const float (&mref)[2],
+                                            const float (&inv)[2], float (&O)[8][4]) {
+  float S[8][4];
+  t.wait_full(pos);
+  issue_s(S, qf, sw128_desc(t.slot(pos)));
+  wgmma_wait0();
+  keep(S);
+  if constexpr (pass == 1) keep(O);
+  t.refill(v_free ? 2 : 1);
+  float(&live)[NG][4] = reinterpret_cast<float(&)[NG][4]>(S);
+  float mul = t.scale;  // the scores are mul * S
+  if constexpr (kMask) {
+    prep(S, t, kb);
+    mul = 1.f;
+  } else if ((kb + 1) * kTile > t.T_len) {  // -inf past T
+    const int c0 = kb * kTile + 2 * (t.lane & 3);
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c0 + 8 * j + (e & 1) >= t.T_len) live[j][e] = -INFINITY;
+  }
+  if constexpr (pass == 0) {
+    fold(live, mul, m, l);
+  } else {
+    issue_pv(O, live, mul, mref, inv, t, pos);
+    wgmma_wait0();
+    keep(O);
+  }
+}
+
+// One pass over the tile's live key blocks in order, from ring position pos
+// on. pass 0 folds each row's max and sum into m and l, pass 1 adds P.V into
+// O. tail_ng: groups of 8 keys of the last block below T.
+template <int pass, bool kMask>
+__device__ __forceinline__ void tiled_pass(const uint32_t (&qf)[4][4], int& pos, int tail_ng,
+                                           Tiled& t, float (&m)[2], float (&l)[2],
+                                           const float (&mref)[2], const float (&inv)[2],
+                                           float (&O)[8][4]) {
+  bool v_free = false;  // the previous block's V slot waits to be refilled
+  for (int kb = t.next_live<kMask>(-1); kb < t.n_kb;
+       kb = t.next_live<kMask>(kb), pos += 1 + pass) {
+    const int ng = kb == t.n_kb - 1 ? tail_ng : 8;
+#define HGR_TILED_BLOCK(NG, MASK) \
+  tiled_block<pass, NG, MASK>(qf, kb, pos, v_free, t, m, l, mref, inv, O)
+    if (kMask && t.code(kb) == kGlobal) {
+      HGR_TILED_BLOCK(8, kMask);
+    } else if (ng == 8) {
+      HGR_TILED_BLOCK(8, false);
+    } else if (ng == 4) {
+      HGR_TILED_BLOCK(4, false);
+    } else if (ng == 2) {
+      HGR_TILED_BLOCK(2, false);
+    } else {
+      HGR_TILED_BLOCK(1, false);
+    }
+#undef HGR_TILED_BLOCK
+    v_free = pass == 1;
+  }
+  if (v_free) t.refill(1);
+}
+
+// One block, one warpgroup: query tile qt (64 rows) of one (prompt, head);
+// blockIdx.x = (prompt * H + head) * n_qt + qt. codes (the pre-pass's,
+// with a mask) says which key blocks are dead; kMask: there is a mask (its
+// code is compiled only then).
+template <bool kMask>
+__global__ void __launch_bounds__(kTiledThreads, kMask ? 3 : 4)
+attention_fwd_bf16_tiled(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const float* __restrict__ mask, const uint8_t* __restrict__ codes,
+                         bf16* __restrict__ o, int H, int T_len, float scale, Strides os) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;  // the Q tile, then the ring
+  uint8_t* smem = smem_raw + (q_s - raw);
+  const uint32_t ring = q_s + kTileBytes;
+  const uint32_t full = ring + kSlots * kTileBytes, q_bar = full + 8 * kSlots;
+  const int n_kb = (T_len + kTile - 1) / kTile;
+  const int qt = blockIdx.x % n_kb, bh = blockIdx.x / n_kb, b = bh / H, hd = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) mbar_init(full + 8 * s, 1);  // thread 0's expect_tx
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  Tiled t{ring, full, &k_map, &v_map, mask,
+          codes != nullptr ? codes + qt * n_kb : nullptr, scale, T_len, n_kb, hd, b,
+          qt * kTile + warp * 16 + (lane >> 2), lane, 0, 0, 0, false};
+  t.load_kb = t.next_live(-1);
+  t.load_pass = t.load_kb < n_kb ? 0 : 2;  // 2: nothing to load
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_bar, kTileBytes);
+    tma_load(q_s, &q_map, q_bar, hd, qt * kTile, b);
+  }
+  for (int s = 0; s < kSlots; ++s) t.load_next();
+
+  const int tail = T_len - (n_kb - 1) * kTile;  // keys of the last block, 1..64
+  const int tail_ng = tail <= 8 ? 1 : tail <= 16 ? 2 : tail <= 32 ? 4 : 8;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mref[2] = {0.f, 0.f},
+        inv[2] = {0.f, 0.f};
+  float O[8][4];  // the output's fp32 accumulators, from the second pass on
+  mbar_wait(q_bar, 0);
+  uint32_t qf[4][4];  // this warp's 16 q rows as A fragments, dims 16 kk..+15
+  {
+    const uint32_t qa = (q_s + row_base(warp * 16 + (lane & 15))) ^ ((lane >> 4) << 4);
+#pragma unroll
+    for (int kk = 0; kk < kDh / 16; ++kk) ldsm_x4(qa ^ (kk << 5), qf[kk]);
+  }
+  int pos = 0;
+  tiled_pass<0, kMask>(qf, pos, tail_ng, t, m, l, mref, inv, O);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mref[h] = m[h] == -INFINITY ? 0.f : m[h];
+    inv[h] = 1.f / l[h];
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+  tiled_pass<1, kMask>(qf, pos, tail_ng, t, m, l, mref, inv, O);
+
+  // the output through the Q tile, once every warp is done with it
+  __syncthreads();
+  if (qt * kTile + warp * 16 >= T_len) return;  // this warp's rows all lie past T
+  const int r0 = warp * 16 + (lane >> 2), c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(smem + swz(r0 + 8 * h, n) + 2 * c2) =
+          pack_bf16(O[n][2 * h], O[n][2 * h + 1]);
   __syncwarp();
   bf16* oh = o + b * os.b + hd * os.h;
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = row0 + i / kChunks, cc = i % kChunks;
-    if (r < T_len)
-      *reinterpret_cast<uint4*>(oh + r * os.t + cc * 8) =
-          *reinterpret_cast<const uint4*>(smem + q_off + swz(r, cc));
+    const int r = warp * 16 + i / kChunks, c = i % kChunks, gr = qt * kTile + r;
+    if (gr < T_len)
+      *reinterpret_cast<uint4*>(oh + gr * os.t + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + swz(r, c));
   }
 }
 
-cudaError_t launch_bf16_long(const bf16* q, const bf16* k, const bf16* v, const float* mask,
-                             bf16* o, int B, int H, int T_len, float scale, Strides qs,
-                             Strides ks, Strides vs, Strides os, cudaStream_t stream) {
-  const int RT = (T_len + 15) / 16;
-  // the head's row tiles spread evenly over as few items of <= 8 as cover it
-  const int fewest = (RT + kLongRowTiles - 1) / kLongRowTiles;
-  const int RTB = (RT + fewest - 1) / fewest;
-  const int n_qt = (RT + RTB - 1) / RTB;
-  const size_t smem = (size_t)RTB * 16 * kRowBytes + 4 * (size_t)kLongKeys * kRowBytes +
-                      (size_t)RTB * RT;
-  const long long n_items = (long long)B * H * n_qt;
-  if (smem > kMaxSmemBytes || n_items > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_fwd_bf16_long, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
-  if (e != cudaSuccess) return e;
-  attention_fwd_bf16_long<<<(int)n_items, RTB * 32, smem, stream>>>(
-      q, k, v, mask, o, H, T_len, RTB, n_qt, scale, qs, ks, vs, os);
-  return cudaGetLastError();
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (so that the library links no -lcuda)
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static std::once_flag once;
+  static EncodeTiled found = nullptr;
+  static cudaError_t err = cudaSuccess;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+    if (err == cudaSuccess && (status != cudaDriverEntryPointSuccess || p == nullptr))
+      err = cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(p);
+  });
+  *fn = found;
+  return err;
+}
+
+// the tensor map of q, k or v: dims (Dh, H, T, B) with the caller's strides,
+// 64 x 64 boxes in the 128-byte swizzle, zeros out of bounds
+bool tile_map(EncodeTiled encode, CUtensorMap* map, const bf16* p, int B, int H, int T_len,
+              Strides s) {
+  const cuuint64_t dims[4] = {kDh, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2, (cuuint64_t)s.b * 2};
+  const cuuint32_t box[4] = {kDh, 1, kTile, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(p), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// codes: (T / 64 rounded up)^2 bytes of device memory, given with a mask
+int launch_bf16_tiled(const bf16* q, const bf16* k, const bf16* v, const float* mask,
+                      uint8_t* codes, bf16* o, int B, int H, int T_len, float scale, Strides qs,
+                      Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+  const int n_kb = (T_len + kTile - 1) / kTile;
+  const long long n_blocks = (long long)B * H * n_kb;
+  if (n_blocks > 0x7fffffffLL || (mask != nullptr && codes == nullptr)) return -1;
+  EncodeTiled encode;
+  cudaError_t e = encode_tiled(&encode);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap maps[3];
+  if (!tile_map(encode, &maps[0], q, B, H, T_len, qs) ||
+      !tile_map(encode, &maps[1], k, B, H, T_len, ks) ||
+      !tile_map(encode, &maps[2], v, B, H, T_len, vs))
+    return kTensorMapRefused;
+  auto kernel = mask != nullptr ? attention_fwd_bf16_tiled<true> : attention_fwd_bf16_tiled<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTiledSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  if (mask != nullptr) {
+    attention_mask_codes<<<dim3(n_kb, n_kb), 256, 0, stream>>>(mask, T_len, codes);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(int)n_blocks, kTiledThreads, kTiledSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], mask, mask != nullptr ? codes : nullptr, o, H, T_len, scale, os);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -977,10 +1306,19 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns 0, a
-// cudaError_t from the launch, or -1 for shapes the kernel does not take.
+// Device bytes the caller passes as hgr_attention_fwd's codes: the tiled
+// kernel's mask-block codes (bf16, T >= 97, with a mask), else 0.
+long long hgr_attention_codes_bytes(int dtype, int T_len) {
+  const long long n_kb = (T_len + kTile - 1) / kTile;
+  return dtype == 1 && T_len > kShortMaxT ? n_kb * n_kb : 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; codes is
+// hgr_attention_codes_bytes of scratch (may be null when that is 0 or there
+// is no mask). Returns 0, a cudaError_t from the launch, -1 for shapes the
+// kernel does not take, or -2 when the driver refuses a tensor map.
 int hgr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                      const float* mask, void* o, int B, int H, int T_len,
+                      const float* mask, void* codes, void* o, int B, int H, int T_len,
                       int Dh, float scale, long long q_sb, long long q_sh,
                       long long q_st, long long k_sb, long long k_sh,
                       long long k_st, long long v_sb, long long v_sh,
@@ -998,29 +1336,29 @@ int hgr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
-  const int RT = (T_len + 15) / 16;
-  if (RT > kShortRowTiles)
-    return (int)launch_bf16_long(qb, kb, vb, mask, ob, B, H, T_len, scale, qs, ks, vs, os, st);
+  if (T_len > kShortMaxT)
+    return launch_bf16_tiled(qb, kb, vb, mask, static_cast<uint8_t*>(codes), ob, B, H, T_len,
+                             scale, qs, ks, vs, os, st);
   // One pass while a warp's scores (8 x RT fp32 registers) fit its register
-  // budget without spilling (-Xptxas -v), T <= 96; two passes over 48-key
-  // tiles above. Block size and resident blocks per SM set that budget:
-  // 65536 / (warps per SM rounded up to 4 per scheduler) registers.
+  // budget without spilling (-Xptxas -v), T <= 96. Block size and resident
+  // blocks per SM set that budget: 65536 / (warps per SM rounded up to 4 per
+  // scheduler) registers.
 #define HGR_BF16(kt, threads, blocks) \
   (int)launch_bf16<kt, threads, blocks>(qb, kb, vb, mask, ob, B, H, T_len, scale, qs, ks, vs, os, st)
-  switch (RT) {
+  switch ((T_len + 15) / 16) {
     case 1: return HGR_BF16(1, 256, 2);
     case 2: return HGR_BF16(2, 256, 2);
     case 3: return HGR_BF16(3, 256, 2);
     case 4: return HGR_BF16(4, 128, 3);
     case 5: return HGR_BF16(5, 160, 3);
-    case 6: return HGR_BF16(6, 192, 2);
-    default: return HGR_BF16(kTwoPassTiles, kMaxWarps * 32, 1);
+    default: return HGR_BF16(6, 192, 2);
   }
 #undef HGR_BF16
-  return -1;
 }
 
 const char* hgr_cuda_error_string(int code) {
+  if (code == -1) return "bad arguments";
+  if (code == kTensorMapRefused) return "the driver refused a tensor map (cuTensorMapEncodeTiled)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -36,10 +36,12 @@ def _library():
     if _lib is None:
         lib = build.load("attention")
         lib.hgr_attention_fwd.argtypes = (
-            [_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+            [_c_int] + [_c_ptr] * 6
             + [_c_int] * 4 + [ctypes.c_float] + [_c_ll] * 12 + [_c_ptr]
         )
         lib.hgr_attention_fwd.restype = _c_int
+        lib.hgr_attention_codes_bytes.argtypes = [_c_int, _c_int]
+        lib.hgr_attention_codes_bytes.restype = _c_ll
         lib.hgr_cuda_error_string.argtypes = [_c_int]
         lib.hgr_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -119,15 +121,20 @@ def attention_cuda(
     B, H, T, Dh = q.shape
     out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    codes = None  # scratch for the long kernel's sorting of the mask's blocks
+    if mask is not None:
+        n = lib.hgr_attention_codes_bytes(_DTYPES[q.dtype], T)
+        codes = torch.empty(n, dtype=torch.uint8, device=q.device) if n else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hgr_attention_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            None if codes is None else codes.data_ptr(), out.data_ptr(),
             B, H, T, Dh, dh ** -0.5, *strides, stream,
         )
     if rc != 0:
-        what = "bad arguments" if rc < 0 else lib.hgr_cuda_error_string(rc).decode()
+        what = lib.hgr_cuda_error_string(rc).decode()
         raise RuntimeError(f"attention kernel launch failed ({rc}): {what}")
     attention.launches += 1
     return out if dh == Dh else out[..., :dh]

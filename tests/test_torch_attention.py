@@ -35,10 +35,11 @@ def _qkv(T, seed, B=2, H=3, Dh=64):
     return [rng.standard_normal((B, H, T, Dh)).astype(np.float32) for _ in range(3)]
 
 
-# each case also runs one length at an edge of the kernel's contract: a
-# single row, four row tiles (ViT-B/32's 50), the two-pass range (197, 256)
-# and the long-sequence path past it (ViT-L/14's 257, ViT-L/14@336's 577)
-EDGE_T = {5: 1, 20: 50, 32: 197, 77: 256, 257: 577}
+# each case also runs lengths at the edges of the kernel's contract: a
+# single row, four row tiles (ViT-B/32's 50), the first length of the tiled
+# bf16 kernel (97) and the lengths one past its 64-row tiles (129, 321),
+# ViT-B/16's 197, 256, and ViT-L/14's 257 and ViT-L/14@336's 577
+EDGE_T = {5: (1,), 20: (50,), 32: (197, 97), 77: (256, 129), 257: (577, 321)}
 
 
 def test_attention_matches_jax():
@@ -49,7 +50,7 @@ def test_attention_matches_jax():
 
 
 def _attention_matches_jax(causal):
-    for t in [t for T in EDGE_T for t in (T, EDGE_T[T])]:
+    for t in [t for T in EDGE_T for t in (T, *EDGE_T[T])]:
         q, k, v = _qkv(t, seed=t)
         jm = jnp.asarray(jax_causal_mask(t)) if causal else None
         jq, jk, jv = map(jnp.asarray, (q, k, v))
