@@ -23,6 +23,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    18,432, ``run_test`` over 4 batches of 512 synthetic images; K1's launch
    count over that run must be 12 layers x 36 chunks = 432;
 6. the class bank rebuilt with the plain attention, held to the kernel's;
+6b. the same bank in float32 (the parity mode) through K1's fp32 kernel:
+   432 launches at (512, 8, 32, 64) causal, timed (cold and warm) beside the
+   bank built with the plain attention, to which it is held within phase
+   3's fp32 tolerance;
 7. the card against the port's CPU path (the one the CPU tests hold to the
    JAX package) on a small input, in float32;
 8. ViT-B/32 eval at full width against the same bank: ``run_test`` over 2
@@ -155,8 +159,12 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
-              torch.float32: 67e12}            # fp32 outside the tensor cores
+# dense tensor-core bf16; for fp32, the dense TF32 rate over three: K1's
+# fp32 kernel keeps fp32's accuracy on the tensor cores with three TF32
+# products for each (3xTF32), so 165 TFLOP/s is the least time of its work
+# (67 TFLOP/s, fp32 outside the tensor cores, no longer bounds it)
+PEAK_FLOPS = {torch.bfloat16: 989e12,
+              torch.float32: 495e12 / 3}
 LEVEL_SIZES = [10, 800, 4000, 5000, 4000, 2500, 1000, 500, 250, 120, 60, 30, 8]
 # phase 3's (shape, mask settings[, dtypes]); a mask setting is True (causal),
 # False (none) or "band" (BAND_MASK): the bank build's T = 32, CLIP's full
@@ -164,12 +172,12 @@ LEVEL_SIZES = [10, 800, 4000, 5000, 4000, 2500, 1000, 500, 250, 120, 60, 30, 8]
 # heads) without mask; T = 48 and 96, the last lengths of the three- and
 # six-row-tile instantiations, so that every instantiation of the short bf16
 # kernel is held to the plain version; T = 256 and T = 1; the TEST
-# configurations' head dim 16 (padded to 64 by the wrapper), which the
+# configurations' head dim 16 (padded to 64 in bf16, unpadded in fp32), which the
 # baselines runner's CLIP-flat bank reaches at TEST-RN; ViT-L/14's 257 and
 # ViT-L/14@336's 577 tokens (16 heads, no mask) and a causal T = 300;
-# RN50x4's bank (10 heads); in bf16 only, one launch of ViT-L/14's eval step
-# (a batch of 512 through each of its 24 layers) and of ViT-B/16's (12
-# heads, T = 197), which read K1's share of those steps; and the edges of
+# RN50x4's bank (10 heads); one launch of ViT-B/16's eval step (12 heads,
+# T = 197) and, in bf16 only, of ViT-L/14's (a batch of 512 through each of
+# its 24 layers), which read K1's share of those steps; and the edges of
 # the tiled bf16 kernel (T >= 97): its first T, the 64-row tile edges 128,
 # 129, 192, 193, 320 and 321, a single head (one block, no neighbours) and a
 # band mask, whose 64-key blocks are dead or mixed
@@ -190,7 +198,7 @@ KERNEL_CASES = [
     ((8, 8, 300, 64), (True,)),
     ((512, 10, 32, 64), (True,)),
     ((512, 16, 257, 64), (False,), (torch.bfloat16,)),
-    ((512, 12, 197, 64), (False,), (torch.bfloat16,)),
+    ((512, 12, 197, 64), (False,)),
     *(((8, 8, t, 64), (True, False), (torch.bfloat16,)) for t in (97, 128, 129, 192, 193, 320, 321)),
     ((1, 1, 257, 64), (True, False), (torch.bfloat16,)),
     ((8, 8, 300, 64), ("band",), (torch.bfloat16,)),
@@ -358,8 +366,38 @@ def phase_build():
     attention._library()
     log(f"[build] {build.all_sources()} in {time.time() - t0:.1f} s -> {build.BUILD_DIR}")
     for line in "\n".join(logs).splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("registers", "spill", "smem", "Function properties")):
             log(f"[build] {line.strip()}")
+    sass_tensor_ops(build)
+
+
+def sass_tensor_ops(build):
+    """K1's fp32 kernels must run their products on the tensor cores: count
+    the HMMA instructions (and those on TF32) in each instantiation of
+    ``attention_fwd_f32_one<Dh, groups>`` (T <= 64) and
+    ``attention_fwd_f32_multi<Dh, mask>`` in ``cuobjdump -sass`` of the
+    built library."""
+    import os
+    import re
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path("attention"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    seen = 0
+    for part in sass.split("Function : ")[1:]:
+        inst = re.search(r"(attention_fwd_f32_\w+?)ILi(\d+)E(?:L[ib](\d+)E)?", part.split("\n", 1)[0])
+        if inst is None:
+            continue
+        name = f"{inst[1]}<{', '.join(a for a in inst.groups()[1:] if a)}>"
+        lines = part.splitlines()
+        hmma = sum("HMMA" in line for line in lines)
+        tf32 = sum("HMMA" in line and "TF32" in line for line in lines)
+        local = sum(re.search(r"\b(LDL|STL)\b", line) is not None for line in lines)
+        log(f"[build] sass {name}: {hmma} HMMA, {tf32} of them TF32; {local} local-memory "
+            f"loads and stores")
+        assert tf32 > 0, f"{name} has no TF32 tensor-core instruction"
+        seen += 1
+    assert seen == 14, f"{seen} instantiations of attention_fwd_f32 in the SASS, not 14"
 
 
 def attention_bound_ms(shape, dtype, mask):
@@ -537,6 +575,41 @@ def phase_plain_bank(tm, bank):
     log(f"[bank] kernel vs plain attention, bf16: max_abs_err {err:.3e} (tol 1e-2), "
         f"min row cosine {float(cos.min()):.6f} (tol 0.999)")
     assert err <= 1e-2 and float(cos.min()) >= 0.999, "kernel bank disagrees with plain bank"
+
+
+def phase_fp32_bank(tm):
+    """The RN50 bank at full width in float32, through K1's fp32 kernel
+    (12 layers x 36 chunks = 432 launches at (512, 8, 32, 64) causal),
+    timed and held within ``TOL[torch.float32]`` to the bank built with the
+    plain attention. Returns K1's launches in the first build."""
+    from hgr_tpu_torch.models.layers import attention_scores
+    from hgr_tpu_torch.ops.attention import attention
+
+    fp32 = dataclasses.replace(tm, config=tm.config.replace(dtype="float32"))
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fp32.update_classifier(**kw)
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    attention.launches = 0
+    bank, cold_ms = timed()
+    launches = attention.launches
+    assert launches == 432, f"K1 launched {launches} times in the fp32 bank build, not 432"
+    warm_ms = timed()[1]
+    plain, plain_ms = timed(attn_fn=attention_scores)
+    assert bank.dtype == torch.float32 and bool(torch.isfinite(bank).all()), "fp32 bank"
+    atol, rtol = TOL[torch.float32]
+    diff = (bank - plain).abs()
+    err = float(diff.max())
+    worst = float((diff / (atol + rtol * plain.abs())).max())
+    log(f"[bank-fp32] {tuple(bank.shape)} float32 bank build, K1 {launches} launches: "
+        f"{cold_ms:.1f} ms cold, {warm_ms:.1f} ms warm; plain attention {plain_ms:.1f} ms; "
+        f"max_abs_err {err:.3e}, {worst:.3f} of tol ({atol:g} + {rtol:g}|p|)")
+    assert worst <= 1.0, "fp32 kernel bank disagrees with the plain bank"
+    return launches
 
 
 def phase_small_reference(tm, bank):
@@ -2676,6 +2749,7 @@ def main() -> int:
     phase_chains()
     tm, bank, summary, rn50 = phase_slice(dev)
     phase_plain_bank(tm, bank)
+    fp32_bank = phase_fp32_bank(tm)
     phase_small_reference(tm, bank)
     phase_nccl(dev, tm, bank)
     del tm, bank
@@ -2715,7 +2789,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    by_path = {"rn50_eval": rn50, "vit_b32_eval": vit_launches, "vit_b16_eval": vit16_launches,
+    by_path = {"rn50_eval": rn50, "rn50_fp32_bank": fp32_bank,
+               "vit_b32_eval": vit_launches, "vit_b16_eval": vit16_launches,
                "rn50x4_eval": rn50x4,
                "vit_l14_eval": vit_l14,
                "rn50_real_inputs_eval": real_launches,

@@ -6,15 +6,17 @@
 // fp32 scores q.k^T plus an optional additive fp32 [T, T] mask, an fp32
 // max-subtracted softmax, probabilities normalised in fp32 and rounded to
 // v's dtype, then P.V with fp32 accumulators, rounded to the output dtype.
-// Head dim 64, any T >= 1, bf16 or fp32, q/k/v/o through strides (the
+// Head dim 64 (fp32 also 16), any T >= 1, bf16 or fp32, q/k/v/o through strides (the
 // caller passes views of the packed [B, T, 3D] projection and gets a view of
 // a [B, T, H, Dh] buffer back, so no head transpose is copied). The TPU
 // kernel's padding of T to 8 and Dh to 128 was a layout artefact; here the
 // ragged edge is masked in the kernel.
 //
-// K1 has three device kernels: attention_fwd_bf16 (bf16, T <= 96),
-// attention_fwd_bf16_tiled (bf16, T >= 97) and attention_fwd_f32 (fp32,
-// any T). All three are launched by hgr_attention_fwd at the bottom.
+// K1's device kernels: attention_fwd_bf16 (bf16, T <= 96),
+// attention_fwd_bf16_tiled (bf16, T >= 97), attention_fwd_f32_one (fp32, T
+// <= 64) and attention_fwd_f32_multi (fp32, T > 64), with the mask pre-passes
+// attention_mask_codes and attention_f32_mask_codes. All are launched by
+// hgr_attention_fwd at the bottom.
 //
 // What bounds the short kernel on the H100: bytes. At the bank build's
 // shape (512 prompts x 8 heads, T = 32, Dh = 64, bf16) q, k, v and o move 4
@@ -124,15 +126,57 @@
 //   compiled without the mask's code (its instantiation kMask = false).
 // - The output goes through the (finished) Q tile to 16-byte stores.
 
-// fp32 (attention_fwd_f32) keeps the first SIMT design: tensor cores would
-// mean TF32, and fp32 is the parity mode. One block per (batch*head, tile of
-// 32 query rows), one warp per query row with fp32 FMAs. K and V pass through
-// shared memory in tiles of 256 keys, so any T fits: with one tile (T <= 256)
-// each row runs its scores, softmax and P.V in one pass, each score
-// exponentiated once (the kOneTile instantiation); with more, a first pass
-// over the tiles finds each row's max and sum, and a second recomputes the
-// scores and accumulates P.V. A thread holds one row's scores (8 registers)
-// at a time.
+// fp32 design (attention_fwd_f32_one for T <= 64, attention_fwd_f32_multi
+// past it; head dim 64 or 16, unpadded). fp32 is the parity mode, so its
+// products must keep fp32's accuracy (an earlier SIMT kernel kept them off
+// the tensor cores for that). They run on the tensor cores as 3xTF32
+// (CUTLASS's "fast fp32"): each operand is split as x = hi + lo, hi =
+// tf32(x) and lo = tf32(x - hi), both rounded to nearest with ties away
+// (cvt.rna's rounding, done in integer instructions, which issued faster on
+// the H100), which holds x to about 2^-22 of |x|; each product is lo.hi +
+// hi.lo + hi.hi, the small cross terms first, into one fp32 accumulator
+// (mma.sync m16n8k8 tf32). Products of TF32 values are exact, and the
+// dropped lo.lo term is about 2^-22 of the product: fp32's accuracy, where
+// one TF32 product keeps about 2^-11 (tests/test_torch_attention.py
+// emulates both). What bounds it on the H100: at 495 / 3 = 165 TFLOP/s of
+// fp32-accurate products and 3.35 TB/s, attention does T / 4 FLOP a byte
+// (4 T^2 Dh FLOP over q, k, v and o's 16 T Dh bytes) against the card's 49,
+// and mma.sync reaches only part of the tensor cores' peak: bytes bound it
+// up to T of about 100 (the bank build's T = 32: 134 MB, 0.040 ms), the
+// products past it (ViT-L/14's 257). Three products a product, each split
+// on the way in, make a warp's work per key six times that of a bf16 kernel
+// (k8 steps, three terms): the design keeps that work fed. So:
+// - T <= 64: one block per (prompt, head), a warp per 16 query rows, so
+//   that K and V are read from device memory once; at T = 32, 4,096 blocks
+//   of two warps and 16 KB of shared memory, many an SM, whose copies and
+//   products overlap each other's. T > 64: 8 warps a block: the whole head
+//   up to T = 128, else a 64-row query tile with the keys in two halves,
+//   each with its own online softmax, merged at the end, so that short
+//   grids (64 heads at T = 256) still give each scheduler warps to switch
+//   between; 32-key tiles keep a thread at 128 registers without spills
+//   (two blocks an SM).
+// - q, K and V through cp.async 16-byte copies into shared memory (q once;
+//   past T = 64, K and V through a ring of two stages, a 32-key tile of each
+//   for each half a stage, the next step's copies issued before the current
+//   one is computed); rows past T zero-filled by the copy. A 16-byte chunk
+//   XOR swizzle (f32_off) keeps the fragment loads free of bank conflicts.
+// - Scores stay in registers: the m16n8 accumulator of q.k^T is P's A
+//   fragment for P.V as it lies, because the 8 keys of each k-step are
+//   permuted (logical k = t is key 2t, k = t + 4 is 2t + 1) and V's B
+//   fragments read the same keys; likewise q's and K's dims, so that each
+//   lane reads 16 contiguous bytes. V's fragments read NT = Dh / 8
+//   contiguous dims of a key row (output dim NT c + n of n-tile n).
+// - One pass with an online softmax: a running max and sum of each row,
+//   the accumulators rescaled when the max grows. Nothing is rounded to a
+//   narrower type, so this is _attn_kernel's normalise-then-multiply up to
+//   fp32 rounding. exp by the SFU's ex2 with the log2 e fold (its relative
+//   error about 2^-22, inside phase 3's 1e-5).
+// - The mask: any additive fp32 [T, T] mask, read through the L2 only where
+//   it is not 0. Past T = 64 a pre-pass (attention_f32_mask_codes) sorts its
+//   16-row x 8-key groups once a launch: a group that is all -inf for a
+//   warp's rows costs no product (its probabilities are exactly 0), a step
+//   dead for every warp of a block is not copied, and a group that is all 0
+//   adds nothing. A last tile computes only its groups of 8 keys below T.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1084,232 +1128,493 @@ int launch_bf16_tiled(const bf16* q, const bf16* k, const bf16* v, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// fp32: SIMT
+// fp32: tensor cores at fp32 accuracy (3xTF32)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Warps = 8;          // warps per block
-constexpr int kRowsPerBlock = 32;     // query rows per block
-constexpr int kRowsPerWarp = kRowsPerBlock / kF32Warps;
-constexpr int kKeyTile = 256;         // keys a shared-memory tile of K and V
-constexpr int kKeysPerLane = kKeyTile / 32;
-constexpr int kKPad = kDh + 1;        // K row stride in words (bank spread)
+constexpr int kF32OneKeys = 64;     // T <= 64: one tile holds every key
+constexpr int kF32Keys = 32;        // keys a K/V tile of the streamed kernel (T > 64)
+constexpr int kF32Warps = 8;        // its warps at most: a warp a row tile to T = 128, else
+                                    // 4 row tiles x 2 key halves
+constexpr int kF32CodeKeys = 64;    // keys a mask code covers: 8 groups of 8
 
-// Rows [j0, j0 + n) of K, and of V when with_v, into shared memory, by the
-// whole block
-__device__ __forceinline__ void f32_stage(const float* kh, const float* vh, Strides ks,
-                                          Strides vs, int j0, int n, float* k_s, float* v_s,
-                                          bool with_v) {
-  for (int i = threadIdx.x; i < n * (kDh / 4); i += blockDim.x) {
-    const int r = i / (kDh / 4), c = i % (kDh / 4);
-    const float4 kv = *reinterpret_cast<const float4*>(kh + (j0 + r) * ks.t + c * 4);
-    float* kd = k_s + r * kKPad + c * 4;
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
-    if (with_v)
-      *reinterpret_cast<float4*>(v_s + r * kDh + c * 4) =
-          *reinterpret_cast<const float4*>(vh + (j0 + r) * vs.t + c * 4);
-  }
+// x as two TF32 values: hi = x rounded to TF32 (nearest, ties away from
+// zero), lo = the rest, rounded again; hi + lo holds x to about 2^-22 of
+// |x|. The same bits as cvt.rna.tf32.f32 (add half of the 13 dropped bits'
+// unit to the magnitude, cut them), in integer instructions, which issue
+// faster than the conversion.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(__fsub_rn(x, __uint_as_float(hi))) + 0x1000u) & 0xffffe000u;
 }
 
-// Query row r, pre-scaled as pallas_attention does, into every lane's qf
-// (through the warp's qw)
-__device__ __forceinline__ void f32_q_row(const float* qh, Strides qs, int r, float scale,
-                                          float* qw, int lane, float (&qf)[kDh]) {
-  const float2 qv = *reinterpret_cast<const float2*>(qh + r * qs.t + 2 * lane);
-  qw[2 * lane] = qv.x * scale;
-  qw[2 * lane + 1] = qv.y * scale;
-  __syncwarp();
-#pragma unroll
-  for (int d = 0; d < kDh; ++d) qf[d] = qw[d];
-  __syncwarp();  // qw is rewritten for this warp's next row
+// d += a . b for one 16x8 fp32 tile; a 16x8 (row) and b 8x8 (col) in TF32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// This lane's scores of qf against the staged keys lane + 32 jj < n_keys,
-// plus the mask row's entries; -inf past n_keys
-__device__ __forceinline__ void f32_scores(const float (&qf)[kDh], const float* k_s,
-                                           const float* mrow, int n_keys, int lane,
-                                           float (&sc)[kKeysPerLane]) {
-#pragma unroll
-  for (int jj = 0; jj < kKeysPerLane; ++jj) {
-    const int j = lane + 32 * jj;
-    sc[jj] = -INFINITY;
-    if (j < n_keys) {
-      const float* krow = k_s + j * kKPad;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < kDh; ++d) acc = fmaf(qf[d], krow[d], acc);
-      sc[jj] = mrow ? acc + mrow[j] : acc;
-    }
-  }
+// d += a . b at fp32 accuracy, a given split (ah + al), b = (b0, b1) split
+// here: the two small cross terms first, then hi . hi, one fp32 accumulator
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t b0h, b0l, b1h, b1l;
+  split_tf32(b0, b0h, b0l);
+  split_tf32(b1, b1h, b1l);
+  mma_tf32(d, al, b0h, b1h);
+  mma_tf32(d, ah, b0l, b1l);
+  mma_tf32(d, ah, b0h, b1h);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// the A fragment of four fp32 values, split
+__device__ __forceinline__ void split_a(float a0, float a1, float a2, float a3, uint32_t (&ah)[4],
+                                        uint32_t (&al)[4]) {
+  split_tf32(a0, ah[0], al[0]);
+  split_tf32(a1, ah[1], al[1]);
+  split_tf32(a2, ah[2], al[2]);
+  split_tf32(a3, ah[3], al[3]);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// P.V over the warp's probabilities pw[0, n_keys): this lane owns output
-// dims 2*lane and 2*lane+1
-__device__ __forceinline__ void f32_pv(const float* pw, const float* v_s, int n_keys, int lane,
-                                       float& a0, float& a1) {
-  for (int j = 0; j < n_keys; ++j) {
-    const float p = pw[j];
-    const float2 vv = *reinterpret_cast<const float2*>(v_s + j * kDh + 2 * lane);
-    a0 = fmaf(p, vv.x, a0);
-    a1 = fmaf(p, vv.y, a1);
-  }
-}
-
-// tile = min(T, kKeyTile): the keys a shared-memory tile holds; kOneTile
-// when it holds all of them (T <= kKeyTile)
-template <bool kOneTile>
-__global__ void __launch_bounds__(kF32Warps * 32)
-attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ mask,
-                  float* __restrict__ o, int H, int T_len, int tile, float scale, Strides qs,
-                  Strides ks, Strides vs, Strides os) {
-  extern __shared__ __align__(16) float smf[];
-  float* v_s = smf;                          // [tile][kDh]
-  float* k_s = v_s + tile * kDh;             // [tile][kKPad]
-  float* q_s = k_s + tile * kKPad;           // [kF32Warps][kDh]: a warp's q row
-  float* p_s = q_s + kF32Warps * kDh;        // [kF32Warps][tile]
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const float* qh = q + b * qs.b + h * qs.h;
-  const float* kh = k + b * ks.b + h * ks.h;
-  const float* vh = v + b * vs.b + h * vs.h;
-  float* oh = o + b * os.b + h * os.h;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r_base = blockIdx.y * kRowsPerBlock;
-  float* qw = q_s + warp * kDh;
-  float* pw = p_s + warp * tile;
-  float qf[kDh], sc[kKeysPerLane];
-
-  if constexpr (kOneTile) {
-    // K and V staged once; each row's scores, softmax and P.V in turn, each
-    // score exponentiated once, the output written as the row ends
-    f32_stage(kh, vh, ks, vs, 0, T_len, k_s, v_s, true);
-    __syncthreads();
-    const int r_end = min(T_len, r_base + kRowsPerBlock);
-    for (int r = r_base + warp; r < r_end; r += kF32Warps) {
-      f32_q_row(qh, qs, r, scale, qw, lane, qf);
-      f32_scores(qf, k_s, mask ? mask + (long long)r * T_len : nullptr, T_len, lane, sc);
-      float m = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kKeysPerLane; ++jj) m = fmaxf(m, sc[jj]);
-      m = warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kKeysPerLane; ++jj)
-        if (lane + 32 * jj < T_len) {
-          sc[jj] = expf(sc[jj] - m);
-          sum += sc[jj];
-        }
-      sum = warp_sum(sum);
-#pragma unroll
-      for (int jj = 0; jj < kKeysPerLane; ++jj) {
-        const int j = lane + 32 * jj;
-        if (j < T_len) pw[j] = sc[jj] / sum;
-      }
-      __syncwarp();
-      float a0 = 0.f, a1 = 0.f;
-      f32_pv(pw, v_s, T_len, lane, a0, a1);
-      *reinterpret_cast<float2*>(oh + r * os.t + 2 * lane) = make_float2(a0, a1);
-      __syncwarp();  // pw is rewritten for this warp's next row
-    }
+// Float offset of 16-byte chunk c of row r in a K or V tile ([rows][Dh]
+// fp32). At Dh 64 (16 chunks a row) the chunk's low three bits are XORed
+// with f(r) = {0, 4, 1, 5, 4, 0, 5, 1}[r % 8]: the fragment loads of
+// f32_tile then touch 8 distinct bank groups a quarter warp (K: rows g and
+// g + 1, chunks t; V: rows 2t or 2t + 1, chunks 2g and 2g + 1). At Dh 16 a
+// row is 4 chunks, and K's loads are free of conflicts as they lie.
+template <int HD>
+__device__ __forceinline__ int f32_off(int r, int c) {
+  if constexpr (HD == 64) {
+    const int f = ((r >> 1) & 1) | (((r ^ (r >> 2)) & 1) << 2);
+    return r * HD + ((c ^ f) << 2);
   } else {
-    // pass 0 finds each row's max and sum over the key tiles, pass 1
-    // recomputes the scores and accumulates P.V
-    const int n_tiles = (T_len + tile - 1) / tile;
-    float m[kRowsPerWarp], l[kRowsPerWarp], a0[kRowsPerWarp], a1[kRowsPerWarp];
+    return r * HD + (c << 2);
+  }
+}
+
+// This lane's place: rows row and row + 8 (g = lane / 4), t = lane % 4
+struct F32Lane {
+  const float* mask;
+  int T_len;
+  float scale;
+  int row, g, t;
+};
+
+// One key tile (keys key0 .. key0 + 8 NG - 1, in shared memory at k_s and
+// v_s) for this warp's 16 query rows (at q_s, [16][Dh] in K's layout),
+// folded into the online softmax: the
+// running max m and (this lane's part of the) sum l of each row, and O, the
+// output accumulators, rescaled when the max grows. Bit j of live: group j
+// (keys key0 + 8j .. + 7) holds a score that the mask leaves finite (a dead
+// group costs no product: its probabilities are exactly 0); of nz: the mask
+// is not 0 there (only then is it read, through the L2). Accumulator layout
+// of m16n8: S[j] holds keys key0 + 8j + 2t (elements 0, 2) and + 1 (1, 3)
+// of rows row (0, 1) and row + 8 (2, 3). O[n] holds output dims NT c + n for
+// columns c = 2t (elements 0, 2) and 2t + 1 (1, 3), NT = Dh / 8: V's B
+// fragments read dims NT g .. + NT - 1 of one key row, contiguous.
+template <int HD, int NG, bool kMask>
+__device__ __forceinline__ void f32_tile(const float* q_s, const float* k_s,
+                                         const float* v_s, int key0, uint32_t live, uint32_t nz,
+                                         const F32Lane& w, float (&m)[2], float (&l)[2],
+                                         float (&O)[HD / 8][4]) {
+  constexpr int NT = HD / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int g = w.g, t = w.t;
+  float S[NG][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      m[i] = -INFINITY;
-      l[i] = a0[i] = a1[i] = 0.f;
-    }
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int t = 0; t < n_tiles; ++t) {
-        const int j0 = t * tile, n_keys = min(tile, T_len - j0);
-        __syncthreads();  // the previous tile is read by every warp
-        f32_stage(kh, vh, ks, vs, j0, n_keys, k_s, v_s, pass == 1);
-        __syncthreads();
+  for (int j = 0; j < NG; ++j)
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const int r = r_base + warp + kF32Warps * i;
-          if (r >= T_len) continue;  // the same for the whole warp
-          f32_q_row(qh, qs, r, scale, qw, lane, qf);
-          f32_scores(qf, k_s, mask ? mask + (long long)r * T_len + j0 : nullptr, n_keys, lane,
-                     sc);
-          if (pass == 0) {
-            float cm = -INFINITY;
+    for (int e = 0; e < 4; ++e) S[j][e] = 0.f;
+
+  // S = q . K^T over dims 16p + 4t .. + 3 of each lane: k-step 2p + s takes
+  // dims 4t + 2s and + 1 as logical k = t and t + 4 (the dims of a k-step
+  // are permuted so, in q's A fragments and K's B fragments alike, so that
+  // each lane reads 16 contiguous bytes); K's B fragment is key 8j + g
 #pragma unroll
-            for (int jj = 0; jj < kKeysPerLane; ++jj) cm = fmaxf(cm, sc[jj]);
-            const float mn = fmaxf(m[i], warp_max(cm)), mr = mn == -INFINITY ? 0.f : mn;
-            float cs = 0.f;
+  for (int p = 0; p < HD / 16; ++p) {
+    uint32_t ah[2][4], al[2][4];
+    const float4 qa = *reinterpret_cast<const float4*>(q_s + f32_off<HD>(g, 4 * p + t));
+    const float4 qb = *reinterpret_cast<const float4*>(q_s + f32_off<HD>(g + 8, 4 * p + t));
+    split_a(qa.x, qb.x, qa.y, qb.y, ah[0], al[0]);
+    split_a(qa.z, qb.z, qa.w, qb.w, ah[1], al[1]);
 #pragma unroll
-            for (int jj = 0; jj < kKeysPerLane; ++jj)
-              if (lane + 32 * jj < n_keys) cs += expf(sc[jj] - mr);
-            l[i] = l[i] * expf(m[i] - mr) + warp_sum(cs);
-            m[i] = mn;
-          } else {
-            const float mr = m[i] == -INFINITY ? 0.f : m[i];
-#pragma unroll
-            for (int jj = 0; jj < kKeysPerLane; ++jj) {
-              const int j = lane + 32 * jj;
-              if (j < n_keys) pw[j] = expf(sc[jj] - mr) / l[i];
-            }
-            __syncwarp();
-            f32_pv(pw, v_s, n_keys, lane, a0[i], a1[i]);
-            __syncwarp();  // pw is rewritten for this warp's next row
-          }
-        }
+    for (int j = 0; j < NG; ++j) {
+      if ((live >> j) & 1u) {
+        const float4 kv = *reinterpret_cast<const float4*>(k_s + f32_off<HD>(8 * j + g, 4 * p + t));
+        mma_3xtf32(S[j], ah[0], al[0], kv.x, kv.y);
+        mma_3xtf32(S[j], ah[1], al[1], kv.z, kv.w);
       }
     }
+  }
+
+  // s = q.k^T * scale + mask, -inf past T and in dead groups; the tile
+  // folded into m and l
+  const bool ragged = key0 + 8 * NG > w.T_len;
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = r_base + warp + kF32Warps * i;
-      if (r < T_len)
-        *reinterpret_cast<float2*>(oh + r * os.t + 2 * lane) = make_float2(a0[i], a1[i]);
+  for (int j = 0; j < NG; ++j) {
+    const bool lv = (live >> j) & 1u, add = (nz >> j) & 1u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = w.row + 8 * (e >> 1), c = key0 + 8 * j + 2 * t + (e & 1);
+      float x = S[j][e] * w.scale;
+      if (kMask && add && r < w.T_len && c < w.T_len)
+        x += __ldg(w.mask + (long long)r * w.T_len + c);
+      if (!lv || (ragged && c >= w.T_len)) x = -INFINITY;
+      S[j][e] = x;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float cm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) cm = fmaxf(cm, fmaxf(S[j][2 * h], S[j][2 * h + 1]));
+    const float mn = fmaxf(m[h], quad_max(cm));
+    const float mr = mn == -INFINITY ? 0.f : mn;  // a row masked so far
+    const float alpha = exp2_sfu((m[h] - mr) * kLog2e);
+    m[h] = mn;
+    l[h] *= alpha;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      O[n][2 * h] *= alpha;
+      O[n][2 * h + 1] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        S[j][e] = exp2_sfu(fmaf(S[j][e], kLog2e, -mr * kLog2e));
+        l[h] += S[j][e];
+      }
+  }
+
+  // O += P . V, one k-step a live group of 8 keys. The keys of a k-step are
+  // permuted (logical k = t is key 2t, k = t + 4 is 2t + 1), so that the
+  // accumulator S[j] is P's A fragment as it lies: no shuffles.
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    if (!((live >> j) & 1u)) continue;
+    uint32_t ah[4], al[4];
+    split_a(S[j][0], S[j][2], S[j][1], S[j][3], ah, al);
+    float v0[NT], v1[NT];  // keys 8j + 2t and + 1, dims NT g .. + NT - 1
+    const int r0 = 8 * j + 2 * t;
+    if constexpr (HD == 64) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(v_s + f32_off<HD>(r0, 2 * g + i));
+        const float4 b = *reinterpret_cast<const float4*>(v_s + f32_off<HD>(r0 + 1, 2 * g + i));
+        v0[4 * i] = a.x, v0[4 * i + 1] = a.y, v0[4 * i + 2] = a.z, v0[4 * i + 3] = a.w;
+        v1[4 * i] = b.x, v1[4 * i + 1] = b.y, v1[4 * i + 2] = b.z, v1[4 * i + 3] = b.w;
+      }
+    } else {
+      const float2 a = *reinterpret_cast<const float2*>(v_s + r0 * HD + NT * g);
+      const float2 b = *reinterpret_cast<const float2*>(v_s + (r0 + 1) * HD + NT * g);
+      v0[0] = a.x, v0[1] = a.y, v1[0] = b.x, v1[1] = b.y;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_3xtf32(O[n], ah, al, v0[n], v1[n]);
+  }
+}
+
+// rows row and row + 8 below T: O / l, each lane's 2 NT contiguous dims of a
+// row (columns 2t and 2t + 1) as 16-byte stores
+template <int HD>
+__device__ __forceinline__ void f32_store(float* oh, long long o_st, const F32Lane& w,
+                                          const float (&O)[HD / 8][4], const float (&l)[2]) {
+  constexpr int NT = HD / 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float inv = 1.f / quad_sum(l[h]);
+    const int r = w.row + 8 * h;
+    float out[2 * NT];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) out[c * NT + n] = O[n][2 * h + c] * inv;
+    if (r < w.T_len) {
+#pragma unroll
+      for (int i = 0; i < 2 * NT; i += 4)
+        *reinterpret_cast<float4*>(oh + r * o_st + 2 * NT * w.t + i) =
+            make_float4(out[i], out[i + 1], out[i + 2], out[i + 3]);
     }
   }
 }
 
-cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* mask,
-                       float* o, int B, int H, int T_len, float scale, Strides qs,
-                       Strides ks, Strides vs, Strides os, cudaStream_t stream) {
-  const bool one_tile = T_len <= kKeyTile;
-  const int tile = one_tile ? T_len : kKeyTile;
-  const size_t smem = sizeof(float) * ((size_t)tile * kDh + (size_t)tile * kKPad +
-                                       (size_t)kF32Warps * kDh + (size_t)kF32Warps * tile);
-  auto kernel = one_tile ? attention_fwd_f32<true> : attention_fwd_f32<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// K and V rows key0 .. key0 + rows - 1 of one head into the tile pair at k_s
+// (K, then V kTile floats on; without with_v, K's rows alone: q's) by
+// cp.async; rows past T zero-filled. The caller commits the group.
+template <int HD>
+__device__ __forceinline__ void f32_copy(float* k_s, int k_tile_floats, const float* kh,
+                                         const float* vh, long long k_st, long long v_st,
+                                         int key0, int rows, int T_len, bool with_v = true) {
+  constexpr int kChunks = HD / 4;
+  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = i % kChunks, key = key0 + r;
+    const long long src = (long long)min(key, T_len - 1);
+    const int off = f32_off<HD>(r, c), n = key < T_len ? 16 : 0;
+    cp_async16(smem_addr(k_s + off), kh + src * k_st + 4 * c, n);
+    if (with_v) cp_async16(smem_addr(k_s + k_tile_floats + off), vh + src * v_st + 4 * c, n);
   }
-  const dim3 grid(B * H, (T_len + kRowsPerBlock - 1) / kRowsPerBlock);
-  kernel<<<grid, kF32Warps * 32, smem, stream>>>(q, k, v, mask, o, H, T_len, tile, scale, qs, ks,
-                                                 vs, os);
-  return cudaGetLastError();
+}
+
+// T <= 64: one block per (prompt, head), a warp per 16 query rows, one
+// tile of 8 NG keys; the whole mask is added (no codes)
+template <int HD, int NG>
+__global__ void __launch_bounds__(4 * 32)
+attention_fwd_f32_one(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ mask,
+                      float* __restrict__ o, int H, int T_len, float scale, Strides qs,
+                      Strides ks, Strides vs, Strides os) {
+  extern __shared__ __align__(16) float f32_smem[];  // K | V: [8 NG][Dh] each, then q's rows
+  constexpr int kTileFloats = 8 * NG * HD;
+  const int b = blockIdx.x / H, hd = blockIdx.x % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const F32Lane w{mask, T_len, scale, warp * 16 + (lane >> 2), lane >> 2, lane & 3};
+  float* q_s = f32_smem + 2 * kTileFloats;
+  const float* qh = q + b * qs.b + hd * qs.h;
+  f32_copy<HD>(f32_smem, kTileFloats, k + b * ks.b + hd * ks.h, v + b * vs.b + hd * vs.h, ks.t,
+               vs.t, 0, 8 * NG, T_len);
+  f32_copy<HD>(q_s, 0, qh, qh, qs.t, qs.t, 0, 16 * (blockDim.x >> 5), T_len, false);
+  asm volatile("cp.async.commit_group;\n" ::);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float O[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  f32_tile<HD, NG, true>(q_s + warp * 16 * HD, f32_smem, f32_smem + kTileFloats, 0, 0xffu,
+                         mask != nullptr ? 0xffu : 0u, w, m, l, O);
+  f32_store<HD>(o + b * os.b + hd * os.h, os.t, w, O, l);
+}
+
+// What each group of 8 keys of the mask holds for the real rows of 16-row
+// tile blockIdx.y, in 64-key block blockIdx.x: bit g (g < 8) some entry is
+// not -inf (the group is live), bit 8 + g some entry is not 0; pad keys
+// count as dead. codes[row tile][64-key block].
+__global__ void __launch_bounds__(128)
+attention_f32_mask_codes(const float* __restrict__ mask, int T_len, uint32_t* __restrict__ codes) {
+  __shared__ uint32_t bits;
+  if (threadIdx.x == 0) bits = 0u;
+  __syncthreads();
+  const int r = blockIdx.y * 16 + threadIdx.x / 8, grp = threadIdx.x % 8;
+  const int c0 = blockIdx.x * kF32CodeKeys + 8 * grp;
+  bool live = false, nz = false;
+  if (r < T_len)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c0 + i < T_len) {
+        const float x = __ldg(mask + (long long)r * T_len + c0 + i);
+        live |= x != -INFINITY;
+        nz |= x != 0.f;
+      }
+  if (live) atomicOr(&bits, 1u << grp);
+  if (nz) atomicOr(&bits, 1u << (8 + grp));
+  __syncthreads();
+  if (threadIdx.x == 0) codes[blockIdx.y * gridDim.x + blockIdx.x] = bits;
+}
+
+// T > 64: R x KS warps on query rows qt * 16 R .. + 16 R - 1 of one
+// (prompt, head); blockIdx.x = (prompt * H + head) * n_qt + qt. Warp w
+// takes row tile w % R and key half w / R. Up to T = 128 the block holds
+// the whole head, a warp a row tile, one half (KS = 1); past it a 64-row
+// query tile (R = 4; the tiles of a head adjacent in the grid, so that their
+// reads of K and V meet in the L2) and two halves, each every other key
+// tile of kF32Keys with its own online softmax, the two merged at the end.
+// A step of the ring is a key tile for each half, copied in one cp.async
+// group into one of two stages; the copies of step i + 1 run while step i is
+// computed. The last tile holds tail_ng groups of 8 keys below T; its
+// others count as dead. With a mask, codes (attention_f32_mask_codes) say
+// which groups of each tile are live for each warp's rows; a step live for
+// no warp is not copied. kMask: there is a mask (its code is compiled only
+// then).
+template <int HD, bool kMask>
+__global__ void __launch_bounds__(kF32Warps * 32, 2)
+attention_fwd_f32_multi(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ mask,
+                        const uint32_t* __restrict__ codes, float* __restrict__ o, int H,
+                        int T_len, int n_qt, int KS, int tail_ng, float scale, Strides qs,
+                        Strides ks, Strides vs, Strides os) {
+  // the block's q rows [16 R][Dh], the ring [stage][half][K | V][keys][Dh]
+  // (both in K's swizzled layout), then a byte a step
+  extern __shared__ __align__(16) float f32_smem[];
+  constexpr int kTileFloats = kF32Keys * HD, kGroups = kF32Keys / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int R = (blockDim.x >> 5) / KS, half = warp / R, rt = warp % R;
+  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt, b = bh / H, hd = bh % H;
+  const float* kh = k + b * ks.b + hd * ks.h;
+  const float* vh = v + b * vs.b + hd * vs.h;
+  const int rt0 = qt * R;           // the block's first row tile
+  const int row0 = (rt0 + rt) * 16;  // this warp's first row
+  const F32Lane w{mask, T_len, scale, row0 + (lane >> 2), lane >> 2, lane & 3};
+  const int n_kb = (T_len + kF32Keys - 1) / kF32Keys, n_steps = (n_kb + KS - 1) / KS;
+  const int n_cb = (T_len + kF32CodeKeys - 1) / kF32CodeKeys;
+  float* ring = f32_smem + 16 * R * HD;
+  uint8_t* step_live = reinterpret_cast<uint8_t*>(ring + 4 * KS * kTileFloats);
+
+  // the group bits (live | nonzero << 8) of row tile r in key tile kb
+  auto code = [&](int r, int kb) -> uint32_t {
+    if constexpr (!kMask) return (1u << kGroups) - 1u;
+    const int key0 = kb * kF32Keys, sh = (key0 % kF32CodeKeys) / 8;
+    const uint32_t c = __ldg(codes + r * n_cb + key0 / kF32CodeKeys) >> sh;
+    return (c & ((1u << kGroups) - 1u)) | (((c >> 8) & ((1u << kGroups) - 1u)) << 8);
+  };
+  if constexpr (kMask) {
+    for (int s = threadIdx.x; s < n_steps; s += blockDim.x) {
+      uint32_t any = 0u;
+      for (int kb = s * KS; kb < min(n_kb, s * KS + KS); ++kb)
+        for (int i = 0; i < R && (rt0 + i) * 16 < T_len; ++i) any |= code(rt0 + i, kb) & 0xffu;
+      step_live[s] = any != 0u;
+    }
+    __syncthreads();
+  }
+  auto next = [&](int s) {
+    do ++s;
+    while (kMask && s < n_steps && !step_live[s]);
+    return s;
+  };
+  auto slot = [&](int st, int h) { return ring + (st * KS + h) * 2 * kTileFloats; };
+  // every key tile of step s into stage st, one cp.async group
+  auto issue = [&](int s, int st) {
+    for (int h = 0; h < KS && s * KS + h < n_kb; ++h) {
+      const int kb = s * KS + h;
+      f32_copy<HD>(slot(st, h), kTileFloats, kh, vh, ks.t, vs.t, kb * kF32Keys,
+                   kb == n_kb - 1 ? 8 * tail_ng : kF32Keys, T_len);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  // q's rows and the first live step (if any) in one group
+  const float* qh = q + b * qs.b + hd * qs.h;
+  f32_copy<HD>(f32_smem, 0, qh, qh, qs.t, qs.t, rt0 * 16, 16 * R, T_len, false);
+  int ld = next(-1);
+  issue(ld, 0);
+  ld = next(ld);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float O[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+  int st = 0;
+  for (int s = next(-1); s < n_steps; s = next(s), st ^= 1) {
+    if (ld < n_steps) {  // the next live step into the other stage
+      issue(ld, st ^ 1);
+      ld = next(ld);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // step s has landed
+    __syncthreads();
+    const int kb = s * KS + half;
+    uint32_t c = row0 < T_len && kb < n_kb ? code(rt0 + rt, kb) : 0u;
+    if (kb == n_kb - 1) c &= ((1u << tail_ng) - 1u) | 0xff00u;  // no groups past T
+    if (c & 0xffu) {
+      const float* k_s = slot(st, half);
+      f32_tile<HD, kGroups, kMask>(f32_smem + rt * 16 * HD, k_s, k_s + kTileFloats, kb * kF32Keys,
+                                   c & 0xffu, c >> 8, w, m, l, O);
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+  if (KS == 2) {  // the second half's max, sum and accumulators into the first's
+    float* x = ring + rt * (HD / 2 + 4) * 32 + lane;  // [row tile][value][lane]
+    if (half == 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) x[h * 32] = m[h], x[(2 + h) * 32] = l[h];
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[(4 + 4 * n + e) * 32] = O[n][e];
+    }
+    __syncthreads();
+    if (half == 1) return;
+    constexpr float kLog2e = 1.4426950408889634f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m1 = x[h * 32], mn = fmaxf(m[h], m1), mr = mn == -INFINITY ? 0.f : mn;
+      const float a0 = exp2_sfu((m[h] - mr) * kLog2e), a1 = exp2_sfu((m1 - mr) * kLog2e);
+      l[h] = l[h] * a0 + x[(2 + h) * 32] * a1;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e)
+          O[n][e] = O[n][e] * a0 + x[(4 + 4 * n + e) * 32] * a1;
+    }
+  }
+  f32_store<HD>(o + b * os.b + hd * os.h, os.t, w, O, l);
+}
+
+// 8-key groups of a tile of `keys` keys, rounded up to an instantiation's
+int f32_groups(int keys) {
+  const int g = (keys + 7) / 8;
+  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 6 ? 6 : 8;
+}
+
+// the streamed kernel's mask codes: bytes of scratch (0 for T <= 64)
+long long f32_codes_bytes(int T_len) {
+  if (T_len <= kF32OneKeys) return 0;
+  const long long rt = (T_len + 15) / 16, cb = (T_len + kF32CodeKeys - 1) / kF32CodeKeys;
+  return rt * cb * (long long)sizeof(uint32_t);
+}
+
+// codes: f32_codes_bytes(T) of device memory, given with a mask
+template <int HD>
+int launch_f32(const float* q, const float* k, const float* v, const float* mask, uint32_t* codes,
+               float* o, int B, int H, int T_len, float scale, Strides qs, Strides ks,
+               Strides vs, Strides os, cudaStream_t stream) {
+  if (T_len <= kF32OneKeys) {  // one block per (prompt, head), a warp per 16 rows
+    const int ng = f32_groups(T_len), warps = (T_len + 15) / 16;
+    const size_t smem = (2 * 8 * ng + 16 * warps) * HD * sizeof(float);
+    auto kernel = ng == 1   ? attention_fwd_f32_one<HD, 1>
+                  : ng == 2 ? attention_fwd_f32_one<HD, 2>
+                  : ng == 4 ? attention_fwd_f32_one<HD, 4>
+                  : ng == 6 ? attention_fwd_f32_one<HD, 6>
+                            : attention_fwd_f32_one<HD, 8>;
+    kernel<<<B * H, warps * 32, smem, stream>>>(q, k, v, mask, o, H, T_len, scale, qs, ks, vs, os);
+    return (int)cudaGetLastError();
+  }
+  if (mask != nullptr && codes == nullptr) return -1;
+  const int n_kb = (T_len + kF32Keys - 1) / kF32Keys;
+  const int tail_ng = (T_len - (n_kb - 1) * kF32Keys + 7) / 8;  // groups of the last tile
+  // row tiles a block: the whole head up to T = 128 (a warp each), else 4
+  // (64-row query tiles) with two key halves
+  const int KS = T_len <= kF32Warps * 16 ? 1 : 2;
+  const int R = KS == 1 ? (T_len + 15) / 16 : kF32Warps / 2;
+  const int n_qt = (T_len + 16 * R - 1) / (16 * R);
+  const long long n_blocks = (long long)B * H * n_qt;
+  if (n_blocks > 0x7fffffffLL) return -1;
+  const int n_steps = (n_kb + KS - 1) / KS;
+  const size_t smem = (16 * R + 2 * 2 * (size_t)KS * kF32Keys) * HD * sizeof(float) +
+                      ((n_steps + 15) & ~15);
+  if (smem > kMaxSmemBytes) return -1;
+  if (mask != nullptr) {
+    const int rt = (T_len + 15) / 16, cb = (T_len + kF32CodeKeys - 1) / kF32CodeKeys;
+    attention_f32_mask_codes<<<dim3(cb, rt), 128, 0, stream>>>(mask, T_len, codes);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  auto kernel =
+      mask != nullptr ? attention_fwd_f32_multi<HD, true> : attention_fwd_f32_multi<HD, false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(int)n_blocks, R * KS * 32, smem, stream>>>(q, k, v, mask, codes, o, H, T_len, n_qt,
+                                                       KS, tail_ng, scale, qs, ks, vs, os);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Device bytes the caller passes as hgr_attention_fwd's codes: the tiled
-// kernel's mask-block codes (bf16, T >= 97, with a mask), else 0.
+// Device bytes the caller passes as hgr_attention_fwd's codes with a mask:
+// the mask-block codes of the tiled bf16 kernel (T >= 97) or of the
+// streamed fp32 kernel (T > 64), else 0.
 long long hgr_attention_codes_bytes(int dtype, int T_len) {
   const long long n_kb = (T_len + kTile - 1) / kTile;
+  if (dtype == 0) return f32_codes_bytes(T_len);
   return dtype == 1 && T_len > kShortMaxT ? n_kb * n_kb : 0;
 }
 
@@ -1324,15 +1629,22 @@ int hgr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                       long long k_st, long long v_sb, long long v_sh,
                       long long v_st, long long o_sb, long long o_sh,
                       long long o_st, void* stream) {
-  if (Dh != kDh || T_len < 1 || B < 1 || H < 1) return -1;
+  if (T_len < 1 || B < 1 || H < 1) return -1;
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st};
   const Strides vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                           static_cast<const float*>(v), mask, static_cast<float*>(o), B, H,
-                           T_len, scale, qs, ks, vs, os, st);
-  if (dtype != 1) return -1;
+  if (dtype == 0) {  // fp32: head dim 64 or 16
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(o);
+    uint32_t* cf = static_cast<uint32_t*>(codes);
+    if (Dh == 64)
+      return launch_f32<64>(qf, kf, vf, mask, cf, of, B, H, T_len, scale, qs, ks, vs, os, st);
+    if (Dh == 16)
+      return launch_f32<16>(qf, kf, vf, mask, cf, of, B, H, T_len, scale, qs, ks, vs, os, st);
+    return -1;
+  }
+  if (dtype != 1 || Dh != kDh) return -1;
   const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);

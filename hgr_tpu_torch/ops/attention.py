@@ -25,6 +25,8 @@ from ..models.layers import attention_scores
 from . import build
 
 HEAD_DIM = 64
+# the head dims each dtype's device kernel takes; pad_head_dim pads the rest
+KERNEL_HEAD_DIMS = {torch.float32: (16, 64), torch.bfloat16: (64,)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_int, _c_ll, _c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -61,8 +63,11 @@ def _check(q, k, v, mask) -> None:
             )
     if q.dtype not in _DTYPES:
         raise ValueError(f"attention kernel takes bfloat16 or float32, not {q.dtype}")
-    if Dh != HEAD_DIM or T < 1:
-        raise ValueError(f"attention kernel takes Dh == {HEAD_DIM} and T >= 1; got Dh={Dh}, T={T}")
+    if Dh not in KERNEL_HEAD_DIMS[q.dtype] or T < 1:
+        raise ValueError(
+            f"attention kernel takes Dh == {HEAD_DIM} (float32 also 16) and T >= 1; "
+            f"got Dh={Dh} ({q.dtype}), T={T}"
+        )
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
@@ -93,16 +98,19 @@ def refuse_autograd(q, k, v) -> None:
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """q, k, v with a head dim under 64 zero-padded to 64 (the Pallas wrapper
-    pads its head dim to 128, ``hgr_tpu/ops/attention.py:89-99``): zero
+    """q, k, v with their head dim zero-padded to the next one the kernel
+    takes in their dtype (``KERNEL_HEAD_DIMS``: bf16 64; fp32 16 or 64, so
+    the TEST configurations' fp32 16 goes unpadded), as the Pallas wrapper
+    pads its head dim to 128 (``hgr_tpu/ops/attention.py:89-99``): zero
     columns add nothing to q.k^T and give zero output columns, which the
     caller cuts off. Returns the three and the true head dim, whose
     ``Dh ** -0.5`` stays the softmax scale."""
     dh = q.shape[-1]
     if dh > HEAD_DIM:
         raise ValueError(f"attention kernel takes Dh <= {HEAD_DIM}; got Dh={dh}")
-    if dh < HEAD_DIM:
-        q, k, v = (torch.nn.functional.pad(t, (0, HEAD_DIM - dh)) for t in (q, k, v))
+    to = min(d for d in KERNEL_HEAD_DIMS.get(q.dtype, (HEAD_DIM,)) if d >= dh)
+    if dh < to:
+        q, k, v = (torch.nn.functional.pad(t, (0, to - dh)) for t in (q, k, v))
     return q, k, v, dh
 
 
@@ -111,7 +119,8 @@ def attention_cuda(
 ) -> torch.Tensor:
     """Launch K1 on CUDA tensors; returns ``[B, H, T, Dh]`` (a view of a
     ``[B, T, H, Dh]`` buffer, so merging the heads back costs no copy).
-    A head dim under 64 (the TEST configurations' 16) is padded to 64."""
+    fp32 runs at head dim 16 (the TEST configurations') or 64 as it is; any
+    other head dim under 64, and bf16's 16, is padded (``pad_head_dim``)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
     refuse_autograd(q, k, v)

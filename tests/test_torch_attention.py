@@ -44,9 +44,10 @@ EDGE_T = {5: (1,), 20: (50,), 32: (197, 97), 77: (256, 129), 257: (577, 321)}
 
 def test_attention_matches_jax():
     """Every length of ``EDGE_T``, each with its edge length, causal and
-    not."""
+    not; and the fp32 kernel's 3xTF32 arithmetic, emulated."""
     for causal in (True, False):
         _attention_matches_jax(causal)
+    _check_3xtf32_emulation()
 
 
 def _attention_matches_jax(causal):
@@ -64,6 +65,70 @@ def _attention_matches_jax(causal):
             np.testing.assert_allclose(got.numpy(), want_pallas, atol=ATOL)
             np.testing.assert_allclose(got.numpy(), want_xla, atol=ATOL)
         assert k1.attention.launches == launches, "the CPU route launches no kernel"
+
+
+# chip_smoke.TOL[torch.float32]: the card's fp32 kernel against its plain
+# version, elementwise |k - p| <= atol + rtol |p|
+TOL_F32 = (1e-5, 1e-5)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the dropped 13 bits'
+    unit to the magnitude, then cut them."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product_3xtf32(a, b):
+    """a @ b as the fp32 kernel computes it on the tensor cores: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), the product
+    lo.hi + hi.lo + hi.hi with fp32 sums (TF32 products are exact in fp32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _check_3xtf32_emulation():
+    """The fp32 kernel's products (csrc/attention.cu, 3xTF32), emulated in
+    numpy at head dim 64 and T = 32 and 577, hold q.k^T, P.V and the whole
+    attention (online softmax as the kernel runs it, over 64-key tiles)
+    against fp64 within phase 3's fp32 tolerance; one TF32 product does not."""
+    atol, rtol = TOL_F32
+
+    def within(got, want):
+        return bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+
+    for T in (32, 577):
+        q, k, v = (x[0] for x in _qkv(T, seed=T + 1, B=1, H=2))
+        scale = 64 ** -0.5
+        mask = np.triu(np.full((T, T), -np.inf, np.float32), 1)
+        kt = np.swapaxes(k, -1, -2)
+        want_s = q.astype(np.float64) @ kt.astype(np.float64)
+        assert within(_product_3xtf32(q, kt), want_s)
+        assert not within(_tf32(q) @ _tf32(kt), want_s)
+        s64 = want_s * scale + mask
+        p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+        p64 /= p64.sum(-1, keepdims=True)
+        want_o = p64 @ v.astype(np.float64)
+        p32 = p64.astype(np.float32)
+        assert within(_product_3xtf32(p32, v), p32.astype(np.float64) @ v.astype(np.float64))
+        assert not within(_tf32(p32) @ _tf32(v), want_o)
+        # the kernel: scores scaled and masked in fp32, a running max m and
+        # sum l over 64-key tiles, O rescaled as m grows, O / l at the end
+        s = _product_3xtf32(q, kt) * np.float32(scale) + mask
+        m = np.full((2, T, 1), -np.inf, np.float32)
+        l = np.zeros((2, T, 1), np.float32)
+        o = np.zeros((2, T, 64), np.float32)
+        for k0 in range(0, T, 64):
+            st = s[..., k0:k0 + 64]
+            mn = np.maximum(m, st.max(-1, keepdims=True))
+            alpha = np.exp(m - mn)
+            e = np.exp(st - mn)
+            l = l * alpha + e.sum(-1, keepdims=True)
+            o = o * alpha + _product_3xtf32(e, v[:, k0:k0 + 64])
+            m = mn
+        assert within(o / l, want_o), float(np.abs(o / l - want_o).max())
 
 
 def test_causal_mask_matches_jax():
@@ -95,6 +160,7 @@ def test_mha_strided_heads_match_contiguous():
 
 BAD_ARGUMENTS = [
     (dict(Dh=32), "Dh == 64"),
+    (dict(Dh=16, dtype=torch.bfloat16), "Dh == 64"),
     (dict(T=0), "T >= 1"),
     (dict(dtype=torch.float16), "bfloat16 or float32"),
     (dict(mask_dtype=torch.float64), "mask must be float32"),
@@ -124,18 +190,27 @@ def test_kernel_argument_checks():
 
 
 def _check_head_dim_padding():
-    """A head dim under 64 (TEST-RN's 16) is zero-padded to 64 before the
-    kernel, which is then given the true scale 16^-0.5: that arithmetic, on
-    the CPU, equals the plain attention of the unpadded heads; over 64
-    raises."""
+    """fp32 at head dim 16 (TEST-RN's) goes to the kernel as it is, which
+    the argument checks accept; bf16 at 16, and fp32 at 32, are
+    zero-padded to 64 before the kernel, which is then given the true
+    scale dh^-0.5: that arithmetic, on the CPU, equals the plain attention
+    of the unpadded heads; over 64 raises."""
     q, k, v = map(torch.from_numpy, _qkv(20, seed=4, Dh=16))
     qp, kp, vp, dh = k1.pad_head_dim(q, k, v)
-    assert dh == 16 and qp.shape == (2, 3, 20, 64) and not qp[..., 16:].any()
-    for mask in (None, causal_mask(20)):
-        scores = qp @ kp.transpose(-1, -2) * dh ** -0.5 + (0 if mask is None else mask)
-        got = (torch.softmax(scores, -1) @ vp)[..., :dh]
-        np.testing.assert_allclose(got.numpy(), attention_scores(q, k, v, mask).numpy(),
-                                   atol=ATOL)
+    assert dh == 16 and qp is q and kp is k and vp is v
+    k1._check(q, k, v, causal_mask(20))
+    for dtype, width in ((torch.bfloat16, 16), (torch.float32, 32)):
+        q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(20, seed=4, Dh=width))
+        qp, kp, vp, dh = k1.pad_head_dim(q, k, v)
+        assert dh == width and qp.shape == (2, 3, 20, 64) and qp.dtype == dtype
+        assert not qp[..., width:].any()
+        k1._check(qp, kp, vp, None)
+        q, k, v, qp, kp, vp = (t.float() for t in (q, k, v, qp, kp, vp))
+        for mask in (None, causal_mask(20)):
+            scores = qp @ kp.transpose(-1, -2) * dh ** -0.5 + (0 if mask is None else mask)
+            got = (torch.softmax(scores, -1) @ vp)[..., :dh]
+            np.testing.assert_allclose(got.numpy(), attention_scores(q, k, v, mask).numpy(),
+                                       atol=ATOL)
     with pytest.raises(ValueError, match="Dh <= 64"):
         k1.pad_head_dim(*map(torch.from_numpy, _qkv(4, seed=5, Dh=80)))
 
