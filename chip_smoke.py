@@ -19,6 +19,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    port), and each case's bound;
 4. the ancestor chains of the smoke's hierarchy, held to the JAX package's
    with networkx by their digest (``EXPECTED_CHAINS_SHA256``);
+4b. the benchmark as a user runs it: ``python -m hgr_tpu_torch.bench`` (the
+   JAX package's ``bench.py`` sections: calib, RN50 and ViT-B/32 eval at
+   batch 512, the JPEG pipeline, OM training at 256, 512 and 1,024, CoOp)
+   in a process of its own: exit 0, a headline with status "ok" and every
+   key of ``BENCH_KEYS``, this card's name in ``extra.device``, and 12 x
+   22 K1 launches in its vit section (``bench_vit_b32_eval``), read from
+   its ``# K1 launches`` line; its result line is printed;
 5. zero-shot eval at full width: RN50, the 18,278-class bank padded to
    18,432, ``run_test`` over 4 batches of 512 synthetic images; K1's launch
    count over that run must be 12 layers x 36 chunks = 432;
@@ -2732,6 +2739,63 @@ def phase_builder(work):
     assert digest == EXPECTED_BUILDER_SHA256
 
 
+# every key that the root bench.py's seven sections and its ``_emit`` write
+# (its watchdog's and sidecar's aside), the calib bracket after the last
+# section, and the card's stamp
+BENCH_KEYS = (
+    "calib_tflops", "calib_dispatch_ms", "calib_tflops_end", "calib_dispatch_ms_end",
+    "vit_b32_eval_imgs_per_sec", "loader_imgs_per_sec", "loader_imgs_per_sec_per_core",
+    "host_cores", "cached_loader_imgs_per_sec", "mp_loader_imgs_per_sec",
+    "decode_cpu_ms_per_img", "e2e_eval_imgs_per_sec", "e2e_cached_eval_imgs_per_sec",
+    "train_imgs_per_sec", "train_step_ms", "train_batch", "num_compare", "remat",
+    "train_imgs_per_sec_b512", "train_step_ms_b512", "train_imgs_per_sec_b1024",
+    "train_step_ms_b1024", "train_b1024_mode", "coop_train_imgs_per_sec",
+    "coop_train_step_ms", "host_cores_to_feed_chip", "section_done_s", "device",
+)
+
+
+def phase_bench(timeout=900):
+    """``python -m hgr_tpu_torch.bench`` as a user runs it (all seven
+    sections) in a process of its own, its JPEGs in a temporary directory:
+    exit 0, the last line the headline with status "ok", every key of
+    ``BENCH_KEYS``, this card's name; the vit section's K1 launches, which
+    the bench prints as ``# K1 launches: N``, 12 layers x (warm-up + timed)
+    steps. Returns those launches."""
+    import os
+    import tempfile
+
+    from hgr_tpu_torch import bench
+
+    # the smoke's own cached blocks would be the bench's missing memory
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="hgr_bench_jpegs_") as jpegs:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "hgr_tpu_torch.bench"],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           env=dict(os.environ, HGR_BENCH_JPEG_DIR=jpegs),
+                           capture_output=True, text=True, timeout=timeout)
+        elapsed = time.perf_counter() - t0
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+    lines = p.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        if line.startswith("# "):
+            log(f"[bench] {line[2:]}")
+    result = json.loads(lines[-1])
+    extra = result["extra"]
+    assert (result["metric"], result["unit"], result["status"]) == (
+        bench.METRIC, "imgs/sec/chip", "ok") and result["value"] > 0, lines[-1]
+    missing = [k for k in BENCH_KEYS if k not in extra]
+    assert not missing, f"the bench's line lacks {missing}"
+    assert extra["device"]["name"] == torch.cuda.get_device_name(0), extra["device"]
+    launches = [int(line.rsplit(":", 1)[1]) for line in lines
+                if line.startswith("# K1 launches:")]
+    want = 12 * (bench.WARMUP + bench.EVAL_ITERS)
+    log(f"[bench] {elapsed:.1f} s of command; vit K1 launches {launches} (want [{want}])")
+    assert launches == [want]
+    log(f"[bench] {lines[-1]}")
+    return want
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -2747,6 +2811,7 @@ def main() -> int:
     n_procs = min(8, os.cpu_count() or 1)
     main_row = phase_kernels(dev)
     phase_chains()
+    bench_vit = phase_bench()
     tm, bank, summary, rn50 = phase_slice(dev)
     phase_plain_bank(tm, bank)
     fp32_bank = phase_fp32_bank(tm)
@@ -2789,7 +2854,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    by_path = {"rn50_eval": rn50, "rn50_fp32_bank": fp32_bank,
+    by_path = {"rn50_eval": rn50, "rn50_fp32_bank": fp32_bank, "bench_vit_b32_eval": bench_vit,
                "vit_b32_eval": vit_launches, "vit_b16_eval": vit16_launches,
                "rn50x4_eval": rn50x4,
                "vit_l14_eval": vit_l14,

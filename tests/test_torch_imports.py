@@ -6,8 +6,9 @@ mesh (``parallel/*``, ``train/spmd.py``), the offline builders and the Orbax
 reader (``utils/{zstd,ocdbt,zarr,orbax}.py``) included, finds no import of
 ``jax`` (or ``jaxlib``, ``optax``, ``orbax``, ``tensorstore``, ``zstandard``:
 the reader is the port's own), of ``networkx`` or ``regex`` (the port has
-its own chain search and word splitter), and none of ``hgr_tpu`` other than
-``hgr_tpu_torch``; importing the package in a fresh interpreter leaves them
+its own chain search and word splitter), none of ``hgr_tpu`` other than
+``hgr_tpu_torch``, and not the root ``bench.py`` (``hgr_tpu_torch/bench.py``
+is the port's own); importing the package in a fresh interpreter leaves them
 all out of ``sys.modules``.
 """
 
@@ -23,7 +24,7 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "tensorstore", "zstandard", "hgr_tpu",
-             "networkx", "regex")
+             "networkx", "regex", "bench")
 FILES = (sorted((REPO / "hgr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
          + sorted((REPO / "tools").glob("*torch*.py")))
 
@@ -56,6 +57,7 @@ def test_no_jax_or_reference_imports():
     assert {"mesh.py", "distributed.py", "collectives.py", "eval_spmd.py"} <= {
         p.name for p in FILES if p.parent.name == "parallel"}
     assert {"spmd.py", "builder.py", "splits.py"} <= {p.name for p in FILES}
+    assert REPO / "hgr_tpu_torch" / "bench.py" in FILES
     assert {"zstd.py", "ocdbt.py", "zarr.py", "orbax.py"} <= {
         p.name for p in FILES if p.parent.name == "utils"}
     assert not bad, f"imports of JAX or the JAX package: {bad}"
@@ -78,7 +80,7 @@ def test_package_import_leaves_jax_unloaded():
         "import hgr_tpu_torch.parallel.distributed, hgr_tpu_torch.parallel.collectives\n"
         "import hgr_tpu_torch.parallel.eval_spmd, hgr_tpu_torch.train.spmd\n"
         "import hgr_tpu_torch.hierarchy.builder, hgr_tpu_torch.data.splits\n"
-        "import hgr_tpu_torch.utils.orbax, hgr_tpu_torch.utils.zarr\n"
+        "import hgr_tpu_torch.utils.orbax, hgr_tpu_torch.utils.zarr, hgr_tpu_torch.bench\n"
         "from hgr_tpu_torch.hierarchy import synthetic_hierarchy\n"
         "from hgr_tpu_torch.text import Tokenizer\n"
         "synthetic_hierarchy(3, 3, 4, 0)\n"

@@ -101,12 +101,10 @@ def test_image_tower_test_rn(test_rn, rn50_width):
             _check_image(setup, uint8)
 
 
-def test_text_tower_test_rn(test_rn):
+def test_text_tower_test_rn(test_rn, rn50_width):
+    """TEST-RN at T = 16 and 77, then RN50's widths at T = 32."""
     for T in (16, 77):
         _check_text(test_rn, [4, 9, 13], T)
-
-
-def test_text_tower_rn50_width(rn50_width):
     _check_text(rn50_width, [4, 9, 18, 30], 32)
 
 
