@@ -13,7 +13,9 @@ DGP's backbone refit), on synthetic inputs or on real ones: JSON
 hierarchies, BPE prompts (``text``), OpenAI and the port's own
 checkpoints, and image files through manifests or a decode cache, decoded
 by threads or worker processes (``data``). ``--trace_dir`` writes a
-``torch.profiler`` trace of train steps (``utils/profiling.py``). Without gradients, attention on the card is a hand-written
+``torch.profiler`` trace of train steps (``utils/profiling.py``) that
+holds the program's spans (``annotate``: the step's loss, towers,
+backward and update) beside the kernels. Without gradients, attention on the card is a hand-written
 CUDA kernel (``csrc/attention.cu``); the train step runs
 the plain attention under autograd, as the JAX step runs XLA's. Entry
 points run on CUDA unless the caller passes ``device="cpu"``.

@@ -26,7 +26,8 @@ chooses what trains (the context, CLIP, or both).
 ``--num_proc_workers N`` decodes image files in N processes
 (``data/mp_decode.py``) in every loader and in the decode cache's build;
 ``--trace_dir`` writes a Chrome trace of train steps 1-3
-(``utils/profiling.TraceWindow``).
+(``utils/profiling.TraceWindow``), the program's spans in it beside the
+kernels (``utils/profiling.annotate``).
 
 Multi-process runs (``python -m torch.distributed.run --nproc_per_node N -m
 hgr_tpu_torch ...``, ``--dist_backend nccl|gloo``) lay the ranks out as the

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..models.layers import l2_normalize
+from ..utils.profiling import annotate
 
 
 def pad_to(n: int, multiple: int) -> int:
@@ -42,11 +43,12 @@ def build_bank(
     n_pad = tokens.shape[0]
     if n_pad % chunk:
         raise ValueError(f"N_pad {n_pad} not divisible by chunk {chunk}")
-    parts = [
-        l2_normalize(encode_text_fn(tokens[i: i + chunk])).to(out_dtype)
-        for i in range(0, n_pad, chunk)
-    ]
-    return torch.cat(parts)
+    with annotate("bank.build"):
+        parts = [
+            l2_normalize(encode_text_fn(tokens[i: i + chunk])).to(out_dtype)
+            for i in range(0, n_pad, chunk)
+        ]
+        return torch.cat(parts)
 
 
 @torch.inference_mode()
@@ -62,9 +64,10 @@ def build_bank_ids(
     chunks through ``text_fn`` (``hgr_tpu/eval/bank.py:57-73``)."""
     if n_pad % chunk:
         raise ValueError(f"N_pad {n_pad} not divisible by chunk {chunk}")
-    ids = torch.arange(n_pad, device=device)
-    return torch.cat([text_fn(params, ids[i: i + chunk]).to(out_dtype)
-                      for i in range(0, n_pad, chunk)])
+    with annotate("bank.build"):
+        ids = torch.arange(n_pad, device=device)
+        return torch.cat([text_fn(params, ids[i: i + chunk]).to(out_dtype)
+                          for i in range(0, n_pad, chunk)])
 
 
 def bank_logits(img_feats: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:

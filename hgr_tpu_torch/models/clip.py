@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import attention
+from ..utils.profiling import annotate
 from .layers import Embedding, LayerNorm, _param, l2_normalize, normal_
 from .resnet import ModifiedResNet
 from .text_encoder import text_encoder_apply
@@ -174,15 +175,17 @@ def encode_image(
     attn_fn=attention,
     remat: bool = False,
 ) -> torch.Tensor:
-    if images.dtype == torch.uint8:
-        # raw uint8 edge: normalise on the device in fp32, then cast
-        mean = torch.tensor(CLIP_MEAN, device=images.device) * 255.0
-        scale = 1.0 / (torch.tensor(CLIP_STD, device=images.device) * 255.0)
-        images = (images.float() - mean) * scale
-    x = images.to(dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
-    if m.cfg.is_vit:
-        return m.visual(x, attn_fn, remat)
-    return m.visual(x)
+    with annotate("clip.encode_image"):
+        if images.dtype == torch.uint8:
+            # raw uint8 edge: normalise on the device in fp32, then cast
+            with annotate("clip.normalize"):
+                mean = torch.tensor(CLIP_MEAN, device=images.device) * 255.0
+                scale = 1.0 / (torch.tensor(CLIP_STD, device=images.device) * 255.0)
+                images = (images.float() - mean) * scale
+        x = images.to(dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
+        if m.cfg.is_vit:
+            return m.visual(x, attn_fn, remat)
+        return m.visual(x)
 
 
 def encode_text(
@@ -192,7 +195,8 @@ def encode_text(
     attn_fn=attention,
     remat: bool = False,
 ) -> torch.Tensor:
-    return text_encoder_apply(m, tokens, dtype=dtype, attn_fn=attn_fn, remat=remat)
+    with annotate("clip.encode_text"):
+        return text_encoder_apply(m, tokens, dtype=dtype, attn_fn=attn_fn, remat=remat)
 
 
 def cosine_logits(

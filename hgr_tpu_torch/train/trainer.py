@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..utils.profiling import annotate
 from .om import make_om_loss_fn
 from .sampling import PairSchedule
 from .schedule import cosine_lr
@@ -206,12 +207,16 @@ def make_train_step(
     )
 
     def step(state: TrainState, images, node_tokens, sched):
-        params = freeze_params(state.params, frozen)
-        loss = loss_fn(params, images, node_tokens, sched)
-        loss.backward()
-        tx.update(params, state.opt_state)
-        state.step += 1
-        return state, loss.detach()
+        with annotate("trainer.step"):
+            params = freeze_params(state.params, frozen)
+            with annotate("trainer.loss"):
+                loss = loss_fn(params, images, node_tokens, sched)
+            with annotate("trainer.backward"):
+                loss.backward()
+            with annotate("trainer.update"):
+                tx.update(params, state.opt_state)
+            state.step += 1
+            return state, loss.detach()
 
     return step
 

@@ -41,6 +41,7 @@ from .models.clip import CLIP, CLIPConfig, clip_init, encode_image, encode_text,
 from .ops.attention import attention
 from .ops.bank_topk import level_argmax_sorted
 from .text import Tokenizer, get_bank
+from .utils.profiling import annotate
 
 PAD = -1
 
@@ -207,9 +208,10 @@ class TreeModel:
 
     def load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
         """Load OpenAI-named weights (e.g. ``models.convert.from_jax_params``)."""
-        if self.model is None:
-            self.model = CLIP(self.clip_cfg).to(self.device).eval()
-        self.model.load_state_dict(sd)
+        with annotate("tree.load_weights"):
+            if self.model is None:
+                self.model = CLIP(self.clip_cfg).to(self.device).eval()
+            self.model.load_state_dict(sd)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -306,7 +308,10 @@ class TreeModel:
         valid: Optional[torch.Tensor] = None,
     ) -> BatchMetrics:
         """:meth:`eval_step_sorted` from the batch's image features."""
-        return self.metrics_from_logits(bank_logits(feats, bank_sorted), target, valid)
+        with annotate("tree.head"):
+            with annotate("head.logits"):
+                logits_s = bank_logits(feats, bank_sorted)
+            return self.metrics_from_logits(logits_s, target, valid)
 
     @torch.inference_mode()
     def metrics_from_logits(
@@ -315,10 +320,12 @@ class TreeModel:
         """:meth:`metrics_sorted` from the batch's [B, N_pad] logits against
         the depth-sorted bank."""
         tb = self._sorted_tables
-        preds_s, vals = level_argmax_sorted(logits_s, self.level_offsets, tb["train_s"])
-        preds_global = tb["order"][preds_s.long()]
-        return metrics_from_preds(
-            preds_global, logits_s, tb["order"], target, tb["chains"][target],
-            tb["chain_len"][target], tb["chain_levels"][target], tb["test_s"],
-            valid=valid, lvl_vals=vals, fill_outside=tb["fill_outside"],
-        )
+        with annotate("head.level_argmax"):
+            preds_s, vals = level_argmax_sorted(logits_s, self.level_offsets, tb["train_s"])
+        with annotate("head.metrics"):
+            preds_global = tb["order"][preds_s.long()]
+            return metrics_from_preds(
+                preds_global, logits_s, tb["order"], target, tb["chains"][target],
+                tb["chain_len"][target], tb["chain_levels"][target], tb["test_s"],
+                valid=valid, lvl_vals=vals, fill_outside=tb["fill_outside"],
+            )

@@ -1,26 +1,160 @@
-"""Profiling and tracing helpers (port of ``hgr_tpu/utils/profiling.py``;
+"""The port's spans and trace capture (port of ``hgr_tpu/utils/profiling.py``;
 the reference has none).
 
-Over ``torch.profiler``: named ranges (``annotate``), a trace capture into
-a directory as a Chrome trace (``capture_trace``, ``TraceWindow``, the
-driver's ``--trace_dir``), and a step timer that waits for the card before
-reading the clock.
+``annotate(name)`` is the one span: a context manager that records only
+while a ``torch.profiler`` runs (``torch.autograd.profiler.
+_is_profiler_enabled``, set by the profiler's ``start`` and cleared by its
+``stop``, in every thread). Off, it reads that flag and does nothing else.
+On, it records the span's name, its parent (the innermost span open on the
+same thread), the thread, ``time.time_ns()`` at entry and exit (the clock
+of the profiler's timestamps) and, where CUDA is initialised, a CUDA event
+on the current stream at each; it also enters ``record_function(name)``,
+so a Chrome trace shows the span on the kernels' timeline.
+:func:`recorded_spans` gives the spans with their host and device times.
+
+``TraceWindow`` traces train steps into a directory as a Chrome trace (the
+driver's ``--trace_dir``), spans included.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+MAX_SPANS = 1_000_000
 
 
-def annotate(name: str):
-    """A named range in the trace (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+@dataclass
+class Span:
+    """One recorded span. ``parent`` indexes :func:`recorded_spans`' list
+    (None at a thread's top); ``t1_ns``, ``host_ms`` are None while it is
+    open; ``device_ms`` runs from the stream reaching the entry event to it
+    reaching the exit event (None without CUDA); ``events`` holds those two
+    CUDA events until :func:`recorded_spans` resolves them."""
+
+    name: str
+    parent: Optional[int]
+    thread: int
+    t0_ns: int
+    t1_ns: Optional[int] = None
+    host_ms: Optional[float] = None
+    device_ms: Optional[float] = None
+    events: Optional[list] = field(default=None, repr=False, compare=False)
+
+
+class _Recorder:
+    """The process's spans, kept in memory up to ``MAX_SPANS`` (call
+    :meth:`clear` with no span open)."""
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.dropped = 0
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def stack(self) -> List[int]:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def resolved(self) -> List[Span]:
+        with self.lock:
+            pending = [s for s in self.spans if s.events is not None and len(s.events) == 2]
+            if pending:
+                torch.cuda.synchronize()
+                for s in pending:
+                    s.device_ms = s.events[0].elapsed_time(s.events[1])
+                    s.events = None
+            return list(self.spans)
+
+    def clear(self) -> None:
+        with self.lock:
+            self.spans, self.dropped = [], 0
+
+
+_RECORDER = _Recorder()
+
+
+def _cuda_event():
+    """A timing event recorded on the current stream, or None where CUDA is
+    not initialised."""
+    if not torch.cuda.is_initialized():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+class annotate:
+    """``with annotate(name):`` a span of the program; records only while a
+    ``torch.profiler`` runs (the module's docstring)."""
+
+    __slots__ = ("name", "span", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = None
+
+    def __enter__(self):
+        if not _autograd_profiler._is_profiler_enabled:
+            return self
+        t0 = time.time_ns()
+        rec = _RECORDER
+        stack = rec.stack()
+        self.span = None
+        with rec.lock:
+            if len(rec.spans) >= MAX_SPANS:
+                rec.dropped += 1
+            else:
+                stack.append(len(rec.spans))
+                self.span = Span(self.name, stack[-2] if len(stack) > 1 else None,
+                                 threading.get_ident(), t0)
+                rec.spans.append(self.span)
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        if self.span is not None:
+            ev = _cuda_event()
+            if ev is not None:
+                self.span.events = [ev]
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is None:
+            return False
+        s = self.span
+        if s is not None and s.events is not None:
+            ev = _cuda_event()
+            s.events = None if ev is None else [s.events[0], ev]
+        self.range.__exit__(*exc)
+        self.range = None
+        if s is not None:
+            s.t1_ns = time.time_ns()
+            s.host_ms = (s.t1_ns - s.t0_ns) * 1e-6
+            _RECORDER.stack().pop()
+        return False
+
+
+def recorded_spans() -> List[Span]:
+    """The spans recorded so far, in the order they opened, with
+    ``host_ms`` and ``device_ms`` (resolved after one synchronise)."""
+    return _RECORDER.resolved()
+
+
+def dropped_spans() -> int:
+    """How many spans found the buffer full (``MAX_SPANS``)."""
+    return _RECORDER.dropped
+
+
+def clear_spans() -> None:
+    """Empty the buffer."""
+    _RECORDER.clear()
 
 
 def _wait(result=None) -> None:
@@ -50,55 +184,6 @@ def _stop_trace(prof: torch.profiler.profile, log_dir: str) -> str:
     path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(path)
     return path
-
-
-@contextlib.contextmanager
-def capture_trace(log_dir: Optional[str]):
-    """Trace the block (CPU and, where there is one, CUDA activity) into a
-    Chrome trace under ``log_dir``; nothing when ``log_dir`` is empty."""
-    if not log_dir:
-        yield
-        return
-    prof = _start_trace()
-    try:
-        yield
-    finally:
-        _stop_trace(prof, log_dir)
-
-
-class StepTimer:
-    """Per-step wall-clock statistics; ``stop(result)`` waits for the card
-    first, so a step's time is its device time and not its enqueue."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self._times: List[float] = []
-        self._t0: Optional[float] = None
-        self._count = 0
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, result=None) -> float:
-        if result is not None:
-            _wait(result)
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self._times.append(dt)
-        return dt
-
-    def summary(self, items_per_step: int = 1) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        t = np.asarray(self._times)
-        return {
-            "steps": len(t),
-            "mean_ms": float(t.mean() * 1e3),
-            "p50_ms": float(np.percentile(t, 50) * 1e3),
-            "p95_ms": float(np.percentile(t, 95) * 1e3),
-            "items_per_sec": float(items_per_step / t.mean()),
-        }
 
 
 class TraceWindow:

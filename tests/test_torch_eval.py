@@ -8,7 +8,8 @@ slice as a whole: the port's ``run_test`` gives the JAX ``run_test``'s
 relative). Entry points without ``device="cpu"`` raise on this host. An
 option once refused, ``--trace_dir``, writes a Chrome trace of train steps
 through ``torch.profiler`` (``utils/profiling.py``, whose ``TraceWindow``
-and ``StepTimer`` are held to the JAX package's semantics); the other,
+is held to the JAX package's semantics, and whose spans record only while
+a profiler runs); the other,
 ``--num_proc_workers`` (decode processes), is held to JAX on image files in
 ``tests/test_torch_realdata.py``. The mesh flags are ignored in a
 one-process run, as in JAX; the mesh is ``tests/test_torch_parallel.py``'s.
@@ -397,23 +398,15 @@ def test_unported_options_raise(tmp_path):
     assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
 
 
-def test_trace_window_and_step_timer(tmp_path):
-    """``tests/test_utils_misc.py:83-122`` on the port: the timer drops its
-    warm-up steps; a window longer than the epochs starts no second trace on
-    the next epoch's step ``start`` (the re-entry guard), ``close`` writes
-    the still-open window's trace once, and an empty ``log_dir`` does
-    nothing."""
-    from hgr_tpu_torch.utils.profiling import StepTimer, TraceWindow, annotate, capture_trace
-
-    t = StepTimer(warmup=1)
-    for _ in range(4):
-        t.start()
-        with annotate("unit-test"):
-            x = torch.ones(8, 8) @ torch.ones(8, 8)
-        t.stop(x)
-    s = t.summary(items_per_step=8)
-    assert s["steps"] == 3 and s["items_per_sec"] > 0 and s["p95_ms"] >= s["p50_ms"]
-    assert StepTimer().summary() == {}
+def test_trace_window_and_step_timer(tmp_path, monkeypatch):
+    """``tests/test_utils_misc.py:83-122`` on the port: a window longer than
+    the epochs starts no second trace on the next epoch's step ``start``
+    (the re-entry guard), ``close`` writes the still-open window's trace
+    once, the trace holds the program's spans, and an empty ``log_dir``
+    does nothing. Then the spans themselves
+    (:func:`_check_spans_record_only_under_profiler`) and the eval path's
+    (:func:`_check_head_records_its_spans`)."""
+    from hgr_tpu_torch.utils.profiling import TraceWindow, annotate
 
     w = TraceWindow(str(tmp_path / "t1"), start=1, stop=3)
     for _ in range(2):  # 2-step epochs end before stop=3
@@ -433,8 +426,106 @@ def test_trace_window_and_step_timer(tmp_path):
     w2.after(0)
     w2.close()
     assert w2._prof is None and not w2.paths
-    with capture_trace(str(tmp_path / "t2")):
-        torch.ones(2) * 2
-    assert len(os.listdir(tmp_path / "t2")) == 1
-    with capture_trace(""):
+    _check_spans_record_only_under_profiler(monkeypatch)
+    _check_head_records_its_spans()
+
+
+def _check_spans_record_only_under_profiler(monkeypatch):
+    """``annotate`` records nothing while no profiler runs. Under one it
+    records each span's parent on its own thread (a second thread's spans
+    start a tree of their own), each span's ``time.time_ns`` bounds hold
+    the profiler's ``record_function`` event of the same name, and spans
+    beyond the buffer's cap are counted, not kept."""
+    import threading
+
+    from hgr_tpu_torch.utils import profiling
+    from hgr_tpu_torch.utils.profiling import (annotate, clear_spans, dropped_spans,
+                                               recorded_spans)
+
+    clear_spans()
+    with annotate("off.outer"):
+        with annotate("off.inner"):
+            torch.ones(4) + 1
+    assert recorded_spans() == []
+
+    def worker():
+        with annotate("thread.outer"):
+            with annotate("thread.inner"):
+                torch.ones(4) * 2
+
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    try:
+        with annotate("outer"):
+            with annotate("inner"):
+                torch.ones(8, 8) @ torch.ones(8, 8)
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join(timeout=30)
+            with annotate("inner2"):
+                pass
+    finally:
+        prof.stop()
+    assert not t.is_alive()
+    with annotate("after"):
         pass
+    spans = recorded_spans()
+    clear_spans()
+    by = {s.name: (i, s) for i, s in enumerate(spans)}
+    assert set(by) == {"outer", "inner", "thread.outer", "thread.inner", "inner2"}
+    parent = {n: spans[s.parent].name if s.parent is not None else None
+              for n, (_, s) in by.items()}
+    assert parent == {"outer": None, "inner": "outer", "inner2": "outer",
+                      "thread.outer": None, "thread.inner": "thread.outer"}
+    assert by["thread.outer"][1].thread != by["outer"][1].thread
+    assert by["inner"][1].thread == by["outer"][1].thread
+    for _, s in by.values():
+        assert s.t0_ns <= s.t1_ns and s.host_ms == pytest.approx((s.t1_ns - s.t0_ns) * 1e-6)
+        assert s.device_ms is None  # no card
+    events = [e for e in prof.profiler.kineto_results.events() if e.name() in ("outer", "inner")]
+    assert sorted(e.name() for e in events) == ["inner", "outer"]
+    for e in events:
+        s = by[e.name()][1]
+        assert s.t0_ns <= e.start_ns() and e.start_ns() + e.duration_ns() <= s.t1_ns, e.name()
+
+    with monkeypatch.context() as mp:
+        mp.setattr(profiling, "MAX_SPANS", 2)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            for name in ("a", "b", "c"):
+                with annotate(name):
+                    pass
+    assert [s.name for s in recorded_spans()] == ["a", "b"] and dropped_spans() == 1
+    clear_spans()
+    assert recorded_spans() == [] and dropped_spans() == 0
+
+
+def _check_head_records_its_spans():
+    """Under ``torch.profiler``, ``metrics_sorted`` records ``tree.head``
+    with ``head.logits``, ``head.level_argmax`` and ``head.metrics`` inside,
+    in that order, and ``encode_image`` of uint8 images ``clip.encode_image``
+    with ``clip.normalize`` inside; the metrics equal an untraced call's."""
+    from hgr_tpu_torch.models.clip import encode_image
+    from hgr_tpu_torch.utils.profiling import clear_spans, recorded_spans
+
+    hier = synthetic_hierarchy(3, 4, 5, 0)
+    tm = TreeModel.build(Config(arch="TEST-RN"), hier, pad_multiple=64, device="cpu")
+    tm.init_params(0)
+    bank_s = tm.sort_bank(tm.update_classifier())
+    res = tm.clip_cfg.image_resolution
+    images = T(np.random.default_rng(0).integers(0, 256, (4, res, res, 3), dtype=np.uint8))
+    target = int(hier.level(hier.max_depth)[0])
+    with torch.inference_mode():
+        want = tm.metrics_sorted(bank_s, encode_image(tm.model, images, dtype=tm.dtype), target)
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.inference_mode():
+            feats = encode_image(tm.model, images, dtype=tm.dtype)
+        got = tm.metrics_sorted(bank_s, feats, target)
+    spans = recorded_spans()
+    clear_spans()
+    tree = [(s.name, spans[s.parent].name if s.parent is not None else None) for s in spans]
+    assert tree == [("clip.encode_image", None), ("clip.normalize", "clip.encode_image"),
+                    ("tree.head", None), ("head.logits", "tree.head"),
+                    ("head.level_argmax", "tree.head"), ("head.metrics", "tree.head")]
+    for k, v in want._asdict().items():
+        torch.testing.assert_close(getattr(got, k), v, rtol=0, atol=0, msg=k)

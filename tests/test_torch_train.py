@@ -438,7 +438,8 @@ def test_om_training_aligns_images_to_class_prompts():
     """``tests/test_convergence.py:50-126`` on the port, with the port's own
     init: after OM training on six leaf classes (a colour shift per class
     plus noise), each training image retrieves its class from the leaf
-    bank, from near chance at init."""
+    bank, from near chance at init. Then the spans of a train step and a
+    bank build (:func:`_check_train_step_and_bank_spans`)."""
     hier = synthetic_hierarchy(branching=3, levels=4, extra_edges=5, seed=0)
     cfg = Config(arch="TEST-ViT", dtype="float32", num_compare=6, batch_size=4, lr=2e-3,
                  remat=False, out_ratio=0.01, in_ratio=0.01, sample_strategy="random")
@@ -483,3 +484,57 @@ def test_om_training_aligns_images_to_class_prompts():
     assert acc1 >= 0.875, (f"hit@1 {acc0:.3f} -> {acc1:.3f}, "
                            f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     assert losses[-1] < losses[0]
+    _check_train_step_and_bank_spans()
+
+
+def _check_train_step_and_bank_spans():
+    """Under ``torch.profiler``: a TEST-RN train step records ``trainer.step``
+    with ``trainer.loss`` (``clip.encode_image``, then ``clip.encode_text``),
+    ``trainer.backward`` and ``trainer.update`` inside, in that order; the
+    weight load ``tree.load_weights``; and ``update_classifier`` one
+    ``bank.build`` with one ``clip.encode_text`` a chunk of the padded
+    bank."""
+    from hgr_tpu_torch.eval.bank import build_bank
+    from hgr_tpu_torch.models.clip import encode_text
+    from hgr_tpu_torch.utils.profiling import clear_spans, recorded_spans
+
+    hier = synthetic_hierarchy(3, 6, 5, 0)  # 1,093 nodes: three chunks of 512
+    cfg = Config(arch="TEST-RN", dtype="float32", num_compare=6, batch_size=4, remat=False)
+    tm = TreeModel.build(cfg, hier, pad_multiple=512, device="cpu")
+    tm.init_params(0)
+    tx = train.make_optimizer(cfg, 4)
+    state = train.init_train_state(tm.model, tm.layer_weight, tx)
+    step = train.make_train_step(cfg, tx, dtype=torch.float32)
+    sampler = train.NegativeSampler(hier, tm.train_index, cfg.num_compare, seed=0)
+    builder = train.ScheduleBuilder(hier, sampler, cfg.out_ratio, cfg.in_ratio,
+                                    cfg.num_compare)
+    res = tm.clip_cfg.image_resolution
+    images = T(np.random.default_rng(0).standard_normal((4, res, res, 3)).astype(np.float32))
+    tokens = T(tm.node_tokens).long()
+    sd = {k: v.clone() for k, v in tm.model.state_dict().items()}
+
+    def spans_of(fn):
+        clear_spans()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = fn()
+        spans = recorded_spans()
+        clear_spans()
+        return out, [(s.name, spans[s.parent].name if s.parent is not None else None)
+                     for s in spans]
+
+    sched = builder.build(int(hier.level(hier.max_depth)[0]))
+    _, tree = spans_of(lambda: step(state, images, tokens, train.sched_to_device(sched, "cpu")))
+    assert tree == [("trainer.step", None), ("trainer.loss", "trainer.step"),
+                    ("clip.encode_image", "trainer.loss"), ("clip.encode_text", "trainer.loss"),
+                    ("trainer.backward", "trainer.step"), ("trainer.update", "trainer.step")]
+    assert state.step == 1
+    _, tree = spans_of(lambda: tm.load_state_dict(sd))
+    assert tree == [("tree.load_weights", None)]
+    bank, tree = spans_of(tm.update_classifier)
+    chunks = tm.n_pad // min(512, tm.n_pad)
+    assert tm.n_pad == 1536 and chunks == 3
+    assert tree == [("bank.build", None)] + [("clip.encode_text", "bank.build")] * chunks
+    # the spans change nothing: the same bank untraced
+    want = build_bank(torch.as_tensor(tm.node_tokens), lambda tk: encode_text(tm.model, tk, dtype=tm.dtype),
+                      chunk=512, out_dtype=tm.dtype)
+    torch.testing.assert_close(bank, want, rtol=0, atol=0)
