@@ -17,6 +17,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    packed projection and as contiguous tensors, with the stated tolerances; times of kernel, plain version and the
    library yardstick (``scaled_dot_product_attention``, never called by the
    port), and each case's bound;
+3b. K2 (``ops/bn_act.py``, the ResNet's fused BatchNorm epilogue) against
+   its plain twin ``batch_norm_act`` on the card, bit for bit, in bf16 and
+   fp32 (``BN_ACT_CASES``: RN50's epilogue shapes at batch 512, RN50x4's
+   widths, every variant at odd sizes; some inputs -0.0); the cases of
+   ``TIMED_BN_ACT`` timed by CUDA-graph replay against their bytes at 3.35
+   TB/s, beside the twin's time; then ``encode_image`` of RN50 (bf16 and
+   fp32, batch 512) and RN50x4 (bf16, batch 64) with seeded BatchNorm
+   statistics: ``rn_epilogues`` K2 launches an encode (54 and 84), the
+   features equal to the twin path's, and the tower's time on each path.
+   Every later phase that counts K1's launches on an RN path counts K2's
+   beside them and asserts ``rn_epilogues`` an encoded batch (each mesh
+   rank's half batch too; 0 inside OM, flat and SPMD train steps, one
+   encode a step inside CoOp's, whose CLIP is frozen); the kernel table's
+   K2 row holds those counts by path;
 4. the ancestor chains of the smoke's hierarchy, held to the JAX package's
    with networkx by their digest (``EXPECTED_CHAINS_SHA256``);
 4b. the benchmark as a user runs it: ``python -m hgr_tpu_torch.bench`` (the
@@ -77,8 +91,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 11. OM training at full width: ``driver.run_train`` on RN50 in bf16 with
     remat, batch 256, 256 negatives, 4 episodes, then ``run_test`` over 2
     batches; every loss finite, the CLIP weights and ``layer_weight`` moved,
-    no K1 launch inside a train step (autograd runs the plain attention)
-    and 432 in the test after it, and ``clip_0`` restores into a fresh
+    no K1 or K2 launch inside a train step (autograd runs the plain
+    attention and epilogues) and 432 K1 and 2 x 54 K2 launches in the test
+    after it, and ``clip_0`` restores into a fresh
     train state; prints the steps' median time, images/s, the prompts
     encoded per step and peak memory;
 11b. ``--trace_dir``: two OM steps write one Chrome trace naming CUDA
@@ -86,7 +101,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 12. one OM train step in float32 on the card against the port's CPU path
     (small TEST-ViT config, the same weights and schedule): the loss and the
     updated weights agree within the CPU tests' tolerances;
-13. K1's guard: a CUDA call that autograd would record raises;
+13. K1's and K2's guards: a CUDA call that autograd would record raises;
 14. CoOp OM training at full width (RN50, bf16, remat, ``--coop_train
     ctx``, prompts of T = 48): 4 steps at batch 256 through
     ``driver.run_train``, every CLIP tensor bitwise unchanged, the context
@@ -366,11 +381,12 @@ def phase_device():
 
 
 def phase_build():
-    from hgr_tpu_torch.ops import attention, build
+    from hgr_tpu_torch.ops import attention, bn_act, build
 
     t0 = time.time()
     logs = build.build(build.all_sources())
     attention._library()
+    bn_act._library()
     log(f"[build] {build.all_sources()} in {time.time() - t0:.1f} s -> {build.BUILD_DIR}")
     for line in "\n".join(logs).splitlines():
         if any(w in line for w in ("registers", "spill", "smem", "Function properties")):
@@ -501,18 +517,198 @@ def check_attention(kernel, plain, sdpa, q, k, v, mask, causal):
     )
 
 
+def rn_epilogues(clip_cfg) -> int:
+    """K2's launches a modified-ResNet encode: the stem's 3, 3 a bottleneck
+    (the last with its downsample's BatchNorm folded in), and the 2x2 pool
+    of the input of layers 2-4's strided first blocks; 0 for a ViT."""
+    if clip_cfg.is_vit:
+        return 0
+    return 3 + 3 * sum(clip_cfg.vision_layers) + 3
+
+
+class SeededBN:
+    """BatchNorm parameters as ``models.layers.BatchNorm2d`` holds them,
+    drawn from ``g``: a fold that is not the identity."""
+
+    def __init__(self, C, g, dev):
+        def draw(scale, shift):
+            return torch.randn(C, generator=g, device=dev) * scale + shift
+
+        self.weight, self.bias, self.running_mean = draw(0.5, 1.0), draw(0.5, 0), draw(0.5, 0)
+        self.running_var = torch.rand(C, generator=g, device=dev) * 2 + 0.05
+
+
+# phase 3b's K2 cases, (N, C, H, W) and the variants at that shape; a variant
+# is (fold, residual, relu, pool) with residual None, "plain" or "folded"
+# (the downsample's BatchNorm folded in). RN50's epilogues at batch 512 (the
+# stem's two and its pooled third, layer1's bn1 and bn3 with either
+# residual, a strided block's pooled bn2 and its downsample's pool, layer4's)
+# and RN50x4's widths at batch 64 (288 px: channels 40 to 2,560, not powers
+# of two); then every variant (the pool takes no residual) at an odd
+# [3, 80, 9, 11] and a [2, 8, 5, 4] (one vector a pixel), where the pool
+# drops an odd last row or column.
+# Variants marked by TIMED_BN_ACT are timed.
+RELU, POOL_RELU = (True, None, True, False), (True, None, True, True)
+BN_ACT_CASES = [
+    ((512, 32, 112, 112), (RELU,)),
+    ((512, 64, 112, 112), (POOL_RELU,)),
+    ((512, 64, 56, 56), (RELU,)),
+    ((512, 256, 56, 56), ((True, "plain", True, False), (True, "folded", True, False),
+                          (False, None, False, True))),
+    ((512, 128, 56, 56), (POOL_RELU,)),
+    ((512, 512, 14, 14), (POOL_RELU,)),
+    ((512, 512, 7, 7), (RELU,)),
+    ((512, 2048, 7, 7), ((True, "plain", True, False), (True, "folded", True, False))),
+    ((64, 40, 144, 144), (RELU,)),
+    ((64, 80, 144, 144), (POOL_RELU,)),
+    ((64, 320, 72, 72), ((True, "plain", True, False), (True, "folded", True, False),
+                         (False, None, False, True))),
+    ((64, 640, 18, 18), (POOL_RELU,)),
+    ((64, 2560, 9, 9), ((True, "plain", True, False),)),
+    *(((n, c, h, w), tuple((fold, res, relu, pool) for fold in (False, True)
+                           for res in (None, "plain", "folded") for relu in (False, True)
+                           for pool in (False, True) if not (res and pool)))
+      for n, c, h, w in ((3, 80, 9, 11), (2, 8, 5, 4))),
+]
+TIMED_BN_ACT = {
+    ((512, 256, 56, 56), (True, "plain", True, False)),   # layer1's bn3: the main shape
+    ((512, 256, 56, 56), (True, "folded", True, False)),  # layer1.0's bn3 with its downsample
+    ((512, 64, 56, 56), RELU),                            # layer1's bn1
+    ((512, 64, 112, 112), POOL_RELU),                     # the stem's bn3 and pool
+    ((512, 256, 56, 56), (False, None, False, True)),     # layer2.0's downsample pool
+    ((512, 2048, 7, 7), (True, "plain", True, False)),    # layer4's bn3
+    ((512, 512, 14, 14), POOL_RELU),                      # layer4.0's bn2 and pool
+}
+BN_ACT_MAIN = ((512, 256, 56, 56), (True, "plain", True, False))
+
+
+def bn_act_bytes(shape, dtype, residual, pool) -> int:
+    """Bytes K2 must move: the input (and residual) read once, the output
+    written once (a quarter of it pooled); the [C] parameters are noise."""
+    N, C, H, W = shape
+    elem = torch.tensor([], dtype=dtype).element_size()
+    n_in = N * C * H * W
+    n_out = N * C * (H // 2) * (W // 2) if pool else n_in
+    return (n_in * (2 if residual else 1) + n_out) * elem
+
+
+# phase 3b's encodes: (arch, batch, dtypes)
+BN_ACT_ENCODES = (("RN50", 512, (torch.bfloat16, torch.float32)),
+                  ("RN50x4", 64, (torch.bfloat16,)))
+
+
+def phase_bn_act(dev, cases=BN_ACT_CASES, encodes=BN_ACT_ENCODES):
+    """K2 against its plain twin on the card: every case of ``BN_ACT_CASES``
+    in bf16 and fp32, bit for bit (the inputs hold some -0.0); the timed
+    cases against their bytes at 3.35 TB/s with the twin's time as
+    ``library_ms``; then the launches of an RN50 and an RN50x4 encode and
+    their features, held equal to the twin path's. Returns the kernel-table
+    row of the main shape and the K2 launches each encode counted, keyed
+    ``<arch>_encode_<dtype>``."""
+    from unittest import mock
+
+    from hgr_tpu_torch.models import clip, resnet
+    from hgr_tpu_torch.models.layers import batch_norm_act
+    from hgr_tpu_torch.ops.bn_act import bn_act
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    main, counted = None, {}
+    for shape, variants in cases:
+        N, C, H, W = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            def nhwc():
+                t = torch.randn((N, H, W, C), generator=g, device=dev).mul_(2).to(dtype)
+                t.view(-1)[::97] = -0.0
+                return t.permute(0, 3, 1, 2)
+
+            x, res = nhwc(), nhwc()
+            bn, rbn = SeededBN(C, g, dev), SeededBN(C, g, dev)
+            for fold, residual, relu, pool in variants:
+                args = (x, bn if fold else None, res if residual else None,
+                        rbn if residual == "folded" else None, relu, pool)
+                got, want = bn_act(*args), batch_norm_act(*args)
+                torch.cuda.synchronize()
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                assert got.shape == want.shape and got.is_contiguous(
+                    memory_format=torch.channels_last), (got.shape, want.shape, got.stride())
+                differ = got.view(bits) != want.view(bits)
+                if bool(differ.any()):
+                    zeros = bool(((got == 0) & (want == 0))[differ].all())
+                    raise AssertionError(
+                        f"K2 differs from its twin at {shape} {dtype} fold={fold} "
+                        f"residual={residual} relu={relu} pool={pool}: {int(differ.sum())} of "
+                        f"{got.numel()} elements, max |diff| "
+                        f"{float((got.float() - want.float()).abs().max()):.3e}, "
+                        f"{'all' if zeros else 'not all'} signed zeros")
+                name = str(dtype).split(".")[-1]
+                variant = (fold, residual, relu, pool)
+                line = (f"[k2] bn_act {shape} {name} fold={fold} residual={residual} relu={relu} "
+                        f"pool={pool}: bit-identical to the twin")
+                if (shape, variant) in TIMED_BN_ACT:
+                    nbytes = bn_act_bytes(shape, dtype, residual, pool)
+                    bound = nbytes / HBM_BYTES_PER_S * 1e3
+                    row = dict(ms=graph_ms(lambda: bn_act(*args)),
+                               plain_ms=graph_ms(lambda: batch_norm_act(*args)),
+                               bound_ms=bound, bound_by="bytes",
+                               eager_ms=cuda_ms(lambda: bn_act(*args)))
+                    row["library_ms"] = row["plain_ms"]
+                    line += (f" | kernel {row['ms']:.4f} ms, plain sequence {row['plain_ms']:.4f} "
+                             f"ms, bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB) | "
+                             f"{bound / row['ms']:.1%} of 3.35 TB/s | kernel eager "
+                             f"{row.pop('eager_ms'):.4f} ms a call, host included")
+                    if (shape, variant) == BN_ACT_MAIN and dtype == torch.bfloat16:
+                        main = dict(row, max_abs_err=0.0)
+                log(line)
+            del x, res
+    torch.cuda.empty_cache()
+
+    for arch, batch, dtypes in encodes:
+        cfg = clip.get_config(arch)
+        m = clip.clip_init(cfg, torch.Generator().manual_seed(0), dev).eval()
+        for mod in m.visual.modules():  # frozen statistics that are not the identity
+            if isinstance(mod, resnet.BatchNorm2d):
+                seeded = SeededBN(mod.weight.shape[0], g, dev)
+                for key in ("weight", "bias", "running_mean", "running_var"):
+                    getattr(mod, key).data.copy_(getattr(seeded, key))
+        res = cfg.image_resolution
+        images = torch.randint(0, 256, (batch, res, res, 3), generator=g, device=dev,
+                               dtype=torch.uint8)
+        for dtype in dtypes:
+            with torch.inference_mode():
+                bn_act.launches = 0
+                feats = clip.encode_image(m, images, dtype=dtype)
+                launches = bn_act.launches
+                tower_ms = cuda_ms(lambda: clip.encode_image(m, images, dtype=dtype), reps=5)
+                with mock.patch.object(resnet, "bn_act", batch_norm_act):
+                    plain = clip.encode_image(m, images, dtype=dtype)
+                    plain_ms = cuda_ms(lambda: clip.encode_image(m, images, dtype=dtype), reps=5)
+            same = torch.equal(feats, plain)
+            name = str(dtype).split(".")[-1]
+            log(f"[k2] {arch} encode_image {name}, batch {batch}: {launches} K2 launches (want "
+                f"{rn_epilogues(cfg)}); features equal to the plain epilogues' {same}; tower "
+                f"{tower_ms:.2f} ms with K2, {plain_ms:.2f} ms with the plain epilogues")
+            assert launches == rn_epilogues(cfg), launches
+            assert same, float((feats.float() - plain.float()).abs().max())
+            counted[f"{arch.lower()}_encode_{name}"] = launches
+        del m
+    torch.cuda.empty_cache()
+    return main, counted
+
+
 def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
                 launches_expected=432, image_launches=0, folder="runs/chip_smoke",
                 checkpoint=None):
     """The zero-shot eval path at full width; returns (tm, bank, summary,
-    K1 launches during run_test). ``launches_expected`` is K1's count in
-    one bank build, ``image_launches`` its count in one image batch. With
+    K1 launches during run_test, K2 launches during run_test).
+    ``launches_expected`` is K1's count in one bank build, ``image_launches``
+    its count in one image batch; K2's is ``rn_epilogues`` a batch. With
     ``checkpoint`` (an OpenAI-layout ``.pt``), its weights and architecture
     replace ``arch``'s (``TreeModel.load_torch``)."""
     from hgr_tpu_torch.config import Config
     from hgr_tpu_torch.driver import build_model, run_test, synthetic_splits
     from hgr_tpu_torch.hierarchy import profiled_hierarchy
     from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.ops.bn_act import bn_act
     from hgr_tpu_torch.utils.logging import RunLogger
 
     name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
@@ -546,13 +742,15 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
     assert bool(torch.isfinite(bank).all()), "bank not finite"
 
     # the main path: counts reset just before, read just after
-    attention.launches = 0
+    attention.launches = bn_act.launches = 0
     summary = run_test(cfg, tm, splits, RunLogger(cfg.save_path, echo=False))
-    launches = attention.launches
+    launches, k2 = attention.launches, bn_act.launches
     log(f"[slice] run_test: {json.dumps(summary)}")
-    log(f"[slice] K1 launches during run_test: {launches}")
+    k2_want = batches * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0
+    log(f"[slice] K1 launches during run_test: {launches}; K2 launches: {k2} (want {k2_want})")
     want = launches_expected + image_launches * batches
     assert launches == want, f"K1 launched {launches} times in run_test, not {want}"
+    assert k2 == k2_want, f"K2 launched {k2} times in run_test, not {k2_want}"
     assert summary["num_samples"] == batches * batch, summary["num_samples"]
     assert all(math.isfinite(v) for v in summary.values()), summary
 
@@ -569,7 +767,7 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
             f"{batch / step_ms * 1e3:.0f} images/s (device-resident batch); run_test "
             f"{summary['imgs_per_sec']:.0f} images/s with the synthetic loader; on {name}; "
             f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return tm, bank, summary, launches
+    return tm, bank, summary, launches, k2
 
 
 def phase_plain_bank(tm, bank):
@@ -694,21 +892,24 @@ def phase_vit_features(tm, batch=512):
 def run_counting_launches(fn, *args):
     """``fn(*args)`` (a driver's train run) with K1's launches split at the
     test after training: returns the result and ``{"train_steps": n,
-    "test": m}``. A spy on the path, not on what it computes."""
+    "test": m}``, and K2's as ``k2_train_steps`` and ``k2_test``. A spy on
+    the path, not on what it computes."""
     from hgr_tpu_torch import driver
     from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.ops.bn_act import bn_act
 
     seen = {}
     real = driver.run_test
 
     def run_test_spy(*a, **kw):
-        seen["train_steps"] = attention.launches
+        seen["train_steps"], seen["k2_train_steps"] = attention.launches, bn_act.launches
         out = real(*a, **kw)
         seen["test"] = attention.launches - seen["train_steps"]
+        seen["k2_test"] = bn_act.launches - seen["k2_train_steps"]
         return out
 
     driver.run_test = run_test_spy
-    attention.launches = 0
+    attention.launches = bn_act.launches = 0
     try:
         out = fn(*args)
     finally:
@@ -809,6 +1010,11 @@ def phase_train(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compar
         f"{seen['test']} in the test after them")
     assert seen["train_steps"] == 0, "K1 ran inside a train step"
     assert seen["test"] == bank_launches, seen
+    k2_test = test_batches * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0
+    log(f"[train] K2 launches: {seen['k2_train_steps']} inside the train steps (autograd runs "
+        f"the plain epilogue), {seen['k2_test']} in the test after them (want {k2_test})")
+    assert seen["k2_train_steps"] == 0, "K2 ran inside a train step"
+    assert seen["k2_test"] == k2_test, seen
 
     fresh = init_train_state(clip_init(tm.clip_cfg, torch.Generator().manual_seed(1), dev),
                              torch.zeros_like(tm.layer_weight),
@@ -899,7 +1105,8 @@ def phase_coop(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare
     CLIP tensor bitwise as it was, no K1 launch inside a train step and
     ``bank_launches`` in the test after them (the CoOp bank), ``clip_0``
     holds the context; then the CoOp bank through K1 held to the one built
-    with the plain attention. Returns K1's launches."""
+    with the plain attention. Returns K1's and K2's launches
+    (``run_counting_launches``'s counts)."""
     import os
     import shutil
 
@@ -941,8 +1148,13 @@ def phase_coop(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare
     assert not moved, f"CLIP tensors moved under coop_train ctx: {moved[:5]}"
     log(f"[coop] K1 launches: {seen['train_steps']} inside the train steps, {seen['test']} in "
         f"the test after them; all {len(before)} CLIP tensors bitwise unchanged")
+    # CLIP is frozen, so each step's image tower takes K2
+    k2_steps, k2_test = (n * rn_epilogues(tm.clip_cfg) for n in (episodes, test_batches))
+    log(f"[coop] K2 launches: {seen['k2_train_steps']} inside the train steps (want {k2_steps}), "
+        f"{seen['k2_test']} in the test after them (want {k2_test})")
     assert seen["train_steps"] == 0, "K1 ran inside a train step"
     assert seen["test"] == bank_launches, seen
+    assert (seen["k2_train_steps"], seen["k2_test"]) == (k2_steps, k2_test), seen
     saved = restore_params(os.path.join(cfg.save_path, "clip_0"))
     assert torch.equal(saved["coop_ctx"], tm.coop_ctx.detach().cpu()), "clip_0's coop_ctx"
 
@@ -968,7 +1180,8 @@ def phase_flat(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, n_seen=1000
     prompts; ``steps`` batches (two images each of ``steps * batch / 2``
     seen classes), then ``run_test``. Every loss finite, the CLIP weights
     moved and ``layer_weight`` not, no K1 launch inside a step and
-    ``bank_launches`` in the test. Returns K1's launches."""
+    ``bank_launches`` in the test. Returns K1's and K2's launches
+    (``run_counting_launches``'s counts)."""
     import shutil
 
     from hgr_tpu_torch import driver
@@ -1011,10 +1224,13 @@ def phase_flat(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, n_seen=1000
     for k in watched:
         assert not torch.equal(sd[k], before[k]), f"{k} did not move"
     assert torch.equal(tm.layer_weight.detach(), lw_before), "layer_weight moved"
+    k2_test = test_batches * rn_epilogues(tm.clip_cfg)
     log(f"[flat] K1 launches: {seen['train_steps']} inside the train steps, {seen['test']} in "
-        "the test after them")
+        f"the test after them; K2 launches {seen['k2_train_steps']} inside the train steps, "
+        f"{seen['k2_test']} in the test (want {k2_test})")
     assert seen["train_steps"] == 0, "K1 ran inside a train step"
     assert seen["test"] == bank_launches, seen
+    assert (seen["k2_train_steps"], seen["k2_test"]) == (0, k2_test), seen
     shutil.rmtree(cfg.save_path, ignore_errors=True)
     return seen
 
@@ -1300,8 +1516,8 @@ def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class
     cache of their 4 x ``per_class`` rows follow, then ``run_test`` from the
     cache, which must score the chosen class's hits, and the CLI's
     ``--load`` run on the same weights saved as ``clip_0``, which must give
-    the same metrics. Returns what the serving phase needs and K1's launches
-    in ``run_test``."""
+    the same metrics. Returns what the serving phase needs and K1's and K2's
+    launches in ``run_test`` (``launches``, ``k2``)."""
     import os
     import time as _time
     from collections import Counter
@@ -1313,6 +1529,7 @@ def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class
     from hgr_tpu_torch.hierarchy import Hierarchy, profiled_edges
     from hgr_tpu_torch.models.clip import get_config
     from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.ops.bn_act import bn_act
     from hgr_tpu_torch.serve import ZeroShotClassifier
     from hgr_tpu_torch.text import Tokenizer
     from hgr_tpu_torch.train import init_train_state, make_optimizer
@@ -1414,13 +1631,16 @@ def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class
     assert chains_digest(hier) == EXPECTED_CHAINS_SHA256 or level_sizes != LEVEL_SIZES
 
     # the main path: counts reset just before, read just after
-    attention.launches = 0
+    attention.launches = bn_act.launches = 0
     summary = driver.run_test(cfg, tm, splits, RunLogger(cfg.save_path, echo=False))
-    launches = attention.launches
-    log(f"[real] run_test from the decode cache: {json.dumps(summary)}")
-    log(f"[real] K1 launches during run_test: {launches} (T = {t_cut})")
-    assert launches == bank_launches, f"K1 launched {launches} times, not {bank_launches}"
+    launches, k2 = attention.launches, bn_act.launches
     num = summary["num_samples"]
+    k2_want = -(-num // batch) * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0
+    log(f"[real] run_test from the decode cache: {json.dumps(summary)}")
+    log(f"[real] K1 launches during run_test: {launches} (T = {t_cut}); K2 launches {k2} "
+        f"(want {k2_want})")
+    assert launches == bank_launches, f"K1 launched {launches} times, not {bank_launches}"
+    assert k2 == k2_want, f"K2 launched {k2} times, not {k2_want}"
     assert num == 4 * per_class, num
     assert all(math.isfinite(v) for v in summary.values()), summary
     # the chosen class's first batch is the probe batch: its hits at least
@@ -1457,8 +1677,8 @@ def phase_real_inputs(dev, work, arch="RN50", level_sizes=LEVEL_SIZES, per_class
         f"--from_epoch 0 ...` in {_time.time() - t0:.1f} s: metrics equal to the in-process "
         f"run: {same} ({ {k: got[k] for k in keys} })")
     assert same, (got, summary)
-    return dict(tm=tm, args=cli, cfg_args=args, names=names, launches=launches, test4=test4,
-                seen=splits["train"], paths=path, summary=summary, save_path=cfg.save_path)
+    return dict(tm=tm, args=cli, cfg_args=args, names=names, launches=launches, k2=k2,
+                test4=test4, seen=splits["train"], paths=path, summary=summary, save_path=cfg.save_path)
 
 
 def phase_files_and_serving(real, fixtures=None):
@@ -1466,13 +1686,15 @@ def phase_files_and_serving(real, fixtures=None):
     decode: the decoder in use and its time per image, the corrupt file's
     fallback, ``classify_files`` over the fixtures tiled to 64 paths (K1
     rebuilds the bank), and ``python -m hgr_tpu_torch.serve`` on three of
-    them. Returns K1's launches in ``classify_files``, or None when no
-    decoder exists (the check that needs none ran in the real-input phase)."""
+    them. Returns K1's and K2's launches in ``classify_files``, or None when
+    no decoder exists (the check that needs none ran in the real-input
+    phase)."""
     import time as _time
     from pathlib import Path
 
     from hgr_tpu_torch.data import FileImageSource
     from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.ops.bn_act import bn_act
     from hgr_tpu_torch.serve import ZeroShotClassifier
 
     tm = real["tm"]
@@ -1499,9 +1721,9 @@ def phase_files_and_serving(real, fixtures=None):
 
     paths = (good * 64)[:64]
     clf = ZeroShotClassifier(tm)
-    attention.launches = 0
+    attention.launches = bn_act.launches = 0
     out = clf.classify_files(paths, k=5, batch=64)
-    launches = attention.launches
+    launches, k2 = attention.launches, bn_act.launches
     first, gap, moved = {}, 0.0, 0
     for p, row in zip(paths, out):
         assert len(row) == 5 and all(math.isfinite(s) for _, s in row), row
@@ -1509,11 +1731,13 @@ def phase_files_and_serving(real, fixtures=None):
         want = first.setdefault(p, row)
         gap = max(gap, max(abs(s - w) for (_, s), (_, w) in zip(row, want)))
         moved += [c for c, _ in row] != [c for c, _ in want]
-    log(f"[files] classify_files over {len(paths)} paths: K1 launches {launches}; copies of one "
+    log(f"[files] classify_files over {len(paths)} paths: K1 launches {launches}, K2 launches "
+        f"{k2} (want {rn_epilogues(tm.clip_cfg)}, one batch); copies of one "
         f"file at other rows of the batch: largest score gap {gap:.3e}, top-5 order changed in "
         f"{moved} of {len(paths) - len(good)}; top-1 {[first[p][0] for p in good]}")
     assert gap <= DUP_ROW_ATOL, f"copies of one file differ by {gap:.3e} > {DUP_ROW_ATOL}"
     assert launches == 432 or tm.n_pad != 18432, launches
+    assert k2 == rn_epilogues(tm.clip_cfg), k2
 
     # the CLI against classify_files at its batch shape (3 rows) and weights
     three = good[:3]
@@ -1538,7 +1762,7 @@ def phase_files_and_serving(real, fixtures=None):
         f"on the same 3 files, scores within {worst:.1e} (tol 1e-4); first line "
         f"{json.dumps(lines[0])}")
     assert worst <= 1e-4, worst
-    return launches
+    return launches, k2
 
 
 # ViT-L/14 at 224 px (OpenAI's geometry: vision 1024 wide, 24 layers of 16
@@ -1566,8 +1790,8 @@ def phase_vit_l14(dev, work):
     n = write_openai_pt(CLIPConfig(**VIT_L14), path, seed=2)
     log(f"[vit-l14] {n / 1e6:.1f} M parameters, {os.path.getsize(path) / 1e9:.2f} GB fp16 "
         f"written in {time.time() - t0:.1f} s")
-    tm, _, _, launches = phase_slice(dev, arch="ViT-B/32", batches=1, image_launches=24,
-                                     checkpoint=path, folder="runs/chip_smoke_vit_l14")
+    tm, _, _, launches, _ = phase_slice(dev, arch="ViT-B/32", batches=1, image_launches=24,
+                                        checkpoint=path, folder="runs/chip_smoke_vit_l14")
     assert tm.clip_cfg.vision_width == 1024 and tm.clip_cfg.image_resolution == 224
     phase_vit_features(tm)
     os.remove(path)
@@ -1604,8 +1828,8 @@ def phase_decode(dev, real, n_procs, per_class=64, bank_launches=432):
     4 test and 4 seen classes, decoded at 224 px by the loaders' 8 threads
     and by ``n_procs`` processes (rows byte-equal), each timed; then
     ``run_test`` on the test classes' files with ``--num_proc_workers``
-    (the bank rebuilt: 432 K1 launches). Returns what the baselines' image
-    phase needs."""
+    (the bank rebuilt: 432 K1 launches; ``rn_epilogues`` K2 launches a
+    batch). Returns what the baselines' image phase needs."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1614,6 +1838,7 @@ def phase_decode(dev, real, n_procs, per_class=64, bank_launches=432):
     from hgr_tpu_torch.data import FileImageSource
     from hgr_tpu_torch.data.mp_decode import ProcessDecodePool
     from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.ops.bn_act import bn_act
     from hgr_tpu_torch.utils.logging import RunLogger
 
     work = os.path.dirname(real["paths"]["graph"])
@@ -1655,14 +1880,18 @@ def phase_decode(dev, real, n_procs, per_class=64, bank_launches=432):
              str(per_class), "--num_proc_workers", str(n_procs)]
     cfg = Config.from_args(args)
     hier, splits = driver.build_hierarchy(cfg)
-    attention.launches = 0
+    attention.launches = bn_act.launches = 0
     summary = driver.run_test(cfg, real["tm"], splits, RunLogger(cfg.save_path, echo=False))
-    launches = attention.launches
+    launches, k2 = attention.launches, bn_act.launches
+    k2_want = -(-summary["num_samples"] // per_class) * rn_epilogues(real["tm"].clip_cfg)
     log(f"[decode] run_test over the {len(test) * per_class} test JPEGs, --num_proc_workers "
         f"{n_procs}, batches of {per_class}: {summary['imgs_per_sec']:.0f} images/s, decode, "
-        f"bank build and metrics included; K1 launches {launches}; {json.dumps(summary)}")
+        f"bank build and metrics included; K1 launches {launches}, K2 launches {k2} (want "
+        f"{k2_want}); {json.dumps(summary)}")
     assert summary["num_samples"] == len(test) * per_class and launches == bank_launches, summary
-    return dict(root=root, manifests=manifests, launches=launches, n_test=len(test) * per_class,
+    assert k2 == k2_want, f"K2 launched {k2} times, not {k2_want}"
+    return dict(root=root, manifests=manifests, launches=launches, k2=k2,
+                n_test=len(test) * per_class,
                 n_seen=len(seen) * per_class)
 
 
@@ -1874,7 +2103,8 @@ def phase_export_text(dev, real, arch="RN50x4", bank_launches=432):
 
 
 def phase_guard(dev):
-    """K1 refuses a call that autograd would record: it has no backward."""
+    """K1 and K2 refuse a call that autograd would record: they have no
+    backward."""
     from hgr_tpu_torch.ops.attention import attention
 
     q = torch.randn(2, 2, 8, 64, device=dev, requires_grad=True)
@@ -1889,6 +2119,21 @@ def phase_guard(dev):
     with torch.no_grad():
         attention(q, q, q)
     assert attention.launches == n + 1
+
+    from hgr_tpu_torch.ops.bn_act import bn_act
+
+    x = torch.randn(2, 4, 4, 8, device=dev).permute(0, 3, 1, 2).requires_grad_(True)
+    n = bn_act.launches
+    try:
+        bn_act(x, None, relu=True)
+    except RuntimeError as e:
+        log(f"[guard] bn_act on a CUDA tensor that requires grad raises: {e}")
+    else:
+        raise AssertionError("bn_act ran under autograd")
+    assert bn_act.launches == n
+    with torch.no_grad():
+        bn_act(x, None, relu=True)
+    assert bn_act.launches == n + 1
 
 
 # ---- slice 7: the mesh over torch.distributed, and the offline builders ----
@@ -1980,9 +2225,9 @@ def leaf_digest(value):
 
 def cli_count(args, timeout=600):
     """The CLI (``driver.main(args)``) in a process of its own through this
-    script's ``--cli-rank`` mode, as one rank of no world; K1's launches are
-    read from its count file, as :func:`torchrun` reads each rank's.
-    Returns (standard output, launches)."""
+    script's ``--cli-rank`` mode, as one rank of no world; K1's and K2's
+    launches are read from its count file, as :func:`torchrun` reads each
+    rank's. Returns (standard output, K1 launches, K2 launches)."""
     import os
     import tempfile
 
@@ -1992,7 +2237,8 @@ def cli_count(args, timeout=600):
                            capture_output=True, text=True, timeout=timeout, env=env)
         assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
         with open(os.path.join(count_dir, "rank0")) as f:
-            return p.stdout, int(f.read())
+            k1, k2 = map(int, f.read().split())
+        return p.stdout, k1, k2
 
 
 def phase_orbax(dev, real, work, batch=256, num_compare=256, level_sizes=LEVEL_SIZES,
@@ -2015,7 +2261,7 @@ def phase_orbax(dev, real, work, batch=256, num_compare=256, level_sizes=LEVEL_S
         on from the fixture's, the update AdamW's on the carried moments,
         and its norm against a fresh AdamW step's on the same gradient.
 
-    Returns K1's launches in (a)'s CLI run."""
+    Returns K1's and K2's launches in (a)'s CLI run."""
     import hashlib
     import os
     import shutil
@@ -2061,11 +2307,16 @@ def phase_orbax(dev, real, work, batch=256, num_compare=256, level_sizes=LEVEL_S
     cli = real["cfg_args"] + ["--load", "True", "--load_path", ckpt, "--max_test_batches", "1",
                               "--folder", folder, "--device", str(dev.index or 0)]
     t0 = time.time()
-    _, launches = cli_count(cli)
-    final = _final_eval(Config.from_args(cli).save_path)
+    _, launches, k2 = cli_count(cli)
+    cli_cfg = Config.from_args(cli)
+    final = _final_eval(cli_cfg.save_path)
+    k2_want = (-(-int(final["num_samples"]) // cli_cfg.test_batch_size)
+               * rn_epilogues(real["tm"].clip_cfg))
     log(f"[orbax] CLI `python -m hgr_tpu_torch --load True --load_path {ckpt} ...` in "
-        f"{time.time() - t0:.1f} s: K1 launches {launches}; final {json.dumps(final)}")
+        f"{time.time() - t0:.1f} s: K1 launches {launches}, K2 launches {k2} (want {k2_want}); "
+        f"final {json.dumps(final)}")
     assert launches == bank_launches, f"K1 launched {launches} times, not {bank_launches}"
+    assert k2 == k2_want, f"K2 launched {k2} times, not {k2_want}"
     assert final["num_samples"] > 0 and all(
         math.isfinite(v) for v in final.values() if isinstance(v, float)), final
 
@@ -2150,17 +2401,17 @@ def phase_orbax(dev, real, work, batch=256, num_compare=256, level_sizes=LEVEL_S
     del tm, before, after
     shutil.rmtree(cfg.save_path, ignore_errors=True)
     shutil.rmtree(folder, ignore_errors=True)
-    return launches
+    return launches, k2
 
 
 def torchrun(args, nproc=MESH_WORLD, timeout=600, pred_dir=None):
     """``driver.main(args)`` in ``nproc`` ranks under ``python -m
     torch.distributed.run --standalone``, each through this script's
-    ``--cli-rank`` mode (the CLI's entry point, with K1's launches counted;
-    with ``pred_dir``, each rank's merged predictions saved there). Each
-    rank writes its count to a file of its own, since the ranks' standard
-    outputs share one pipe and may interleave. Returns (standard output,
-    each rank's K1 launches)."""
+    ``--cli-rank`` mode (the CLI's entry point, with K1's and K2's launches
+    counted; with ``pred_dir``, each rank's merged predictions saved there).
+    Each rank writes its counts to a file of its own, since the ranks'
+    standard outputs share one pipe and may interleave. Returns (standard
+    output, each rank's K1 launches, each rank's K2 launches)."""
     import os
     import tempfile
 
@@ -2171,22 +2422,26 @@ def torchrun(args, nproc=MESH_WORLD, timeout=600, pred_dir=None):
                    **({PRED_DIR_ENV: pred_dir} if pred_dir else {}))
         p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env)
         assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
-        launches = {int(f[len("rank"):]): int(open(os.path.join(count_dir, f)).read())
-                    for f in os.listdir(count_dir)}
+        launches = {}
+        for f in os.listdir(count_dir):
+            with open(os.path.join(count_dir, f)) as fh:
+                launches[int(f[len("rank"):])] = tuple(map(int, fh.read().split()))
     assert sorted(launches) == list(range(nproc)), (launches, p.stdout[-3000:])
-    return p.stdout, [launches[r] for r in range(nproc)]
+    k1, k2 = zip(*(launches[r] for r in range(nproc)))
+    return p.stdout, list(k1), list(k2)
 
 
 def cli_rank(argv):
     """One rank of :func:`torchrun`: ``python -m hgr_tpu_torch``'s
-    ``driver.main`` with K1's count reset just before and read just after.
-    Where ``$CHIP_SMOKE_PRED_DIR`` is set, a spy on the sharded eval keeps
+    ``driver.main`` with K1's and K2's counts reset just before and read
+    just after. Where ``$CHIP_SMOKE_PRED_DIR`` is set, a spy on the sharded eval keeps
     each batch's target and this rank's merged predictions
     (``ShardedEval.merged_preds``) and saves them there as ``rank{r}.pt``."""
     import os
 
     from hgr_tpu_torch import driver
     from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.ops.bn_act import bn_act
     from hgr_tpu_torch.parallel.eval_spmd import ShardedEval
 
     pred_dir, seen = os.environ.get(PRED_DIR_ENV), []
@@ -2203,12 +2458,13 @@ def cli_rank(argv):
             return out
 
         ShardedEval.metrics_from_logits, ShardedEval.merged_preds = metrics_spy, merge_spy
-    attention.launches = 0
+    attention.launches = bn_act.launches = 0
     driver.main(argv)
     rank = os.environ["RANK"]
     with open(os.path.join(os.environ[COUNT_DIR_ENV], f"rank{rank}"), "w") as f:
-        f.write(str(attention.launches))
-    sys.stdout.write(f"[cli-rank {rank}] K1 launches {attention.launches}\n")
+        f.write(f"{attention.launches} {bn_act.launches}")
+    sys.stdout.write(f"[cli-rank {rank}] K1 launches {attention.launches}, K2 launches "
+                     f"{bn_act.launches}\n")
     sys.stdout.flush()
     if pred_dir:
         torch.save(seen, os.path.join(pred_dir, f"rank{os.environ['RANK']}.pt"))
@@ -2270,7 +2526,8 @@ def phase_mesh_eval(real, bank_launches=432):
     ``MESH_VAL_ATOL``, and every top-1, level and TOR prediction equal or, in
     the one-process logits, within ``MESH_VAL_ATOL`` of the best; the counts
     to one process's, apart by at most the images whose predictions so
-    differ. Returns each rank's K1 launches."""
+    differ. Returns each rank's K1 launches and each rank's K2 launches
+    (``rn_epilogues`` for each batch's half it encodes)."""
     import os
 
     from hgr_tpu_torch.config import Config
@@ -2283,7 +2540,7 @@ def phase_mesh_eval(real, bank_launches=432):
             "--load_path", os.path.join(real["save_path"], "clip_0")]
     mesh = ["--mesh_data", "2", "--mesh_model", "2", "--dist_backend", "gloo"]
     t0 = time.time()
-    _, launches = torchrun(args + mesh, pred_dir=pred_dir)
+    _, launches, k2 = torchrun(args + mesh, pred_dir=pred_dir)
     wall = time.time() - t0
     cfg = Config.from_args(args)
     finals = [r for r in map(json.loads, open(os.path.join(cfg.save_path, "metrics.jsonl")))
@@ -2304,6 +2561,7 @@ def phase_mesh_eval(real, bank_launches=432):
     caught = {"halves swapped": 0, "rows shifted by one": 0}
     batches = list(one_process_preds(tm, cfg))
     assert len(batches) == len(ranks[0]), (len(batches), len(ranks[0]))
+    k2_want = len(batches) * rn_epilogues(tm.clip_cfg)  # each rank encodes its half a batch
     for i, (target, m, logits, r_vals, r_ids, r_lev, r_lev_vals) in enumerate(batches):
         total = m if total is None else accumulate(total, m)
         d0, d1 = ranks[0][i], ranks[2][i]
@@ -2343,7 +2601,7 @@ def phase_mesh_eval(real, bank_launches=432):
     diff = max(abs(a[k] - b[k]) for k in b)
     log(f"[mesh-eval] CLI under torch.distributed.run, 4 gloo ranks on one card, mesh 2 x 2, "
         f"its own folder, --load_path clip_0: {wall:.1f} s of command; K1 launches by rank "
-        f"{launches}; one final record")
+        f"{launches}, K2 launches by rank {k2} (want {k2_want} each); one final record")
     log(f"[mesh-eval] mesh: { {k: got[k] for k in want if k != 'imgs_per_sec'} }")
     log(f"[mesh-eval] one process: { {k: want[k] for k in want if k != 'imgs_per_sec'} }")
     log(f"[mesh-eval] image by image against one process ({n_img} images, {len(batches)} "
@@ -2360,7 +2618,8 @@ def phase_mesh_eval(real, bank_launches=432):
     assert all(v >= n_img // 2 for v in caught.values()), caught  # such faults would fail
     assert diff <= near + 1e-3, (got, want)  # path and point: fp32 sums in another order
     assert launches == [bank_launches] * MESH_WORLD, launches
-    return launches
+    assert k2 == [k2_want] * MESH_WORLD, k2
+    return launches, k2
 
 
 def _sharded_cases(tm, batch, seed):
@@ -2579,7 +2838,8 @@ def phase_mesh_train(dev, work, steps=2, batch=256, num_compare=256, arch="RN50"
     batches, and the gradient that step's update applies against that
     process's mean gradient (cosine). Then ``python -m hgr_tpu_torch
     --train True`` with the mesh under ``torch.distributed.run``, 2 episodes
-    (one step of 2 replicas). Returns each CLI rank's K1 launches in it."""
+    (one step of 2 replicas; no K2 launch, autograd runs the plain
+    epilogues). Returns each CLI rank's K1 launches in it."""
     import os
     import shutil
 
@@ -2645,16 +2905,18 @@ def phase_mesh_train(dev, work, steps=2, batch=256, num_compare=256, arch="RN50"
             "--synthetic_images_per_class", str(batch), "--print_freq", "1", "--folder", folder,
             "--mesh_data", "2", "--mesh_model", "2", "--dist_backend", "gloo"]
     t0 = time.time()
-    _, launches = torchrun(args)
+    _, launches, k2 = torchrun(args)
     save = Config.from_args(args).save_path
     records = [json.loads(line) for line in open(os.path.join(save, "metrics.jsonl"))]
     losses = [r["loss"] for r in records if r["event"] == "train"]
     log(f"[mesh-train] CLI `python -m hgr_tpu_torch --train True --n_episodes 2 --mesh_data 2 "
         f"--mesh_model 2 --dist_backend gloo` under torch.distributed.run: {time.time() - t0:.1f} "
         f"s of command, rank 0 logged losses {losses}, wrote {sorted(os.listdir(save))}; K1 "
-        f"launches by rank {launches} (the train steps run the plain attention)")
+        f"launches by rank {launches}, K2 by rank {k2} (the train steps run the plain attention "
+        f"and epilogues)")
     assert len(losses) == 1 and math.isfinite(losses[0])
     assert os.path.isdir(os.path.join(save, "clip_0")) and launches == [0] * MESH_WORLD
+    assert k2 == [0] * MESH_WORLD, k2
     shutil.rmtree(folder, ignore_errors=True)
     return launches
 
@@ -2810,21 +3072,23 @@ def main() -> int:
     dev = select_device("cuda:0")
     n_procs = min(8, os.cpu_count() or 1)
     main_row = phase_kernels(dev)
+    bn_act_row, k2_encodes = phase_bn_act(dev)
     phase_chains()
     bench_vit = phase_bench()
-    tm, bank, summary, rn50 = phase_slice(dev)
+    tm, bank, summary, rn50, k2_rn50 = phase_slice(dev)
     phase_plain_bank(tm, bank)
     fp32_bank = phase_fp32_bank(tm)
     phase_small_reference(tm, bank)
     phase_nccl(dev, tm, bank)
     del tm, bank
-    vit, _, _, vit_launches = phase_slice(dev, arch="ViT-B/32", batches=2, image_launches=12)
+    vit, _, _, vit_launches, _ = phase_slice(dev, arch="ViT-B/32", batches=2, image_launches=12)
     phase_vit_features(vit)
     del vit
-    vit16, _, _, vit16_launches = phase_slice(dev, arch="ViT-B/16", batches=1, image_launches=12)
+    vit16, _, _, vit16_launches, _ = phase_slice(dev, arch="ViT-B/16", batches=1,
+                                                 image_launches=12)
     phase_vit_features(vit16)
     del vit16
-    rn50x4 = phase_slice(dev, arch="RN50x4", batches=1)[3]
+    rn50x4, k2_rn50x4 = phase_slice(dev, arch="RN50x4", batches=1)[3:]
     work = tempfile.mkdtemp(prefix="hgr_real_inputs_")
     try:
         vit_l14 = phase_vit_l14(dev, work)
@@ -2832,7 +3096,7 @@ def main() -> int:
         serving = phase_files_and_serving(real)
         mesh_eval = phase_mesh_eval(real)
         orbax_load = phase_orbax(dev, real, work)
-        real_launches = real.pop("launches")
+        real_launches, k2_real = real.pop("launches"), real.pop("k2")
         decoded = phase_decode(dev, real, n_procs)
         phase_baseline_images(dev, real, decoded, n_procs)
         phase_resnet_reference(dev)
@@ -2859,17 +3123,29 @@ def main() -> int:
                "rn50x4_eval": rn50x4,
                "vit_l14_eval": vit_l14,
                "rn50_real_inputs_eval": real_launches,
-               "rn50_orbax_load_eval": orbax_load,
+               "rn50_orbax_load_eval": orbax_load[0],
                "rn50_files_num_proc_workers_eval": decoded["launches"],
                "export_text_feats": text,
-               **({} if serving is None else {"rn50_serve_classify_files": serving}),
+               **({} if serving is None else {"rn50_serve_classify_files": serving[0]}),
                "rn50_train_steps": train["train_steps"], "rn50_test_after_train": train["test"],
                "rn50_coop_train_steps": coop["train_steps"],
                "rn50_coop_test_after_train": coop["test"],
                "rn50_flat_train_steps": flat["train_steps"],
                "rn50_flat_test_after_train": flat["test"],
                "test_rn_clip_flat_baseline_bank": clip_flat,
-               "rn50_mesh_eval": sum(mesh_eval), "rn50_mesh_train_steps": sum(mesh_train)}
+               "rn50_mesh_eval": sum(mesh_eval[0]), "rn50_mesh_train_steps": sum(mesh_train)}
+    # K2's launches as each phase counted them (the mesh train's 0 is asserted there)
+    k2_by_path = {**k2_encodes, "rn50_eval": k2_rn50, "rn50x4_eval": k2_rn50x4,
+                  "rn50_real_inputs_eval": k2_real, "rn50_orbax_load_eval": orbax_load[1],
+                  "rn50_files_num_proc_workers_eval": decoded["k2"],
+                  **({} if serving is None else {"rn50_serve_classify_files": serving[1]}),
+                  "rn50_train_steps": train["k2_train_steps"],
+                  "rn50_test_after_train": train["k2_test"],
+                  "rn50_coop_train_steps": coop["k2_train_steps"],
+                  "rn50_coop_test_after_train": coop["k2_test"],
+                  "rn50_flat_train_steps": flat["k2_train_steps"],
+                  "rn50_flat_test_after_train": flat["k2_test"],
+                  "rn50_mesh_eval": sum(mesh_eval[1])}
     kernels = [dict(
         name="attention",
         route="cuda",
@@ -2878,6 +3154,14 @@ def main() -> int:
         launches=sum(by_path.values()),
         launches_by_path=by_path,
         **main_row,
+    ), dict(
+        name="bn_act",
+        route="cuda",
+        source="hgr_tpu_torch/csrc/bn_act.cu",
+        replaces="none (XLA fuses the ResNet's BatchNorm epilogues on the TPU)",
+        launches=sum(k2_by_path.values()),
+        launches_by_path=k2_by_path,
+        **bn_act_row,
     )]
     log(json.dumps({"kernels": kernels}))
     log(smi_name_power())

@@ -6,7 +6,9 @@ Two kinds of thing live here:
 - functions over tensors with the JAX package's numerics: master parameters
   stay fp32 and are cast to the activation dtype at use; LayerNorm and the
   attention softmax run in fp32 and return the input dtype; BatchNorm is
-  frozen-stats and folded into one multiply-add in the same operation order;
+  frozen-stats and folded into one multiply-add in the same operation order
+  (``batch_norm_act`` adds the ResNet's epilogue: the plain twin of the
+  fused kernel in ``ops/bn_act.py``);
 - parameter holders (``Linear``, ``LayerNorm``, ``Conv2d``, ``BatchNorm2d``,
   ``Embedding``) whose ``state_dict`` keys are the OpenAI CLIP names
   (``weight``, ``bias``, ``running_mean``, ``running_var``). They allocate
@@ -69,8 +71,28 @@ def batch_norm(
     return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
-def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
-    return F.avg_pool2d(x, k)
+def batch_norm_act(
+    x: torch.Tensor,
+    bn: Optional["BatchNorm2d"],
+    residual: Optional[torch.Tensor] = None,
+    residual_bn: Optional["BatchNorm2d"] = None,
+    relu: bool = False,
+    pool: bool = False,
+) -> torch.Tensor:
+    """Frozen BatchNorm and the ResNet's epilogue on NCHW: ``bn`` (none: the
+    identity), plus ``residual`` (itself through ``residual_bn`` where
+    given), then ReLU, then the 2x2 mean, each a PyTorch op in that order.
+    The plain twin of the fused kernel in ``ops/bn_act.py``."""
+    if bn is not None:
+        x = batch_norm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    if residual is not None:
+        if residual_bn is not None:
+            residual = batch_norm(residual, residual_bn.weight, residual_bn.bias,
+                                  residual_bn.running_mean, residual_bn.running_var)
+        x = x + residual
+    if relu:
+        x = F.relu(x)
+    return F.avg_pool2d(x, 2) if pool else x
 
 
 def attention_scores(
@@ -200,7 +222,8 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """Frozen-stats BN: affine parameters plus running statistics."""
+    """Frozen-stats BN: affine parameters plus running statistics, applied
+    by ``batch_norm_act`` (or its kernel, ``ops/bn_act.py``)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -214,11 +237,6 @@ class BatchNorm2d(nn.Module):
         nn.init.zeros_(self.bias)
         nn.init.zeros_(self.running_mean)
         nn.init.ones_(self.running_var)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(
-            x, self.weight, self.bias, self.running_mean, self.running_var
-        )
 
 
 class Embedding(nn.Module):

@@ -9,6 +9,12 @@ as the reference's full self-attention read at row 0). Module and
 parameter names are OpenAI's (``layer1.0.downsample.0.weight``,
 ``attnpool.q_proj.weight``, ...). Activations are NCHW; a tensor permuted
 from NHWC keeps channels-last strides, which cuDNN takes as they are.
+
+Each BatchNorm runs with what follows it (the residual add, the ReLU, the
+2x2 mean, and in a block with a downsample its BatchNorm too) as one call of
+``ops.bn_act.bn_act``, the fused kernel K2 on CUDA, whose output has no
+``grad_fn``; where autograd would record the call (the train step), the
+plain twin ``layers.batch_norm_act``, the same ops in the same order.
 """
 
 from __future__ import annotations
@@ -16,28 +22,35 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm2d, Conv2d, Linear, _param, avg_pool, normal_
+from ..ops.bn_act import bn_act
+from .layers import BatchNorm2d, Conv2d, Linear, _param, batch_norm_act, normal_
 
 EXPANSION = 4
 
 
-class Downsample(nn.Module):
-    """OpenAI's ``downsample`` Sequential: ``-1`` avgpool (no parameters),
-    ``0`` 1x1 conv, ``1`` BN, so the keys are ``downsample.0.weight`` etc."""
+def epilogue(x: torch.Tensor, *modules: nn.Module):
+    """``bn_act``, or its plain twin ``batch_norm_act`` where autograd would
+    record the calls: gradients on, and ``x`` or a parameter of ``modules``
+    requires one (then every activation after it does too)."""
+    if torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for m in modules for p in m.parameters())
+    ):
+        return batch_norm_act
+    return bn_act
 
-    def __init__(self, inplanes: int, outplanes: int, stride: int):
+
+class Downsample(nn.Module):
+    """The parameters of OpenAI's ``downsample`` Sequential: ``-1`` avgpool
+    (none), ``0`` 1x1 conv, ``1`` BN, so the keys are ``downsample.0.weight``
+    etc. It has no forward: ``Bottleneck.forward`` pools and convolves the
+    block input and folds the BN into the block's last epilogue."""
+
+    def __init__(self, inplanes: int, outplanes: int):
         super().__init__()
-        self.stride = stride
         self.add_module("0", Conv2d(inplanes, outplanes, 1))
         self.add_module("1", BatchNorm2d(outplanes))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.stride > 1:
-            x = avg_pool(x, self.stride)
-        return self._modules["1"](self._modules["0"](x))
 
 
 class Bottleneck(nn.Module):
@@ -52,7 +65,7 @@ class Bottleneck(nn.Module):
         self.bn3 = BatchNorm2d(planes * EXPANSION)
         self.downsample = None
         if stride > 1 or inplanes != planes * EXPANSION:
-            self.downsample = Downsample(inplanes, planes * EXPANSION, stride)
+            self.downsample = Downsample(inplanes, planes * EXPANSION)
 
     def init(self, g: torch.Generator) -> None:
         for conv in (self.conv1, self.conv2, self.conv3):
@@ -64,13 +77,15 @@ class Bottleneck(nn.Module):
             self.downsample._modules["1"].init()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        if self.stride > 1:
-            out = avg_pool(out, self.stride)
-        out = self.bn3(self.conv3(out))
-        idn = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + idn)
+        epi = epilogue(x, self)
+        out = epi(self.conv1(x), self.bn1, relu=True)
+        out = epi(self.conv2(out), self.bn2, relu=True, pool=self.stride > 1)
+        out = self.conv3(out)
+        if self.downsample is None:
+            return epi(out, self.bn3, residual=x, relu=True)
+        conv, bn = self.downsample._modules["0"], self.downsample._modules["1"]
+        idn = epi(x, None, pool=True) if self.stride > 1 else x  # the strides are 1 and 2
+        return epi(out, self.bn3, residual=conv(idn), residual_bn=bn, relu=True)
 
 
 class AttentionPool2d(nn.Module):
@@ -154,10 +169,10 @@ class ModifiedResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, 3, H, W] in the compute dtype."""
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        x = F.relu(self.bn3(self.conv3(x)))
-        x = avg_pool(x, 2)
+        epi = epilogue(x, self.conv1, self.bn1, self.conv2, self.bn2, self.conv3, self.bn3)
+        x = epi(self.conv1(x), self.bn1, relu=True)
+        x = epi(self.conv2(x), self.bn2, relu=True)
+        x = epi(self.conv3(x), self.bn3, relu=True, pool=True)
         for li in range(1, 5):
             x = getattr(self, f"layer{li}")(x)
         return self.attnpool(x)

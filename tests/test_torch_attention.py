@@ -4,7 +4,9 @@ On the CPU the wrapper ``hgr_tpu_torch.ops.attention.attention`` runs its
 plain twin ``attention_scores``; both are held to the Pallas kernel in
 interpret mode and to the XLA ``attention_scores`` in fp32, within the
 2e-6 of ``tests/test_ops.py:28``. The CUDA kernel itself is held to the
-twin on the card by ``chip_smoke.py``.
+twin on the card by ``chip_smoke.py``. The argument checks and the
+import-time behaviour of K2 (``ops/bn_act.py``, the ResNet's fused
+BatchNorm epilogue) are held here beside K1's.
 """
 
 import os
@@ -24,6 +26,7 @@ from hgr_tpu.models.layers import causal_mask as jax_causal_mask  # noqa: E402
 from hgr_tpu.ops.attention import pallas_attention  # noqa: E402
 from hgr_tpu_torch.models.layers import attention_scores, causal_mask, mha  # noqa: E402
 from hgr_tpu_torch.ops import attention as k1  # noqa: E402
+from hgr_tpu_torch.ops import bn_act as k2  # noqa: E402
 from hgr_tpu_torch.ops import build  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -187,6 +190,7 @@ def test_kernel_argument_checks():
         with pytest.raises(ValueError, match=match):
             k1._check(q, k, v, mask)
     _check_head_dim_padding()
+    _bn_act_refuses_bad_arguments()
 
 
 def _check_head_dim_padding():
@@ -213,6 +217,63 @@ def _check_head_dim_padding():
                                        atol=ATOL)
     with pytest.raises(ValueError, match="Dh <= 64"):
         k1.pad_head_dim(*map(torch.from_numpy, _qkv(4, seed=5, Dh=80)))
+
+
+class _BN:
+    """BatchNorm parameters as ``models.layers.BatchNorm2d`` holds them."""
+
+    def __init__(self, C, dtype=torch.float32):
+        self.weight, self.bias, self.running_mean, self.running_var = (
+            torch.ones(C, dtype=dtype) for _ in range(4))
+
+
+def _bn_act_refuses_bad_arguments():
+    """K2 refuses, before any launch and each with its own message, what its
+    kernel does not take (layout, dtype, channels, residual shape, a
+    residual with the pool, BatchNorm parameters), devices other than the
+    CPU and CUDA, and a call that autograd would record; a channels-last
+    call it takes passes."""
+    def nhwc(N=2, C=16, H=4, W=4, dtype=torch.bfloat16):
+        return torch.zeros(N, H, W, C, dtype=dtype).permute(0, 3, 1, 2)
+
+    x = nhwc()
+    k2._check(x, _BN(16), nhwc(), _BN(16), False)
+    k2._check(nhwc(C=8, H=1, W=1, dtype=torch.float32), None, None, None, True)
+    cases = [
+        ((torch.zeros(2, 16, 4, 4, dtype=torch.bfloat16), _BN(16), None, None), "channels-last"),
+        ((x, _BN(16), torch.zeros(2, 16, 4, 4, dtype=torch.bfloat16), None), "channels-last"),
+        ((nhwc(dtype=torch.float16), _BN(16), None, None), "bfloat16 or float32"),
+        ((nhwc(C=12), _BN(12), None, None), "multiples of 8"),
+        ((nhwc(C=6, dtype=torch.float32), _BN(6), None, None), "multiples of 4"),
+        ((x, _BN(16), nhwc(H=2, W=2), None), "residual must match"),
+        ((x, _BN(16), nhwc(dtype=torch.float32), None), "residual must match"),
+        ((x, _BN(16), None, _BN(16)), "needs a residual"),
+        ((x, _BN(16, torch.bfloat16), None, None), "float32"),
+        ((x, _BN(8), None, None), r"float32 \[16\]"),
+        ((x, None, nhwc(), _BN(8)), r"float32 \[16\]"),
+        ((torch.zeros(2, 16, 4), None, None, None), r"\[N, C, H, W\]"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            k2._check(*args, False)
+    with pytest.raises(ValueError, match="pool takes no residual"):
+        k2._check(x, _BN(16), nhwc(), None, True)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        k2.bn_act(torch.zeros(1, 8, 2, 2, device="meta"), None)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k2.bn_act_cuda(x, _BN(16))
+    for args in ((x, _BN(16)), (x, _BN(16), nhwc(), _BN(16)), (x, None, None, None)):
+        k2.refuse_autograd(*args)
+    bn = _BN(16)
+    bn.weight.requires_grad_(True)
+    for args in ((nhwc().requires_grad_(True), None), (x, bn),
+                 (x, None, nhwc().requires_grad_(True), None), (x, None, x, bn)):
+        with pytest.raises(RuntimeError, match="batch_norm_act"):
+            k2.refuse_autograd(*args)
+        with torch.no_grad():
+            k2.refuse_autograd(*args)
+        with torch.inference_mode():
+            k2.refuse_autograd(*args)
 
 
 def _cuda_route_refuses_other_devices():
@@ -249,7 +310,8 @@ def test_import_needs_no_nvcc_or_gpu(tmp_path):
                CUDA_VISIBLE_DEVICES="")
     code = (
         "import sys, hgr_tpu_torch.ops.attention as a, hgr_tpu_torch.ops.build as b\n"
-        "assert a._lib is None\n"
+        "import hgr_tpu_torch.ops.bn_act as k2, hgr_tpu_torch.models.resnet\n"
+        "assert a._lib is None and k2._lib is None\n"
         "assert 'jax' not in sys.modules\n"
         "try:\n    b.nvcc_path()\nexcept RuntimeError:\n    print('no-nvcc')\n"
     )
@@ -261,4 +323,5 @@ def test_import_needs_no_nvcc_or_gpu(tmp_path):
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libattention-") and path.suffix == ".so"
     assert os.path.relpath(build.BUILD_DIR, REPO).split(os.sep)[0] == "build"
-    assert "attention" in build.all_sources()
+    assert {"attention", "bn_act"} <= set(build.all_sources())
+    assert build.library_path("bn_act").name.startswith("libbn_act-")
