@@ -1765,34 +1765,32 @@ def phase_files_and_serving(real, fixtures=None):
     return launches, k2
 
 
-# ViT-L/14 at 224 px (OpenAI's geometry: vision 1024 wide, 24 layers of 16
-# heads, patch 14, so T = 257; text 768 wide, 12 heads, 12 layers): no
-# configuration of the zoo, so the smoke writes a checkpoint of it and the
-# port reads the architecture from the file, as it would read OpenAI's
-VIT_L14 = dict(embed_dim=768, image_resolution=224, vision_layers=(24,), vision_width=1024,
-               vision_patch_size=14, transformer_width=768, transformer_heads=12,
-               transformer_layers=12)
-
-
 def phase_vit_l14(dev, work):
-    """ViT-L/14 eval at full width through the user's route: an
-    OpenAI-layout fp16 ``.pt`` with seeded weights, ``TreeModel.load_torch``
-    and ``run_test`` over one batch of 512 against the 18,432-row bank (K1:
-    12 x 36 = 432 launches in the bank, 24 in the image tower at T = 257),
+    """ViT-L/14 eval at full width (the zoo's ``"ViT-L/14"``: vision 1024
+    wide, 24 layers of 16 heads, patch 14, so T = 257; text 768 wide, 12
+    heads) through the user's route: an OpenAI-layout fp16 ``.pt`` with
+    seeded weights, whose architecture ``sniff_config`` reads as the zoo's,
+    loaded by ``TreeModel.load_torch`` into the zoo name's model, and
+    ``run_test`` over one batch of 512 against the 18,432-row bank (K1: 12
+    x 36 = 432 launches in the bank, 24 in the image tower at T = 257),
     then one batch's features through K1 held to the plain attention's.
     Returns K1's launches in ``run_test``."""
     import os
 
-    from hgr_tpu_torch.models.clip import CLIPConfig
+    from hgr_tpu_torch.models.clip import get_config
+    from hgr_tpu_torch.models.convert import sniff_config
 
+    cfg = get_config("ViT-L/14")
     path = os.path.join(work, "vit_l14.pt")
     t0 = time.time()
-    n = write_openai_pt(CLIPConfig(**VIT_L14), path, seed=2)
+    n = write_openai_pt(cfg, path, seed=2)
     log(f"[vit-l14] {n / 1e6:.1f} M parameters, {os.path.getsize(path) / 1e9:.2f} GB fp16 "
         f"written in {time.time() - t0:.1f} s")
-    tm, _, _, launches, _ = phase_slice(dev, arch="ViT-B/32", batches=1, image_launches=24,
+    sniffed = sniff_config(torch.load(path, map_location="cpu", mmap=True, weights_only=True))
+    assert sniffed == cfg, f"the file reads as {sniffed}, not the zoo's {cfg}"
+    tm, _, _, launches, _ = phase_slice(dev, arch="ViT-L/14", batches=1, image_launches=24,
                                         checkpoint=path, folder="runs/chip_smoke_vit_l14")
-    assert tm.clip_cfg.vision_width == 1024 and tm.clip_cfg.image_resolution == 224
+    assert tm.clip_cfg == cfg
     phase_vit_features(tm)
     os.remove(path)
     return launches

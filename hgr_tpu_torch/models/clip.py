@@ -54,8 +54,9 @@ class CLIPConfig:
         return self.vision_width * 32 // 64
 
 
-# The zoo (hyperparameters of the public OpenAI checkpoints,
-# hgr_tpu/models/clip.py:55-115) and the tiny configurations the tests use.
+# The zoo (hyperparameters of the public OpenAI checkpoints: the JAX
+# package's, hgr_tpu/models/clip.py:55-115, and ViT-L/14) and the tiny
+# configurations the tests use.
 CONFIGS: Dict[str, CLIPConfig] = {
     "RN50": CLIPConfig(),
     "RN101": CLIPConfig(embed_dim=512, vision_layers=(3, 4, 23, 3), transformer_width=512),
@@ -88,6 +89,16 @@ CONFIGS: Dict[str, CLIPConfig] = {
         vision_width=768,
         vision_patch_size=16,
         transformer_width=512,
+    ),
+    # the port's one name beyond the JAX zoo: OpenAI's "ViT-L/14" (clip/clip.py
+    # _MODELS; build_model reads these widths from the checkpoint), T = 257
+    "ViT-L/14": CLIPConfig(
+        embed_dim=768,
+        vision_layers=(24,),
+        vision_width=1024,
+        vision_patch_size=14,
+        transformer_width=768,
+        transformer_heads=12,
     ),
     "TEST-RN": CLIPConfig(
         embed_dim=64,

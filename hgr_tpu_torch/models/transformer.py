@@ -11,12 +11,14 @@ The JAX package stacks the blocks for ``lax.scan``; here they are a
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import annotate
 from .layers import LayerNorm, Linear, _param, mha, normal_, quick_gelu
 
 
@@ -38,9 +40,13 @@ class MLP(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    """With ``span``, the attention half records the span ``{span}.attn``
+    and the MLP half ``{span}.mlp`` (``utils/profiling.annotate``)."""
+
+    def __init__(self, width: int, heads: int, span: Optional[str] = None):
         super().__init__()
         self.heads = heads
+        self.spans = (f"{span}.attn", f"{span}.mlp") if span else None
         self.attn = MultiheadAttention(width)
         self.ln_1 = LayerNorm(width)
         self.mlp = MLP(width)
@@ -59,21 +65,28 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_1.init()
         self.ln_2.init()
 
+    def _span(self, i: int):
+        return annotate(self.spans[i]) if self.spans else contextlib.nullcontext()
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], attn_fn) -> torch.Tensor:
         a = self.attn
-        x = x + mha(
-            self.ln_1(x), a.in_proj_weight, a.in_proj_bias,
-            a.out_proj.weight, a.out_proj.bias, self.heads, mask, attn_fn,
-        )
-        h = quick_gelu(self.mlp.c_fc(self.ln_2(x)))
-        return x + self.mlp.c_proj(h)
+        with self._span(0):
+            x = x + mha(
+                self.ln_1(x), a.in_proj_weight, a.in_proj_bias,
+                a.out_proj.weight, a.out_proj.bias, self.heads, mask, attn_fn,
+            )
+        with self._span(1):
+            return x + self.mlp.c_proj(quick_gelu(self.mlp.c_fc(self.ln_2(x))))
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    """``span`` names the spans each block records (``ResidualAttentionBlock``);
+    None records none."""
+
+    def __init__(self, width: int, layers: int, heads: int, span: Optional[str] = None):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads) for _ in range(layers)
+            ResidualAttentionBlock(width, heads, span) for _ in range(layers)
         )
 
     def init(self, g: torch.Generator) -> None:

@@ -1,11 +1,12 @@
-"""Vision Transformer image encoder, CLIP's ViT-B family (port of
+"""Vision Transformer image encoder, CLIP's ViT-B and ViT-L (port of
 ``hgr_tpu/models/vit.py:17-58``).
 
 Behaviour of the reference ``VisionTransformer`` (``clip/model.py:202-236``):
 conv patchify, class token, learned positional embeddings, pre and post
 LayerNorm, projection to the shared embedding dim. The self-attention has no
 mask, so on the card the fused kernel runs at T = grid² + 1 (50 for
-ViT-B/32, 197 for ViT-B/16). Names are OpenAI's (``conv1.weight``,
+ViT-B/32, 197 for ViT-B/16, 257 for ViT-L/14). Each block records the spans
+``vit.attn`` and ``vit.mlp``. Names are OpenAI's (``conv1.weight``,
 ``class_embedding``, ``transformer.resblocks.{i}.*``, ``ln_post``,
 ``proj``).
 """
@@ -35,7 +36,7 @@ class VisionTransformer(nn.Module):
         self.class_embedding = _param(width)
         self.positional_embedding = _param(n_patches + 1, width)
         self.ln_pre = LayerNorm(width)
-        self.transformer = Transformer(width, layers, heads)
+        self.transformer = Transformer(width, layers, heads, span="vit")
         self.ln_post = LayerNorm(width)
         self.proj = _param(width, output_dim)
 

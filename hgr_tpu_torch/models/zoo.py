@@ -18,7 +18,9 @@ from ..device import select_device
 from .clip import CLIP, CONFIGS, CLIPConfig, clip_init, get_config
 
 # sha256 of the official OpenAI checkpoint files, from their published URLs
-# (clip/clip.py:25-32 embeds these digests in the URL path)
+# (clip/clip.py:25-32 embeds these digests in the URL path); the JAX
+# package's set, which has no ViT-L/14 digest, so ``verify_checkpoint``
+# refuses every ViT-L/14 file
 OFFICIAL_SHA256 = {
     "RN50": "afeb0e10f9e5a86da6080e35cf09123aca3b358a0c3e3b6c78a7b63bc04b6762",
     "RN101": "8fa8567bab74a42d41c5915025a8e4538c3bdbe8804a470a72f30b0d94fab599",

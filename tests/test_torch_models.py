@@ -189,9 +189,11 @@ VIT = {
 
 def test_vit_image_tower_matches_jax():
     """ViT features in fp32 against JAX, rtol 1e-4 + atol 1e-5, from raw
-    uint8 and float images, for each configuration of ``VIT``."""
+    uint8 and float images, for each configuration of ``VIT``; and the ViT
+    blocks' spans (``_check_vit_block_spans``)."""
     for name in VIT:
         _vit_matches_jax(*VIT[name])
+    _check_vit_block_spans()
 
 
 def _vit_matches_jax(arch, over):
@@ -228,15 +230,19 @@ def test_remat_gradients_match():
 
 
 def test_rn_configs_match_jax():
-    """Every configuration and official digest of the zoo is JAX's; RN50x4's
-    image tower at 64 px (its attention pool: 2,560 channels, 40 heads of
-    64, 5 tokens) matches JAX's with weights drawn by the port and carried
-    to JAX by its ``convert_state_dict`` and back by ``from_jax_params``."""
-    assert set(tclip.CONFIGS) == set(jclip.CONFIGS)
+    """Every configuration and official digest of JAX's zoo is the port's,
+    field by field; the port's one name beyond it is ViT-L/14, which has no
+    digest, and is held to OpenAI's geometry (``_check_vit_l14_geometry``)
+    and, cut small, to the plain reference (``_check_vit_l14_cut_reference``).
+    RN50x4's image tower at 64 px (its attention pool: 2,560 channels, 40
+    heads of 64, 5 tokens) matches JAX's with weights drawn by the port and
+    carried to JAX by its ``convert_state_dict`` and back by
+    ``from_jax_params``."""
+    assert set(tclip.CONFIGS) - set(jclip.CONFIGS) == {"ViT-L/14"}
     for name, cfg in jclip.CONFIGS.items():
         assert dataclasses.asdict(tclip.get_config(name)) == dataclasses.asdict(cfg), name
     assert zoo.OFFICIAL_SHA256 == jzoo.OFFICIAL_SHA256
-    assert zoo.available_models() == jzoo.available_models()
+    assert zoo.available_models() == jzoo.available_models() + ["ViT-L/14"]
     cfg = dataclasses.replace(tclip.get_config("RN50x4"), image_resolution=64)
     assert cfg.vision_heads == 40 and cfg.transformer_heads == 10
     m = tclip.clip_init(cfg, torch.Generator().manual_seed(0)).eval()
@@ -246,3 +252,151 @@ def test_rn_configs_match_jax():
     assert all(torch.equal(back[k], v) for k, v in m.state_dict().items())
     assert m.visual.attnpool.positional_embedding.shape == (5, 2560)
     _check_image((params, jcfg, m), uint8=True)
+    _check_vit_l14_geometry()
+    _check_vit_l14_cut_reference()
+
+
+# OpenAI's ViT-L/14 (clip/clip.py's "ViT-L/14" entry of _MODELS, whose
+# checkpoint clip/model.py build_model reads these from): vision 1024 wide,
+# 24 layers of 16 heads, patch 14 at 224 px (T = 257); text 768 wide, 12
+# heads, 12 layers, context 77, vocabulary 49,408; embedding 768
+OPENAI_VIT_L14 = dict(embed_dim=768, image_resolution=224, vision_layers=(24,),
+                      vision_width=1024, vision_patch_size=14, context_length=77,
+                      vocab_size=49408, transformer_width=768, transformer_heads=12,
+                      transformer_layers=12)
+
+
+def _plain_reference():
+    """``benchmark/hbench/reference.py``, the benchmark's plain float32 CLIP,
+    loaded by its path: it imports nothing of the port. These checks use its
+    ``param_spec``, ``encode_image`` and ``encode_text`` and the layout of
+    its configuration dictionary (``_reference_cfg``), so a change to any of
+    them in the benchmark has to update this file too."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "benchmark", "hbench", "reference.py")
+    spec = importlib.util.spec_from_file_location("hbench_plain_reference", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _reference_cfg(cfg):
+    """A port ``CLIPConfig`` as the reference's configuration dictionary."""
+    return {"embed_dim": cfg.embed_dim,
+            "vision": {"layers": cfg.vision_layers[0], "width": cfg.vision_width,
+                       "patch_size": cfg.vision_patch_size,
+                       "image_resolution": cfg.image_resolution},
+            "text": {"context_length": cfg.context_length, "vocab_size": cfg.vocab_size,
+                     "width": cfg.transformer_width, "heads": cfg.transformer_heads,
+                     "layers": cfg.transformer_layers}}
+
+
+def _check_vit_l14_geometry():
+    """``get_config("ViT-L/14")`` is OpenAI's geometry field by field, and is
+    what ``sniff_config`` reads from an OpenAI-layout ViT-L/14 state dict:
+    the reference's names and shapes (``param_spec``) as tensors on the meta
+    device, so nothing of its 428 M parameters is allocated. The port's
+    ``CLIP`` of that config has the same names and shapes."""
+    from hgr_tpu_torch.models.convert import sniff_config
+
+    cfg = tclip.get_config("ViT-L/14")
+    assert dataclasses.asdict(cfg) == OPENAI_VIT_L14
+    assert cfg.vision_heads == 16 and (224 // 14) ** 2 + 1 == 257
+    spec = _plain_reference().param_spec(_reference_cfg(cfg))
+    sd = {k: torch.empty(shape, device="meta") for k, (shape, _, _) in spec.items()}
+    assert sniff_config(sd) == cfg
+    assert sum(v.numel() for v in sd.values()) == 427_616_513
+    with torch.device("meta"):
+        port = tclip.CLIP(cfg).state_dict()
+    assert {k: tuple(v.shape) for k, v in port.items()} == \
+        {k: tuple(v.shape) for k, v in sd.items()}
+
+
+def _check_vit_l14_cut_reference():
+    """The port's CPU path (plain attention) in float32 against the plain
+    reference at ViT-L/14's geometry cut small: patch 14 at 56 px (T = 17
+    = 4² + 1, the tiled kernel's one-live-row edge at its size), vision
+    width 128 (2 heads of 64), 2 layers; text width 128 with 2 heads of 64,
+    2 layers; embedding 96. Weights from the port's ``clip_init``, with
+    every bias and LayerNorm scale and shift then drawn off its zero or one
+    (as the benchmark draws them), so that each takes part.
+
+    Tolerance: the largest absolute difference within 1e-5 of the largest
+    absolute reference feature (``REL``): both sides are float32 and differ
+    only in summation order and in how the uint8 pixels are normalised
+    (measured on three seeds: 2.6-3.7e-7 of the largest image feature, 0
+    for the text features). bf16 in the port's place reads 5-9e-3, and the
+    test checks that it misses by a hundred times at least."""
+    ref = _plain_reference()
+    cfg = dataclasses.replace(
+        tclip.get_config("ViT-L/14"), image_resolution=56, vision_width=128,
+        vision_layers=(2,), transformer_width=128, transformer_heads=2,
+        transformer_layers=2, embed_dim=96)
+    g = torch.Generator().manual_seed(14)
+    m = tclip.clip_init(cfg, g).eval()
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if p.dim() == 1:
+                base = 1.0 if name.endswith(("ln_1.weight", "ln_2.weight", "ln_pre.weight",
+                                             "ln_post.weight", "ln_final.weight")) else 0.0
+                p.copy_(base + 0.1 * torch.randn(p.shape, generator=g))
+    sd = {k: v.float() for k, v in m.state_dict().items()}
+    rcfg = _reference_cfg(cfg)
+    images = torch.from_numpy(_images(cfg, True, seed=3, batch=4))
+    tokens = torch.from_numpy(_tokens(cfg, [3, 9, 20, 5], 32)).long()
+    with torch.inference_mode():
+        want_i = ref.encode_image(sd, rcfg, images)
+        want_t = ref.encode_text(sd, rcfg, tokens)
+        got = {dt: (tclip.encode_image(m, images, dtype=dt).float(),
+                    tclip.encode_text(m, tokens, dtype=dt).float())
+               for dt in (torch.float32, torch.bfloat16)}
+    assert want_i.shape == (4, 96) and want_t.shape == (4, 96)
+    for want, f32, bf16 in ((want_i, *[got[d][0] for d in got]),
+                            (want_t, *[got[d][1] for d in got])):
+        scale = float(want.abs().max())
+        assert float((f32 - want).abs().max()) <= REL * scale
+        assert float((bf16 - want).abs().max()) > 100 * REL * scale
+
+
+def _check_vit_block_spans():
+    """Under ``torch.profiler`` on the CPU, one TEST-ViT ``encode_image``
+    records ``vit.attn`` then ``vit.mlp`` once a block, each with
+    ``clip.encode_image`` as an ancestor, and gives the untraced features;
+    ``encode_text`` and the ResNet's ``encode_image`` record neither."""
+    from hgr_tpu_torch.utils.profiling import clear_spans, recorded_spans
+
+    def traced(fn):
+        clear_spans()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with torch.inference_mode():
+                out = fn()
+        spans = recorded_spans()
+        clear_spans()
+        return out, spans
+
+    def ancestors(spans, s):
+        while s.parent is not None:
+            s = spans[s.parent]
+            yield s.name
+
+    vit = tclip.clip_init(tclip.get_config("TEST-ViT"), torch.Generator().manual_seed(0)).eval()
+    cfg = vit.cfg
+    x = torch.from_numpy(_images(cfg, False))
+    with torch.inference_mode():
+        want = tclip.encode_image(vit, x, dtype=torch.float32)
+    got, spans = traced(lambda: tclip.encode_image(vit, x, dtype=torch.float32))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    blocks = [s.name for s in spans if s.name.startswith("vit.")]
+    assert blocks == ["vit.attn", "vit.mlp"] * cfg.vision_layers[0]
+    assert all("clip.encode_image" in ancestors(spans, s)
+               for s in spans if s.name.startswith("vit."))
+    toks = torch.from_numpy(_tokens(cfg, [4, 9], 16)).long()
+    _, spans = traced(lambda: tclip.encode_text(vit, toks, dtype=torch.float32))
+    assert [s.name for s in spans] == ["clip.encode_text"]
+    rn = tclip.clip_init(tclip.get_config("TEST-RN"), torch.Generator().manual_seed(0)).eval()
+    _, spans = traced(lambda: tclip.encode_image(rn, torch.from_numpy(_images(rn.cfg, True)),
+                                                  dtype=torch.float32))
+    assert [s.name for s in spans] == ["clip.encode_image", "clip.normalize"]
