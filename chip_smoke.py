@@ -31,6 +31,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    rank's half batch too; 0 inside OM, flat and SPMD train steps, one
    encode a step inside CoOp's, whose CLIP is frozen); the kernel table's
    K2 row holds those counts by path;
+3c. K3 (``ops/ln_act.py``, the transformer block's residual add +
+   LayerNorm and its QuickGELU) against the plain twins on the card, in
+   bf16 and fp32 (``LN_ACT_CASES``, ``GELU_CASES``: the ViT-L/14, ViT-B/16
+   and bank shapes, ``ln_post``'s strided class-token rows, every width
+   class at odd row counts): ``s`` bit for bit, ``y`` within one bf16 ulp
+   of the larger of ``|y|`` and the bias (fp32: ``TOL``), QuickGELU bit for
+   bit on every bf16 value and within one ulp at the shapes; the cases of
+   ``TIMED_LN`` and ``TIMED_GELU`` timed by CUDA-graph replay
+   against their bytes at 3.35 TB/s, beside the plain sequence; each
+   wrapper's host time a call. Every later phase that counts K1 on a bank
+   build or a ViT image batch counts K3 beside it where this script asserts
+   its count (``ln_act_launches``: 2L + 1 add_layer_norm and L quick_gelu
+   a text encode, 2L + 2 and L a ViT image encode; 0 inside OM, CoOp and
+   flat train steps, whose towers run under autograd); ViT-B/16's and
+   ViT-L/14's features through K3 are held to the plain blocks'
+   (``phase_ln_features``);
 4. the ancestor chains of the smoke's hierarchy, held to the JAX package's
    with networkx by their digest (``EXPECTED_CHAINS_SHA256``);
 4b. the benchmark as a user runs it: ``python -m hgr_tpu_torch.bench`` (the
@@ -101,7 +117,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 12. one OM train step in float32 on the card against the port's CPU path
     (small TEST-ViT config, the same weights and schedule): the loss and the
     updated weights agree within the CPU tests' tolerances;
-13. K1's and K2's guards: a CUDA call that autograd would record raises;
+13. K1's, K2's and K3's guards: a CUDA call that autograd would record raises;
 14. CoOp OM training at full width (RN50, bf16, remat, ``--coop_train
     ctx``, prompts of T = 48): 4 steps at batch 256 through
     ``driver.run_train``, every CLIP tensor bitwise unchanged, the context
@@ -370,6 +386,15 @@ def smi_name_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def smi_clock_power() -> str:
+    """The card's SM clock and power draw now, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script runs on the card")
@@ -381,12 +406,13 @@ def phase_device():
 
 
 def phase_build():
-    from hgr_tpu_torch.ops import attention, bn_act, build
+    from hgr_tpu_torch.ops import attention, bn_act, build, ln_act
 
     t0 = time.time()
     logs = build.build(build.all_sources())
     attention._library()
     bn_act._library()
+    ln_act._library()
     log(f"[build] {build.all_sources()} in {time.time() - t0:.1f} s -> {build.BUILD_DIR}")
     for line in "\n".join(logs).splitlines():
         if any(w in line for w in ("registers", "spill", "smem", "Function properties")):
@@ -695,13 +721,274 @@ def phase_bn_act(dev, cases=BN_ACT_CASES, encodes=BN_ACT_ENCODES):
     return main, counted
 
 
+def ln_act_launches(clip_cfg, bank_chunks=0, image_batches=0):
+    """K3's launches, (add_layer_norm, quick_gelu): a text encode (a bank
+    chunk) 2L + 1 and L (block 0's ln_1, each block's ln_2, the next
+    block's ln_1 with the MLP's add, ln_final with the last one), a ViT
+    image encode 2L + 2 and L (ln_pre and ln_post beside the blocks'; the
+    last block's add is a plain one); nothing for a ResNet's image tower."""
+    lt = clip_cfg.transformer_layers
+    li = clip_cfg.vision_layers[0] if clip_cfg.is_vit else 0
+    images = image_batches if clip_cfg.is_vit else 0
+    return (bank_chunks * (2 * lt + 1) + images * (2 * li + 2),
+            bank_chunks * lt + images * li)
+
+
+def bank_chunks(tm) -> int:
+    """The text encodes of one bank build (``TreeModel.update_classifier``)."""
+    return tm.n_pad // min(512, tm.n_pad)
+
+
+def k3_launches():
+    from hgr_tpu_torch.ops.ln_act import add_layer_norm, quick_gelu
+
+    return add_layer_norm.launches, quick_gelu.launches
+
+
+def k3_reset():
+    from hgr_tpu_torch.ops.ln_act import add_layer_norm, quick_gelu
+
+    add_layer_norm.launches = quick_gelu.launches = 0
+
+
+class SeededLN:
+    """LayerNorm parameters as ``models.layers.LayerNorm`` holds them,
+    drawn from ``g``: not the identity."""
+
+    def __init__(self, D, g, dev):
+        self.weight = torch.randn(D, generator=g, device=dev) * 0.5 + 1.0
+        self.bias = torch.randn(D, generator=g, device=dev) * 0.5
+
+
+# phase 3c's add_layer_norm cases, (rows, width, with a delta, rows picked
+# with a stride): ViT-L/14's blocks and ln_pre (512 x 257 tokens) and its
+# ln_post (the class token's rows of [512, 257, 1024]), ViT-B/16's blocks
+# (512 x 197), a bank chunk at T = 32 (RN50's and ViT-B's text width 512,
+# RN50x4's 640) and ViT-L/14's text tower at 512 x 77; then every width class
+# (one to four 16-byte vectors a lane in bf16, up to eight in fp32, and a
+# row of a single vector) at a single row and at 13 (a partial block), with
+# and without a delta, contiguous and strided
+LN_ACT_CASES = [
+    (131584, 1024, True, False),
+    (131584, 1024, False, False),
+    (512, 1024, False, True),
+    (100864, 768, True, False),
+    (16384, 512, True, False),
+    (16384, 640, True, False),
+    (39424, 768, True, False),
+    *((rows, width, delta, strided) for rows in (1, 13) for width in (8, 32, 64, 136, 1000, 1024)
+      for delta in (False, True) for strided in (False, True)),
+]
+TIMED_LN = {(131584, 1024, True, False), (131584, 1024, False, False),
+            (100864, 768, True, False), (16384, 512, True, False)}
+LN_MAIN = (131584, 1024, True, False)
+# QuickGELU on the c_fc output [tokens, 4 x width]: ViT-L/14's, ViT-B/16's, a
+# bank chunk's; odd sizes (one vector, a ragged grid-stride tail)
+GELU_CASES = [(131584, 4096), (100864, 3072), (16384, 2048), (1, 8), (3, 40), (7, 1000)]
+TIMED_GELU = {(131584, 4096), (100864, 3072), (16384, 2048)}
+GELU_MAIN = (131584, 4096)
+
+
+def ulps_apart(a, b):
+    """Elementwise distance in units in the last place between two tensors
+    of one float dtype (+0.0 and -0.0 are 0 apart)."""
+    bits, top = (torch.int16, 1 << 15) if a.dtype == torch.bfloat16 else (torch.int32, 1 << 31)
+    ia, ib = (t.contiguous().view(bits).long() for t in (a, b))
+    oa, ob = (torch.where(i < 0, -(i + top), i) for i in (ia, ib))
+    return (oa - ob).abs()
+
+
+def bf16_ulp(t):
+    """The spacing of bf16 values at ``|t|`` (fp32): 2^(e - 8) for |t| in
+    [2^(e-1), 2^e)."""
+    exp = torch.frexp(t.abs().clamp_min(2.0 ** -126))[1]
+    return torch.ldexp(torch.ones_like(t), exp - 8)
+
+
+def host_us(fn, calls=2000):
+    """Host microseconds a call of ``fn``, the device kept from becoming the
+    limit by a tiny input: the wrapper's Python, checks and launch."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def phase_ln_act(dev, ln_cases=LN_ACT_CASES, gelu_cases=GELU_CASES):
+    """K3 against its plain twins on the card (``s`` bit for bit; ``y``
+    within one bf16 ulp of the larger of the twin's ``|y|`` and the bias,
+    since where ``w * n`` and ``b`` cancel to near 0 the order of the fp32
+    sums shows as many ulps of a tiny ``y``; fp32's ``TOL``; QuickGELU bit
+    for bit or within one ulp), the timed cases against their bytes at 3.35 TB/s beside the
+    plain sequence, and each wrapper's host time a call beside the plain
+    sequence's. Returns the kernel-table rows of the main shapes of
+    add_layer_norm and quick_gelu."""
+    from hgr_tpu_torch.models.layers import layer_norm, quick_gelu as gelu_twin
+    from hgr_tpu_torch.ops.ln_act import add_layer_norm, quick_gelu
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows_out = {}
+
+    def plain_ln(x, d, ln):
+        s = x if d is None else x + d
+        return s, layer_norm(s, ln.weight, ln.bias)
+
+    for case in ln_cases:
+        rows, width, with_delta, strided = case
+        for dtype in (torch.bfloat16, torch.float32):
+            def draw(scale, shift):
+                n = 3 if strided else 1
+                t = (torch.randn((rows, n, width), generator=g, device=dev) * scale + shift)
+                t.view(-1)[::89] = -0.0
+                return t.to(dtype)[:, 1:2] if strided else t.to(dtype)[:, 0]
+
+            x = draw(2.0, 0.5)
+            d = draw(1.0, 0.0) if with_delta else None
+            ln = SeededLN(width, g, dev)
+            (s, y), (ws, wy) = add_layer_norm(x, d, ln), plain_ln(x, d, ln)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            if with_delta:
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                differ = int((s.view(bits) != ws.contiguous().view(bits)).sum())
+                assert differ == 0, f"K3's sum differs from the twin's at {case} {name}: {differ}"
+            u = ulps_apart(y, wy)
+            diff = (y.float() - wy.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.bfloat16:
+                scale = torch.maximum(wy.float().abs(), ln.bias.abs())
+                ok, tol = bool((diff <= bf16_ulp(scale)).all()), "1 ulp of max(|y|, |b|)"
+            else:
+                atol, rtol = TOL[dtype]
+                ok, tol = bool(((y - wy).abs() <= atol + rtol * wy.abs()).all()), \
+                    f"{atol:g} + {rtol:g}|p|"
+            line = (f"[k3] add_layer_norm [{rows}, {width}] {name} delta={with_delta} "
+                    f"strided={strided}: s bit for bit; y max {int(u.max())} ulps ("
+                    f"{int((u > 1).sum())} over 1), {int((u > 0).sum())} of {y.numel()} differ, "
+                    f"max |diff| {err:.3e} (tol {tol})")
+            assert ok, line
+            if case in TIMED_LN and dtype == torch.bfloat16:
+                nbytes = rows * width * x.element_size() * (4 if with_delta else 2)
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                row = dict(ms=graph_ms(lambda: add_layer_norm(x, d, ln)),
+                           plain_ms=graph_ms(lambda: plain_ln(x, d, ln)),
+                           bound_ms=bound, bound_by="bytes", max_abs_err=err)
+                row["library_ms"] = row["plain_ms"]
+                line += (f" | kernel {row['ms']:.4f} ms, plain sequence {row['plain_ms']:.4f} ms, "
+                         f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB) | "
+                         f"{bound / row['ms']:.1%} of 3.35 TB/s | {smi_clock_power()}")
+                if case == LN_MAIN:
+                    rows_out["add_layer_norm"] = row
+            log(line)
+            del x, d, s, y, ws, wy
+    # every bf16 value as an input (exp(-a) overflowing and underflowing, the
+    # division's slow path, subnormals, infinities): a bf16 output depends on
+    # its input alone, so this covers every bf16 input; NaN counts as NaN
+    every = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        got, want = quick_gelu(every.to(dtype)), gelu_twin(every.to(dtype))
+        same = (got.view(bits) == want.view(bits)) | (got.isnan() & want.isnan())
+        assert bool(same.all()), (f"QuickGELU differs from its twin on {int((~same).sum())} "
+                                  f"bf16 inputs in {dtype}")
+        log(f"[k3] quick_gelu {str(dtype).split('.')[-1]} on all {every.numel()} bf16 values: "
+            f"bit-identical to the twin")
+    for shape in gelu_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+            x.view(-1)[::97] = -0.0
+            got, want = quick_gelu(x), gelu_twin(x)
+            torch.cuda.synchronize()
+            u = ulps_apart(got, want)
+            name = str(dtype).split(".")[-1]
+            line = (f"[k3] quick_gelu {list(shape)} {name}: "
+                    + ("bit-identical to the twin" if int(u.max()) == 0 else
+                       f"max {int(u.max())} ulps, {int((u > 0).sum())} of {u.numel()} differ"))
+            assert int(u.max()) <= 1, line
+            if shape in TIMED_GELU and dtype == torch.bfloat16:
+                nbytes = 2 * x.numel() * x.element_size()
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                row = dict(ms=graph_ms(lambda: quick_gelu(x)),
+                           plain_ms=graph_ms(lambda: gelu_twin(x)),
+                           bound_ms=bound, bound_by="bytes",
+                           max_abs_err=float((got.float() - want.float()).abs().max()))
+                row["library_ms"] = row["plain_ms"]
+                line += (f" | kernel {row['ms']:.4f} ms, plain sequence {row['plain_ms']:.4f} ms, "
+                         f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB) | "
+                         f"{bound / row['ms']:.1%} of 3.35 TB/s | {smi_clock_power()}")
+                if shape == GELU_MAIN:
+                    rows_out["quick_gelu"] = row
+            log(line)
+            del x, got, want
+    torch.cuda.empty_cache()
+
+    # the wrappers' host cost a call, on a bank chunk's first rows (the bank
+    # build is bound by the host's dispatch)
+    x = torch.randn((16, 32, 512), generator=g, device=dev).to(torch.bfloat16)
+    ln = SeededLN(512, g, dev)
+    h = torch.randn((16, 32, 2048), generator=g, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        log(f"[k3] host us a call at [16, 32, 512] bf16: add_layer_norm "
+            f"{host_us(lambda: add_layer_norm(x, x, ln)):.1f}, its plain sequence "
+            f"{host_us(lambda: plain_ln(x, x, ln)):.1f}; quick_gelu "
+            f"{host_us(lambda: quick_gelu(h)):.1f}, its twin {host_us(lambda: gelu_twin(h)):.1f}")
+    return rows_out["add_layer_norm"], rows_out["quick_gelu"]
+
+
+def phase_ln_features(tm, batch=512):
+    """One batch of ViT image features through K3 held to the plain blocks'
+    (K1 on both paths; ``ln_act.autograd_records`` made to answer yes), both
+    L2-normalised, with K3's launches in the encode and the tower's time on
+    each path. Returns K3's launches of the encode."""
+    from unittest import mock
+
+    from hgr_tpu_torch.models.clip import encode_image
+    from hgr_tpu_torch.models.layers import l2_normalize
+    from hgr_tpu_torch.ops import ln_act
+
+    res = tm.clip_cfg.image_resolution
+    gen = torch.Generator(device=tm.device).manual_seed(4)
+    images = torch.randn((batch, res, res, 3), generator=gen, device=tm.device)
+
+    def encode():
+        return encode_image(tm.model, images, dtype=tm.dtype)
+
+    with torch.inference_mode():
+        k3_reset()
+        got = l2_normalize(encode()).float()
+        launches = k3_launches()
+        k3_ms = cuda_ms(encode, reps=3, warmup=1)
+        with mock.patch.object(ln_act, "autograd_records", lambda *a: True):
+            k3_reset()
+            want = l2_normalize(encode()).float()
+            assert k3_launches() == (0, 0), k3_launches()
+            plain_ms = cuda_ms(encode, reps=3, warmup=1)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    err = float((got - want).abs().max())
+    expected = ln_act_launches(tm.clip_cfg, image_batches=1)
+    log(f"[k3] {tm.config.arch} {batch} images, normalised features, K3 vs the plain blocks, "
+        f"bf16: max_abs_err {err:.3e} (tol 1e-2), min row cosine {float(cos.min()):.6f} (tol "
+        f"0.999); K3 launches {launches} (want {expected}); tower {k3_ms:.2f} ms with K3, "
+        f"{plain_ms:.2f} ms plain")
+    assert launches == expected, launches
+    assert err <= 1e-2 and float(cos.min()) >= 0.999, "ViT features through K3 disagree"
+    return launches
+
+
 def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
                 launches_expected=432, image_launches=0, folder="runs/chip_smoke",
                 checkpoint=None):
     """The zero-shot eval path at full width; returns (tm, bank, summary,
-    K1 launches during run_test, K2 launches during run_test).
+    K1 launches during run_test, K2 launches during run_test, K3's
+    (add_layer_norm, quick_gelu) launches during run_test).
     ``launches_expected`` is K1's count in one bank build, ``image_launches``
-    its count in one image batch; K2's is ``rn_epilogues`` a batch. With
+    its count in one image batch; K2's is ``rn_epilogues`` a batch, K3's
+    ``ln_act_launches`` of the bank's chunks and the batches. With
     ``checkpoint`` (an OpenAI-layout ``.pt``), its weights and architecture
     replace ``arch``'s (``TreeModel.load_torch``)."""
     from hgr_tpu_torch.config import Config
@@ -730,27 +1017,36 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
 
     # the bank alone, timed
     attention.launches = 0
+    k3_reset()
     sync()
     t0 = time.time()
     bank = tm.update_classifier()
     sync()
     bank_ms = (time.time() - t0) * 1e3
-    n = attention.launches
-    log(f"[slice] bank build {bank_ms:.1f} ms on {name}; K1 launches {n}")
+    n, k3 = attention.launches, k3_launches()
+    cuda = dev.type == "cuda"
+    k3_bank = ln_act_launches(tm.clip_cfg, bank_chunks(tm)) if cuda else (0, 0)
+    log(f"[slice] bank build {bank_ms:.1f} ms on {name}; K1 launches {n}; K3 (add_layer_norm, "
+        f"quick_gelu) {k3} (want {k3_bank})")
     assert n == launches_expected, f"K1 launched {n} times in the bank build, not {launches_expected}"
+    assert k3 == k3_bank, f"K3 launched {k3} times in the bank build, not {k3_bank}"
     assert bank.shape == (tm.n_pad, tm.clip_cfg.embed_dim), bank.shape
     assert bool(torch.isfinite(bank).all()), "bank not finite"
 
     # the main path: counts reset just before, read just after
     attention.launches = bn_act.launches = 0
+    k3_reset()
     summary = run_test(cfg, tm, splits, RunLogger(cfg.save_path, echo=False))
-    launches, k2 = attention.launches, bn_act.launches
+    launches, k2, k3 = attention.launches, bn_act.launches, k3_launches()
     log(f"[slice] run_test: {json.dumps(summary)}")
-    k2_want = batches * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0
-    log(f"[slice] K1 launches during run_test: {launches}; K2 launches: {k2} (want {k2_want})")
+    k2_want = batches * rn_epilogues(tm.clip_cfg) if cuda else 0
+    k3_want = ln_act_launches(tm.clip_cfg, bank_chunks(tm), batches) if cuda else (0, 0)
+    log(f"[slice] K1 launches during run_test: {launches}; K2 launches: {k2} (want {k2_want}); "
+        f"K3: {k3} (want {k3_want})")
     want = launches_expected + image_launches * batches
     assert launches == want, f"K1 launched {launches} times in run_test, not {want}"
     assert k2 == k2_want, f"K2 launched {k2} times in run_test, not {k2_want}"
+    assert k3 == k3_want, f"K3 launched {k3} times in run_test, not {k3_want}"
     assert summary["num_samples"] == batches * batch, summary["num_samples"]
     assert all(math.isfinite(v) for v in summary.values()), summary
 
@@ -761,13 +1057,13 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
     images = torch.randn((batch, res, res, 3), generator=gen, device=dev)
     valid = torch.ones(batch, dtype=torch.bool, device=dev)
     target = int(tm.test_index[0])
-    if dev.type == "cuda":
+    if cuda:
         step_ms = cuda_ms(lambda: tm.eval_step_sorted(bank_s, images, target, valid), reps=5, warmup=2)
         log(f"[slice] eval step {step_ms:.2f} ms per batch of {batch} = "
             f"{batch / step_ms * 1e3:.0f} images/s (device-resident batch); run_test "
             f"{summary['imgs_per_sec']:.0f} images/s with the synthetic loader; on {name}; "
             f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return tm, bank, summary, launches, k2
+    return tm, bank, summary, launches, k2, k3
 
 
 def phase_plain_bank(tm, bank):
@@ -892,8 +1188,9 @@ def phase_vit_features(tm, batch=512):
 def run_counting_launches(fn, *args):
     """``fn(*args)`` (a driver's train run) with K1's launches split at the
     test after training: returns the result and ``{"train_steps": n,
-    "test": m}``, and K2's as ``k2_train_steps`` and ``k2_test``. A spy on
-    the path, not on what it computes."""
+    "test": m}``, K2's as ``k2_train_steps`` and ``k2_test``, and K3's
+    (add_layer_norm, quick_gelu) as ``k3_train_steps`` and ``k3_test``. A
+    spy on the path, not on what it computes."""
     from hgr_tpu_torch import driver
     from hgr_tpu_torch.ops.attention import attention
     from hgr_tpu_torch.ops.bn_act import bn_act
@@ -903,18 +1200,36 @@ def run_counting_launches(fn, *args):
 
     def run_test_spy(*a, **kw):
         seen["train_steps"], seen["k2_train_steps"] = attention.launches, bn_act.launches
+        seen["k3_train_steps"] = k3_launches()
         out = real(*a, **kw)
         seen["test"] = attention.launches - seen["train_steps"]
         seen["k2_test"] = bn_act.launches - seen["k2_train_steps"]
+        seen["k3_test"] = tuple(n - m for n, m in zip(k3_launches(), seen["k3_train_steps"]))
         return out
 
     driver.run_test = run_test_spy
     attention.launches = bn_act.launches = 0
+    k3_reset()
     try:
         out = fn(*args)
     finally:
         driver.run_test = real
     return out, seen
+
+
+def check_k3_train(tag, dev, tm, seen, test_batches, frozen_encodes=0):
+    """K3 inside a train run's steps (none where both towers run under
+    autograd; CoOp's frozen image tower, ``frozen_encodes`` of them, runs
+    fused where it is a ViT, and its text tower carries the learned
+    context's gradient) and in the test after them (the bank's text encodes
+    and the test batches' ViT encodes)."""
+    cuda = dev.type == "cuda"
+    steps = ln_act_launches(tm.clip_cfg, image_batches=frozen_encodes) if cuda else (0, 0)
+    test = ln_act_launches(tm.clip_cfg, bank_chunks(tm), test_batches) if cuda else (0, 0)
+    log(f"[{tag}] K3 launches (add_layer_norm, quick_gelu): {seen['k3_train_steps']} inside "
+        f"the train steps (want {steps}), {seen['k3_test']} in the test after them (want {test})")
+    assert seen["k3_train_steps"] == steps, seen
+    assert seen["k3_test"] == test, seen
 
 
 def train_log(logger):
@@ -1015,6 +1330,7 @@ def phase_train(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compar
         f"the plain epilogue), {seen['k2_test']} in the test after them (want {k2_test})")
     assert seen["k2_train_steps"] == 0, "K2 ran inside a train step"
     assert seen["k2_test"] == k2_test, seen
+    check_k3_train("train", dev, tm, seen, test_batches)
 
     fresh = init_train_state(clip_init(tm.clip_cfg, torch.Generator().manual_seed(1), dev),
                              torch.zeros_like(tm.layer_weight),
@@ -1155,6 +1471,7 @@ def phase_coop(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare
     assert seen["train_steps"] == 0, "K1 ran inside a train step"
     assert seen["test"] == bank_launches, seen
     assert (seen["k2_train_steps"], seen["k2_test"]) == (k2_steps, k2_test), seen
+    check_k3_train("coop", dev, tm, seen, test_batches, frozen_encodes=episodes)
     saved = restore_params(os.path.join(cfg.save_path, "clip_0"))
     assert torch.equal(saved["coop_ctx"], tm.coop_ctx.detach().cpu()), "clip_0's coop_ctx"
 
@@ -1231,6 +1548,7 @@ def phase_flat(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, n_seen=1000
     assert seen["train_steps"] == 0, "K1 ran inside a train step"
     assert seen["test"] == bank_launches, seen
     assert (seen["k2_train_steps"], seen["k2_test"]) == (0, k2_test), seen
+    check_k3_train("flat", dev, tm, seen, test_batches)
     shutil.rmtree(cfg.save_path, ignore_errors=True)
     return seen
 
@@ -1773,8 +2091,9 @@ def phase_vit_l14(dev, work):
     loaded by ``TreeModel.load_torch`` into the zoo name's model, and
     ``run_test`` over one batch of 512 against the 18,432-row bank (K1: 12
     x 36 = 432 launches in the bank, 24 in the image tower at T = 257),
-    then one batch's features through K1 held to the plain attention's.
-    Returns K1's launches in ``run_test``."""
+    then one batch's features through K1 held to the plain attention's, and
+    through K3 to the plain blocks'. Returns K1's and K3's launches in
+    ``run_test`` and K3's in that one encode."""
     import os
 
     from hgr_tpu_torch.models.clip import get_config
@@ -1788,12 +2107,13 @@ def phase_vit_l14(dev, work):
         f"written in {time.time() - t0:.1f} s")
     sniffed = sniff_config(torch.load(path, map_location="cpu", mmap=True, weights_only=True))
     assert sniffed == cfg, f"the file reads as {sniffed}, not the zoo's {cfg}"
-    tm, _, _, launches, _ = phase_slice(dev, arch="ViT-L/14", batches=1, image_launches=24,
-                                        checkpoint=path, folder="runs/chip_smoke_vit_l14")
+    tm, _, _, launches, _, k3 = phase_slice(dev, arch="ViT-L/14", batches=1, image_launches=24,
+                                            checkpoint=path, folder="runs/chip_smoke_vit_l14")
     assert tm.clip_cfg == cfg
     phase_vit_features(tm)
+    k3_encode = phase_ln_features(tm)
     os.remove(path)
-    return launches
+    return launches, k3, k3_encode
 
 
 def seeded_jpegs(root, classes, per_class, seed=0):
@@ -2101,7 +2421,7 @@ def phase_export_text(dev, real, arch="RN50x4", bank_launches=432):
 
 
 def phase_guard(dev):
-    """K1 and K2 refuse a call that autograd would record: they have no
+    """K1, K2 and K3 refuse a call that autograd would record: they have no
     backward."""
     from hgr_tpu_torch.ops.attention import attention
 
@@ -2132,6 +2452,24 @@ def phase_guard(dev):
     with torch.no_grad():
         bn_act(x, None, relu=True)
     assert bn_act.launches == n + 1
+
+    from hgr_tpu_torch.ops.ln_act import add_layer_norm, quick_gelu
+
+    x = torch.randn(2, 8, 64, device=dev, requires_grad=True)
+    ln = SeededLN(64, torch.Generator(device=dev).manual_seed(0), dev)
+    n = k3_launches()
+    for call in (lambda: add_layer_norm(x, x.detach(), ln), lambda: quick_gelu(x)):
+        try:
+            call()
+        except RuntimeError as e:
+            log(f"[guard] ln_act on a CUDA tensor that requires grad raises: {e}")
+        else:
+            raise AssertionError("ln_act ran under autograd")
+    assert k3_launches() == n
+    with torch.no_grad():
+        add_layer_norm(x, x, ln)
+        quick_gelu(x)
+    assert k3_launches() == (n[0] + 1, n[1] + 1)
 
 
 # ---- slice 7: the mesh over torch.distributed, and the offline builders ----
@@ -3071,25 +3409,28 @@ def main() -> int:
     n_procs = min(8, os.cpu_count() or 1)
     main_row = phase_kernels(dev)
     bn_act_row, k2_encodes = phase_bn_act(dev)
+    ln_row, gelu_row = phase_ln_act(dev)
     phase_chains()
     bench_vit = phase_bench()
-    tm, bank, summary, rn50, k2_rn50 = phase_slice(dev)
+    tm, bank, summary, rn50, k2_rn50, k3_rn50 = phase_slice(dev)
     phase_plain_bank(tm, bank)
     fp32_bank = phase_fp32_bank(tm)
     phase_small_reference(tm, bank)
     phase_nccl(dev, tm, bank)
     del tm, bank
-    vit, _, _, vit_launches, _ = phase_slice(dev, arch="ViT-B/32", batches=2, image_launches=12)
+    vit, _, _, vit_launches, _, k3_vit = phase_slice(dev, arch="ViT-B/32", batches=2,
+                                                     image_launches=12)
     phase_vit_features(vit)
     del vit
-    vit16, _, _, vit16_launches, _ = phase_slice(dev, arch="ViT-B/16", batches=1,
-                                                 image_launches=12)
+    vit16, _, _, vit16_launches, _, k3_vit16 = phase_slice(dev, arch="ViT-B/16", batches=1,
+                                                           image_launches=12)
     phase_vit_features(vit16)
+    k3_vit16_encode = phase_ln_features(vit16)
     del vit16
-    rn50x4, k2_rn50x4 = phase_slice(dev, arch="RN50x4", batches=1)[3:]
+    rn50x4, k2_rn50x4, k3_rn50x4 = phase_slice(dev, arch="RN50x4", batches=1)[3:]
     work = tempfile.mkdtemp(prefix="hgr_real_inputs_")
     try:
-        vit_l14 = phase_vit_l14(dev, work)
+        vit_l14, k3_vit_l14, k3_vit_l14_encode = phase_vit_l14(dev, work)
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
         mesh_eval = phase_mesh_eval(real)
@@ -3144,6 +3485,16 @@ def main() -> int:
                   "rn50_flat_train_steps": flat["k2_train_steps"],
                   "rn50_flat_test_after_train": flat["k2_test"],
                   "rn50_mesh_eval": sum(mesh_eval[1])}
+    # K3's (add_layer_norm, quick_gelu) launches as each phase counted them
+    k3_by_path = {"rn50_eval": k3_rn50, "vit_b32_eval": k3_vit, "vit_b16_eval": k3_vit16,
+                  "vit_b16_encode": k3_vit16_encode, "rn50x4_eval": k3_rn50x4,
+                  "vit_l14_eval": k3_vit_l14, "vit_l14_encode": k3_vit_l14_encode,
+                  "rn50_train_steps": train["k3_train_steps"],
+                  "rn50_test_after_train": train["k3_test"],
+                  "rn50_coop_train_steps": coop["k3_train_steps"],
+                  "rn50_coop_test_after_train": coop["k3_test"],
+                  "rn50_flat_train_steps": flat["k3_train_steps"],
+                  "rn50_flat_test_after_train": flat["k3_test"]}
     kernels = [dict(
         name="attention",
         route="cuda",
@@ -3160,7 +3511,16 @@ def main() -> int:
         launches=sum(k2_by_path.values()),
         launches_by_path=k2_by_path,
         **bn_act_row,
-    )]
+    )] + [dict(
+        name=name,
+        route="cuda",
+        source="hgr_tpu_torch/csrc/ln_act.cu",
+        replaces="none (XLA fuses the transformer block's adds, LayerNorms and QuickGELU on "
+                 "the TPU)",
+        launches=sum(n[i] for n in k3_by_path.values()),
+        launches_by_path={path: n[i] for path, n in k3_by_path.items()},
+        **row,
+    ) for i, (name, row) in enumerate((("add_layer_norm", ln_row), ("quick_gelu", gelu_row)))]
     log(json.dumps({"kernels": kernels}))
     log(smi_name_power())
     print(json.dumps({"ok": True, "device": {

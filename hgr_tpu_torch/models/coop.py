@@ -109,8 +109,8 @@ def coop_encode_text(
     ctx_rows = ctx.to(dtype)[ctx_map.clamp_min(0)]                  # [U, T, W]
     emb = torch.where((ctx_map >= 0)[..., None], ctx_rows, emb)
     x = emb + m.positional_embedding[:T].to(dtype)
-    x = m.transformer(x, causal_mask(T, device=x.device), attn_fn, remat)
-    x = m.ln_final(x)
+    x = m.transformer(x, causal_mask(T, device=x.device), attn_fn, remat,
+                      ln_final=m.ln_final)
     eot = tokenized.argmax(dim=-1)  # first maximal index, as jnp.argmax
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
     return pooled @ m.text_projection.to(dtype)

@@ -28,8 +28,8 @@ def text_encoder_apply(
     T = tokens.shape[1]
     x = m.token_embedding(tokens).to(dtype)
     x = x + m.positional_embedding[:T].to(dtype)
-    x = m.transformer(x, causal_mask(T, device=x.device), attn_fn, remat)
-    x = m.ln_final(x)
+    x = m.transformer(x, causal_mask(T, device=x.device), attn_fn, remat,
+                      ln_final=m.ln_final)
     eot = tokens.argmax(dim=-1)  # first maximal index, as jnp.argmax
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
     return pooled @ m.text_projection.to(dtype)

@@ -7,17 +7,27 @@ causal mask, and the reference's init scheme (``clip/model.py:302-315``).
 The JAX package stacks the blocks for ``lax.scan``; here they are a
 ``ModuleList`` run by a Python loop, under the OpenAI names
 ``resblocks.{i}.attn.in_proj_weight`` and so on.
+
+Where autograd would record nothing (``ops.ln_act.autograd_records``: no
+gradients, or no input and no parameter that requires one; ``remat`` then
+has nothing to recompute), the stack runs the same ops in a fused order:
+each residual add goes into the LayerNorm that follows it
+(``ops.ln_act.add_layer_norm``: the attention half's into ``ln_2``, the MLP
+half's into the next block's ``ln_1`` or into ``ln_final``), and QuickGELU
+is ``ops.ln_act.quick_gelu``. On CUDA those are K3's kernels; on the CPU,
+the plain twins, which give the plain block's result bit for bit.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import ln_act
 from ..utils.profiling import annotate
 from .layers import LayerNorm, Linear, _param, mha, normal_, quick_gelu
 
@@ -41,7 +51,9 @@ class MLP(nn.Module):
 
 class ResidualAttentionBlock(nn.Module):
     """With ``span``, the attention half records the span ``{span}.attn``
-    and the MLP half ``{span}.mlp`` (``utils/profiling.annotate``)."""
+    and the MLP half ``{span}.mlp`` (``utils/profiling.annotate``); in
+    ``forward_fused`` the attention half's span holds its add (in ``ln_2``)
+    and the MLP half's span holds the MLP's add (in the next LayerNorm)."""
 
     def __init__(self, width: int, heads: int, span: Optional[str] = None):
         super().__init__()
@@ -78,6 +90,31 @@ class ResidualAttentionBlock(nn.Module):
         with self._span(1):
             return x + self.mlp.c_proj(quick_gelu(self.mlp.c_fc(self.ln_2(x))))
 
+    def forward_fused(
+        self,
+        x: torch.Tensor,
+        h: Optional[torch.Tensor],
+        mask: Optional[torch.Tensor],
+        attn_fn,
+        ln_next: Optional[LayerNorm],
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``forward`` with each residual add fused into the LayerNorm after
+        it: ``h`` is ``ln_1(x)`` (None: computed here, for the first block),
+        and the block returns its output and ``ln_next`` of it (with
+        ``ln_next`` None, the output and None, after a plain add)."""
+        a, add_ln = self.attn, ln_act.add_layer_norm
+        with self._span(0):
+            if h is None:
+                h = add_ln(x, None, self.ln_1)[1]
+            attn = mha(h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
+                       a.out_proj.bias, self.heads, mask, attn_fn)
+            x, h = add_ln(x, attn, self.ln_2)
+        with self._span(1):
+            out = self.mlp.c_proj(ln_act.quick_gelu(self.mlp.c_fc(h)))
+            if ln_next is None:
+                return x + out, None
+            return add_ln(x, out, ln_next)
+
 
 class Transformer(nn.Module):
     """``span`` names the spans each block records (``ResidualAttentionBlock``);
@@ -94,14 +131,30 @@ class Transformer(nn.Module):
             blk.init(g, len(self.resblocks))
 
     def forward(
-        self, x: torch.Tensor, mask: Optional[torch.Tensor], attn_fn, remat: bool = False
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor],
+        attn_fn,
+        remat: bool = False,
+        ln_final: Optional[LayerNorm] = None,
     ) -> torch.Tensor:
-        """``remat=True`` checkpoints each block, so the backward pass
+        """The blocks over ``x``, then ``ln_final`` where given.
+        ``remat=True`` checkpoints each block, so the backward pass
         recomputes its activations (``jax.checkpoint`` of the block body,
-        ``hgr_tpu/models/transformer.py:104-107``)."""
+        ``hgr_tpu/models/transformer.py:104-107``). Whether autograd would
+        record is asked once a call: if not, the blocks run fused
+        (``ResidualAttentionBlock.forward_fused``), the last block's MLP add
+        going into ``ln_final`` (or a plain add without it)."""
+        finals = () if ln_final is None else (ln_final,)
+        if not ln_act.autograd_records(x, self, *finals):
+            blocks, h = self.resblocks, None
+            for i, blk in enumerate(blocks):
+                nxt = blocks[i + 1].ln_1 if i + 1 < len(blocks) else ln_final
+                x, h = blk.forward_fused(x, h, mask, attn_fn, nxt)
+            return x if ln_final is None else h
         for blk in self.resblocks:
             if remat:
                 x = checkpoint(blk, x, mask, attn_fn, use_reentrant=False)
             else:
                 x = blk(x, mask, attn_fn)
-        return x
+        return x if ln_final is None else ln_final(x)

@@ -8,7 +8,10 @@ mask, so on the card the fused kernel runs at T = grid² + 1 (50 for
 ViT-B/32, 197 for ViT-B/16, 257 for ViT-L/14). Each block records the spans
 ``vit.attn`` and ``vit.mlp``. Names are OpenAI's (``conv1.weight``,
 ``class_embedding``, ``transformer.resblocks.{i}.*``, ``ln_post``,
-``proj``).
+``proj``). Where autograd would record nothing, ``ln_pre`` and ``ln_post``
+run through ``ops.ln_act.add_layer_norm`` (K3 on CUDA) and the blocks run
+fused (``models/transformer.py``); the last block's MLP add stays a plain
+add, since ``ln_post`` reads only the class token's row.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import ln_act
 from .layers import Conv2d, LayerNorm, _param, normal_
 from .transformer import Transformer
 
@@ -59,7 +63,12 @@ class VisionTransformer(nn.Module):
         cls = self.class_embedding.to(x.dtype).expand(B, 1, width)
         x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding.to(x.dtype)
-        x = self.ln_pre(x)
+        plain = ln_act.autograd_records(x, self)
+
+        def norm(t, ln):
+            return ln(t) if plain else ln_act.add_layer_norm(t, None, ln)[1]
+
+        x = norm(x, self.ln_pre)
         x = self.transformer(x, None, attn_fn, remat)
-        x = self.ln_post(x[:, :1])[:, 0]
+        x = norm(x[:, :1], self.ln_post)[:, 0]
         return x @ self.proj.to(x.dtype)

@@ -6,7 +6,9 @@ interpret mode and to the XLA ``attention_scores`` in fp32, within the
 2e-6 of ``tests/test_ops.py:28``. The CUDA kernel itself is held to the
 twin on the card by ``chip_smoke.py``. The argument checks and the
 import-time behaviour of K2 (``ops/bn_act.py``, the ResNet's fused
-BatchNorm epilogue) are held here beside K1's.
+BatchNorm epilogue) and K3 (``ops/ln_act.py``, the transformer block's
+add + LayerNorm and QuickGELU) are held here beside K1's, and K3's
+wrappers on CPU tensors to their plain twins.
 """
 
 import os
@@ -24,10 +26,12 @@ import jax.numpy as jnp  # noqa: E402
 from hgr_tpu.models.layers import attention_scores as jax_attention_scores  # noqa: E402
 from hgr_tpu.models.layers import causal_mask as jax_causal_mask  # noqa: E402
 from hgr_tpu.ops.attention import pallas_attention  # noqa: E402
-from hgr_tpu_torch.models.layers import attention_scores, causal_mask, mha  # noqa: E402
+from hgr_tpu_torch.models.layers import (  # noqa: E402
+    attention_scores, causal_mask, layer_norm, mha, quick_gelu)
 from hgr_tpu_torch.ops import attention as k1  # noqa: E402
 from hgr_tpu_torch.ops import bn_act as k2  # noqa: E402
 from hgr_tpu_torch.ops import build  # noqa: E402
+from hgr_tpu_torch.ops import ln_act as k3  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-6  # fp32, only the summation order differs
@@ -191,6 +195,11 @@ def test_kernel_argument_checks():
             k1._check(q, k, v, mask)
     _check_head_dim_padding()
     _bn_act_refuses_bad_arguments()
+    _ln_act_refuses_bad_arguments()
+    for dtype in (torch.float32, torch.bfloat16):
+        for with_delta in (False, True):
+            for strided in (False, True):
+                _check_ln_act_twins(dtype, with_delta, strided)
 
 
 def _check_head_dim_padding():
@@ -276,6 +285,98 @@ def _bn_act_refuses_bad_arguments():
             k2.refuse_autograd(*args)
 
 
+class _LN:
+    """LayerNorm parameters as ``models.layers.LayerNorm`` holds them."""
+
+    def __init__(self, D, dtype=torch.float32, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        self.weight = (torch.randn(D, generator=g) * 0.5 + 1).to(dtype)
+        self.bias = (torch.randn(D, generator=g) * 0.5).to(dtype)
+
+
+def _ln_act_refuses_bad_arguments():
+    """K3 refuses, before any launch and each with its own message, what its
+    kernels do not take (dtype, a width that is not a multiple of 8 or is
+    over 1024, a delta of another shape, dtype or device, LayerNorm
+    parameters that are not float32 [D], rows without one row stride or
+    off 16 bytes, QuickGELU on a strided or ragged tensor), devices other
+    than the CPU and CUDA, and a call that autograd would record; the row
+    strides of the calls it takes (``ln_post``'s class-token rows, rows
+    narrower than their stride)."""
+    x = torch.zeros(4, 5, 64, dtype=torch.bfloat16)
+    assert k3._check(x, x, *vars(_LN(64)).values()) == (64, 64)
+    assert k3._check(x[:, :1], None, *vars(_LN(64)).values()) == (5 * 64, 0)
+    assert k3._check(x[:, 2], x[:, 3], *vars(_LN(64)).values()) == (5 * 64, 5 * 64)
+    assert k3._check(x[:1, 1:2], None, *vars(_LN(64)).values()) == (64, 0)
+    assert k3._check(x[..., :56], None, *vars(_LN(56)).values()) == (64, 0)
+    cases = [
+        ((x.half(), None, _LN(64)), "bfloat16 or float32"),
+        ((torch.zeros(3, 12), None, _LN(12)), "multiples of 8"),
+        ((torch.zeros(3, 1032), None, _LN(1032)), "up to 1024"),
+        ((x, x[:, :2], _LN(64)), "delta must match"),
+        ((x, x.float(), _LN(64)), "delta must match"),
+        ((x, torch.zeros(4, 5, 64, dtype=torch.bfloat16, device="meta"), _LN(64)),
+         "delta must match"),
+        ((x, None, _LN(64, torch.bfloat16)), "float32"),
+        ((x, None, _LN(32)), r"float32 \[64\]"),
+        ((x.transpose(0, 1), None, _LN(64)), "one row stride"),
+        ((x[..., 4:60], None, _LN(56)), "16-byte aligned"),
+        ((torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)[1:].view(4, 64), None, _LN(64)),
+         "16-byte aligned"),
+        ((torch.zeros(4, 64 + 2)[:, :64], None, _LN(64)), "16-byte aligned"),
+    ]
+    for (xx, delta, ln), match in cases:
+        with pytest.raises(ValueError, match=match):
+            k3._check(xx, delta, ln.weight, ln.bias)
+    k3._check_gelu(torch.zeros(3, 8, dtype=torch.bfloat16))
+    k3._check_gelu(torch.zeros(3, 4))
+    for bad, match in ((torch.zeros(3, 8, dtype=torch.float16), "bfloat16 or float32"),
+                       (torch.zeros(8, 3).t(), "contiguous"),
+                       (torch.zeros(3, 4, dtype=torch.bfloat16), "whole 16-byte"),
+                       (torch.zeros(9)[1:], "aligned")):
+        with pytest.raises(ValueError, match=match):
+            k3._check_gelu(bad)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        k3.add_layer_norm(torch.zeros(2, 8, device="meta"), None, _LN(8))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        k3.quick_gelu(torch.zeros(2, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k3.add_layer_norm_cuda(x, None, _LN(64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k3.quick_gelu_cuda(x)
+    k3.refuse_autograd(x, None, *vars(_LN(64)).values())
+    ln = _LN(64)
+    ln.weight.requires_grad_(True)
+    for args in ((x.float().requires_grad_(True),), (x, None, ln.weight, ln.bias),
+                 (x, x.float().requires_grad_(True))):
+        with pytest.raises(RuntimeError, match="no backward"):
+            k3.refuse_autograd(*args)
+        with torch.no_grad():
+            k3.refuse_autograd(*args)
+        with torch.inference_mode():
+            k3.refuse_autograd(*args)
+
+
+def _check_ln_act_twins(dtype, with_delta, strided):
+    """On CPU tensors K3's wrappers return the plain twins bit for bit:
+    ``(x + delta, layer_norm(x + delta))`` (``(x, layer_norm(x))`` without a
+    delta, on rows picked with a stride too) and ``quick_gelu``; nothing
+    is launched."""
+    g = torch.Generator().manual_seed(7)
+    base = (torch.randn(3, 4, 40, generator=g) * 3).to(dtype)
+    x = base[:, :1] if strided else base
+    delta = (torch.randn(x.shape, generator=g).to(dtype)) if with_delta else None
+    ln = _LN(40, seed=8)
+    launches = k3.add_layer_norm.launches, k3.quick_gelu.launches
+    s, y = k3.add_layer_norm(x, delta, ln)
+    want_s = x if delta is None else x + delta
+    assert s.dtype == y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(s, want_s) and (delta is not None or s is x)
+    assert torch.equal(y, layer_norm(want_s, ln.weight, ln.bias))
+    assert torch.equal(k3.quick_gelu(y), quick_gelu(y))
+    assert (k3.add_layer_norm.launches, k3.quick_gelu.launches) == launches
+
+
 def _cuda_route_refuses_other_devices():
     q = torch.zeros(1, 1, 4, 64, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -311,7 +412,8 @@ def test_import_needs_no_nvcc_or_gpu(tmp_path):
     code = (
         "import sys, hgr_tpu_torch.ops.attention as a, hgr_tpu_torch.ops.build as b\n"
         "import hgr_tpu_torch.ops.bn_act as k2, hgr_tpu_torch.models.resnet\n"
-        "assert a._lib is None and k2._lib is None\n"
+        "import hgr_tpu_torch.ops.ln_act as k3, hgr_tpu_torch.models.clip\n"
+        "assert a._lib is None and k2._lib is None and k3._lib is None\n"
         "assert 'jax' not in sys.modules\n"
         "try:\n    b.nvcc_path()\nexcept RuntimeError:\n    print('no-nvcc')\n"
     )
@@ -323,5 +425,6 @@ def test_import_needs_no_nvcc_or_gpu(tmp_path):
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libattention-") and path.suffix == ".so"
     assert os.path.relpath(build.BUILD_DIR, REPO).split(os.sep)[0] == "build"
-    assert {"attention", "bn_act"} <= set(build.all_sources())
+    assert {"attention", "bn_act", "ln_act"} <= set(build.all_sources())
     assert build.library_path("bn_act").name.startswith("libbn_act-")
+    assert build.library_path("ln_act").name.startswith("libln_act-")

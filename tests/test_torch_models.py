@@ -187,13 +187,16 @@ VIT = {
 }
 
 
-def test_vit_image_tower_matches_jax():
+def test_vit_image_tower_matches_jax(monkeypatch):
     """ViT features in fp32 against JAX, rtol 1e-4 + atol 1e-5, from raw
-    uint8 and float images, for each configuration of ``VIT``; and the ViT
-    blocks' spans (``_check_vit_block_spans``)."""
+    uint8 and float images, for each configuration of ``VIT``; the ViT
+    blocks' spans (``_check_vit_block_spans``); and the transformer's fused
+    blocks against its plain ones (``_check_fused_blocks``)."""
     for name in VIT:
         _vit_matches_jax(*VIT[name])
     _check_vit_block_spans()
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_fused_blocks(monkeypatch, dtype)
 
 
 def _vit_matches_jax(arch, over):
@@ -400,3 +403,66 @@ def _check_vit_block_spans():
     _, spans = traced(lambda: tclip.encode_image(rn, torch.from_numpy(_images(rn.cfg, True)),
                                                   dtype=torch.float32))
     assert [s.name for s in spans] == ["clip.encode_image", "clip.normalize"]
+
+
+def _check_fused_blocks(monkeypatch, dtype):
+    """Without autograd the transformer runs its blocks fused, each residual
+    add in the LayerNorm after it, through K3's wrappers (``ops.ln_act``),
+    which on the CPU are the plain twins: the features equal the plain
+    blocks' bit for bit, for the ViT and the causal text tower. K3's
+    wrappers are called 2L + 2 times an image encode (``ln_pre``, each
+    block's ``ln_1`` and ``ln_2``, ``ln_post``; the last block's MLP add is a
+    plain add) and 2L + 1 a text encode (``ln_final`` takes the last add),
+    QuickGELU L times. Where autograd would record, for a parameter that
+    requires a gradient or an input that does (images, and CoOp's learned
+    context through a frozen tower), the plain blocks run, K3 is not called,
+    and the features are the same."""
+    from hgr_tpu_torch.models.coop import coop_encode_text
+    from hgr_tpu_torch.ops import ln_act
+
+    m = tclip.clip_init(tclip.get_config("TEST-ViT"), torch.Generator().manual_seed(0)).eval()
+    cfg = m.cfg
+    calls = {"add_layer_norm": 0, "quick_gelu": 0}
+    for name in calls:
+        def counted(*a, _f=getattr(ln_act, name), _n=name):
+            calls[_n] += 1
+            return _f(*a)
+        monkeypatch.setattr(ln_act, name, counted)
+    images = torch.from_numpy(_images(cfg, False))
+    toks = torch.from_numpy(_tokens(cfg, [4, 9], 16)).long()
+    ctx_map = torch.full(toks.shape, -1)
+    ctx_map[:, 1:3] = torch.arange(2)
+    ctx = 0.02 * torch.randn(2, cfg.transformer_width, generator=torch.Generator().manual_seed(1))
+    Li, Lt = cfg.vision_layers[0], cfg.transformer_layers
+    towers = {  # the encode, K3's calls, the input that may require a gradient
+        "image": (lambda: tclip.encode_image(m, images, dtype=dtype), 2 * Li + 2, Li, images),
+        "text": (lambda: tclip.encode_text(m, toks, dtype=dtype), 2 * Lt + 1, Lt, None),
+        "coop": (lambda: coop_encode_text(m, ctx, toks, ctx_map, dtype=dtype), 2 * Lt + 1, Lt,
+                 ctx),
+    }
+    for tower, (encode, n_ln, n_gelu, given) in towers.items():
+        calls.update(add_layer_norm=0, quick_gelu=0)
+        with torch.inference_mode():
+            fused = encode()
+        assert calls == {"add_layer_norm": n_ln, "quick_gelu": n_gelu}, (tower, calls)
+        with monkeypatch.context() as mp:
+            mp.setattr(ln_act, "autograd_records", lambda *a: True)
+            with torch.inference_mode():
+                plain = encode()
+        assert torch.equal(fused, plain), tower
+        assert calls == {"add_layer_norm": n_ln, "quick_gelu": n_gelu}, (tower, calls)
+        # gradients on: a parameter deep in the tower, then the input, requires one
+        deep = (m.visual.transformer if tower == "image" else m.transformer).resblocks[-1]
+        for needs in (deep.mlp.c_fc.weight, given):
+            if needs is None:
+                continue
+            needs.requires_grad_(True)
+            try:
+                got = encode()
+                assert got.requires_grad and torch.equal(got.detach(), fused), tower
+                got.float().square().sum().backward()
+                assert needs.grad is not None and needs.grad.abs().sum() > 0, tower
+            finally:
+                needs.requires_grad_(False)
+                needs.grad = None
+            assert calls == {"add_layer_norm": n_ln, "quick_gelu": n_gelu}, (tower, calls)
