@@ -49,13 +49,6 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (``phase_ln_features``);
 4. the ancestor chains of the smoke's hierarchy, held to the JAX package's
    with networkx by their digest (``EXPECTED_CHAINS_SHA256``);
-4b. the benchmark as a user runs it: ``python -m hgr_tpu_torch.bench`` (the
-   JAX package's ``bench.py`` sections: calib, RN50 and ViT-B/32 eval at
-   batch 512, the JPEG pipeline, OM training at 256, 512 and 1,024, CoOp)
-   in a process of its own: exit 0, a headline with status "ok" and every
-   key of ``BENCH_KEYS``, this card's name in ``extra.device``, and 12 x
-   22 K1 launches in its vit section (``bench_vit_b32_eval``), read from
-   its ``# K1 launches`` line; its result line is printed;
 5. zero-shot eval at full width: RN50, the 18,278-class bank padded to
    18,432, ``run_test`` over 4 batches of 512 synthetic images; K1's launch
    count over that run must be 12 layers x 36 chunks = 432;
@@ -114,6 +107,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
     encoded per step and peak memory;
 11b. ``--trace_dir``: two OM steps write one Chrome trace naming CUDA
     kernels;
+11c. OM training under gradient accumulation (``accum_steps=2``): RN50 in
+    bf16 with remat, batch 1,024 as 2 microbatches of 512, 256 negatives,
+    2 updates; no parameter moves after a first microbatch, the watched
+    ones and ``layer_weight`` after the second, no K1, K2 or K3 launch;
+    prints the update's time and peak memory;
 12. one OM train step in float32 on the card against the port's CPU path
     (small TEST-ViT config, the same weights and schedule): the loss and the
     updated weights agree within the CPU tests' tolerances;
@@ -185,6 +183,7 @@ the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -192,6 +191,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -264,6 +264,26 @@ DUP_ROW_ATOL = 4e-4
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The towers' fused blocks with the plain ``attention_scores`` in K1's
+    place, to hold K1's path to the plain attention: the one name
+    ``models/transformer.py`` calls there, substituted. Asserts that K1 did
+    not launch inside; K1's count outside goes on as if the block were not
+    there."""
+    from hgr_tpu_torch.models import transformer
+    from hgr_tpu_torch.models.layers import attention_scores
+    from hgr_tpu_torch.ops.attention import attention
+
+    saved, attention.launches = attention.launches, 0
+    try:
+        with mock.patch.object(transformer, "attention", attention_scores):
+            yield
+        assert attention.launches == 0, f"K1 ran {attention.launches} times on the plain path"
+    finally:
+        attention.launches += saved
 
 
 def word_names(wnids, seed=0):
@@ -942,14 +962,17 @@ def phase_ln_act(dev, ln_cases=LN_ACT_CASES, gelu_cases=GELU_CASES):
 
 def phase_ln_features(tm, batch=512):
     """One batch of ViT image features through K3 held to the plain blocks'
-    (K1 on both paths; ``ln_act.autograd_records`` made to answer yes), both
+    (``ln_act.autograd_records`` made to answer yes; K1 on both paths, the
+    plain blocks' ``attention_scores`` substituted by it), both
     L2-normalised, with K3's launches in the encode and the tower's time on
     each path. Returns K3's launches of the encode."""
     from unittest import mock
 
+    from hgr_tpu_torch.models import transformer
     from hgr_tpu_torch.models.clip import encode_image
     from hgr_tpu_torch.models.layers import l2_normalize
     from hgr_tpu_torch.ops import ln_act
+    from hgr_tpu_torch.ops.attention import attention
 
     res = tm.clip_cfg.image_resolution
     gen = torch.Generator(device=tm.device).manual_seed(4)
@@ -963,7 +986,8 @@ def phase_ln_features(tm, batch=512):
         got = l2_normalize(encode()).float()
         launches = k3_launches()
         k3_ms = cuda_ms(encode, reps=3, warmup=1)
-        with mock.patch.object(ln_act, "autograd_records", lambda *a: True):
+        with mock.patch.object(ln_act, "autograd_records", lambda *a: True), \
+                mock.patch.object(transformer, "attention_scores", attention):
             k3_reset()
             want = l2_normalize(encode()).float()
             assert k3_launches() == (0, 0), k3_launches()
@@ -1068,9 +1092,8 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
 
 def phase_plain_bank(tm, bank):
     """Rebuild the bank with the plain attention and hold it to K1's."""
-    from hgr_tpu_torch.models.layers import attention_scores
-
-    plain = tm.update_classifier(attn_fn=attention_scores)
+    with plain_attention():
+        plain = tm.update_classifier()
     cos = torch.nn.functional.cosine_similarity(bank.float(), plain.float(), dim=-1)
     err = float((bank.float() - plain.float()).abs().max())
     log(f"[bank] kernel vs plain attention, bf16: max_abs_err {err:.3e} (tol 1e-2), "
@@ -1083,15 +1106,14 @@ def phase_fp32_bank(tm):
     (12 layers x 36 chunks = 432 launches at (512, 8, 32, 64) causal),
     timed and held within ``TOL[torch.float32]`` to the bank built with the
     plain attention. Returns K1's launches in the first build."""
-    from hgr_tpu_torch.models.layers import attention_scores
     from hgr_tpu_torch.ops.attention import attention
 
     fp32 = dataclasses.replace(tm, config=tm.config.replace(dtype="float32"))
 
-    def timed(**kw):
+    def timed():
         torch.cuda.synchronize()
         t0 = time.time()
-        out = fp32.update_classifier(**kw)
+        out = fp32.update_classifier()
         torch.cuda.synchronize()
         return out, (time.time() - t0) * 1e3
 
@@ -1100,7 +1122,8 @@ def phase_fp32_bank(tm):
     launches = attention.launches
     assert launches == 432, f"K1 launched {launches} times in the fp32 bank build, not 432"
     warm_ms = timed()[1]
-    plain, plain_ms = timed(attn_fn=attention_scores)
+    with plain_attention():
+        plain, plain_ms = timed()
     assert bank.dtype == torch.float32 and bool(torch.isfinite(bank).all()), "fp32 bank"
     atol, rtol = TOL[torch.float32]
     diff = (bank - plain).abs()
@@ -1169,15 +1192,15 @@ def phase_vit_features(tm, batch=512):
     """One batch of ViT image features through K1, held to the plain
     attention's; both L2-normalised, as ``bank_logits`` uses them."""
     from hgr_tpu_torch.models.clip import encode_image
-    from hgr_tpu_torch.models.layers import attention_scores, l2_normalize
+    from hgr_tpu_torch.models.layers import l2_normalize
 
     res = tm.clip_cfg.image_resolution
     gen = torch.Generator(device=tm.device).manual_seed(3)
     images = torch.randn((batch, res, res, 3), generator=gen, device=tm.device)
     with torch.inference_mode():
         got = l2_normalize(encode_image(tm.model, images, dtype=tm.dtype)).float()
-        want = l2_normalize(encode_image(tm.model, images, dtype=tm.dtype,
-                                         attn_fn=attention_scores)).float()
+        with plain_attention():
+            want = l2_normalize(encode_image(tm.model, images, dtype=tm.dtype)).float()
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     err = float((got - want).abs().max())
     log(f"[vit] {batch} images, normalised features, kernel vs plain attention, bf16: "
@@ -1349,6 +1372,73 @@ def phase_train(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compar
     return seen
 
 
+def phase_train_accum(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=1024, accum=2,
+                      num_compare=256, updates=2):
+    """The OM step under gradient accumulation at full width: batch
+    ``batch`` as ``accum`` microbatches of ``batch // accum`` (bf16, remat,
+    ``num_compare`` negatives), ``updates`` full updates. Within an update
+    no parameter moves before its last microbatch, and then the watched
+    ones and ``layer_weight`` do; K1, K2 and K3 launch 0 times (every
+    microbatch runs under autograd). Logs the last update's host-clock ms."""
+    from hgr_tpu_torch import driver
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.hierarchy import profiled_hierarchy
+    from hgr_tpu_torch.ops.attention import attention
+    from hgr_tpu_torch.ops.bn_act import bn_act
+    from hgr_tpu_torch.train import (NegativeSampler, ScheduleBuilder, init_train_state,
+                                     make_optimizer, make_train_step, sched_to_device)
+
+    cfg = Config(arch=arch, synthetic=True, remat=True, batch_size=batch // accum,
+                 num_compare=num_compare, accum_steps=accum)
+    hier = profiled_hierarchy(level_sizes, seed=0, cross_edges=40)
+    tm = driver.build_model(cfg, hier, driver.synthetic_splits(hier, cfg.seed), device=dev)
+    deep = hier.level(hier.max_depth)
+    builder = ScheduleBuilder(hier, NegativeSampler(hier, tm.train_index, num_compare, seed=0),
+                              cfg.out_ratio, cfg.in_ratio, num_compare)
+    scheds = [sched_to_device(builder.build(int(deep[k])), dev) for k in range(accum)]
+    res = tm.clip_cfg.image_resolution
+    g = torch.Generator(device=dev).manual_seed(0)
+    images = [torch.randint(0, 256, (cfg.batch_size, res, res, 3), generator=g, device=dev,
+                            dtype=torch.uint8) for _ in range(accum)]
+    tx = make_optimizer(cfg, 10 * updates)
+    state = init_train_state(tm.model, tm.layer_weight, tx)
+    step = make_train_step(cfg, tx, dtype=tm.dtype)
+    node_tokens = torch.as_tensor(tm.node_tokens, device=dev).long()
+    trained = dict(tm.model.named_parameters(), layer_weight=tm.layer_weight)
+    watched = ("visual.conv1.weight", "visual.attnpool.c_proj.weight",
+               "transformer.resblocks.0.attn.in_proj_weight", "layer_weight")
+
+    attention.launches = bn_act.launches = 0
+    k3_reset()
+    _reset_peak(dev)
+    losses = []
+    for u in range(updates):
+        before = {k: t.detach().clone() for k, t in trained.items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        for k in range(accum):
+            _, loss = step(state, images[k], node_tokens, scheds[k])
+            losses.append(float(loss))
+            if k + 1 < accum:
+                moved = [n for n, t in trained.items() if not torch.equal(t.detach(), before[n])]
+                assert not moved, f"update {u}, microbatch {k}: {moved[:4]} moved"
+                assert state.opt_state.mini_step == k + 1 and state.opt_state.count == u
+        _sync(dev)
+        update_ms = (time.perf_counter() - t0) * 1e3
+        still = [n for n in watched if torch.equal(trained[n].detach(), before[n])]
+        assert not still, f"update {u}: {still} did not move"
+        assert state.opt_state.mini_step == 0 and state.opt_state.count == u + 1
+    seen = (attention.launches, bn_act.launches, k3_launches())
+    log(f"[train-accum] {arch} bf16 remat, batch {batch} as {accum} x {cfg.batch_size}, "
+        f"{num_compare} negatives, {updates} updates: losses {losses}; parameters still after "
+        f"each non-last microbatch, moved after the last; last update {update_ms:.1f} ms = "
+        f"{batch / update_ms * 1e3:.1f} images/s (host clock); peak memory {_peak_gib(dev):.2f} "
+        f"GiB; K1, K2, K3 launches {seen} (want 0, 0, (0, 0)); on {_card_name(dev)}")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert seen == (0, 0, (0, 0)), seen
+    return seen
+
+
 def phase_train_reference(dev):
     """One OM train step in float32 on the card and on the port's CPU path
     from the same weights, images and schedule (TEST-ViT, remat on): the
@@ -1430,8 +1520,6 @@ def phase_coop(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare
     from hgr_tpu_torch.config import Config
     from hgr_tpu_torch.eval.bank import build_bank_ids
     from hgr_tpu_torch.hierarchy import profiled_hierarchy
-    from hgr_tpu_torch.models.layers import attention_scores
-    from hgr_tpu_torch.ops.attention import attention
     from hgr_tpu_torch.utils.checkpoint import restore_params
     from hgr_tpu_torch.utils.logging import RunLogger
 
@@ -1478,8 +1566,10 @@ def phase_coop(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare
     # the CoOp bank through K1 against the plain attention's (not counted)
     params = {"clip": tm.model, "coop_ctx": tm.coop_ctx}
     chunk = min(512, tm.n_pad)
-    got, want = (build_bank_ids(params, tm.n_pad, tm.coop_text_fn(static, attn_fn=fn), chunk,
-                                tm.dtype, dev).float() for fn in (attention, attention_scores))
+    text_fn = tm.coop_text_fn(static)
+    got = build_bank_ids(params, tm.n_pad, text_fn, chunk, tm.dtype, dev).float()
+    with plain_attention():
+        want = build_bank_ids(params, tm.n_pad, text_fn, chunk, tm.dtype, dev).float()
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     err = float((got - want).abs().max())
     log(f"[coop] bank of {tm.n_pad} CoOp prompts, kernel vs plain attention, bf16: max_abs_err "
@@ -1644,7 +1734,6 @@ def phase_steps_reference(dev):
     from hgr_tpu_torch.config import Config
     from hgr_tpu_torch.hierarchy import synthetic_hierarchy
     from hgr_tpu_torch.models.coop import coop_ctx_init
-    from hgr_tpu_torch.models.layers import attention_scores
     from hgr_tpu_torch.train import (NegativeSampler, ScheduleBuilder, init_train_state,
                                      make_optimizer, make_train_step, sched_to_device)
     from hgr_tpu_torch.train.trainer import Optimizer
@@ -1675,7 +1764,7 @@ def phase_steps_reference(dev):
         state = init_train_state(tm.model, tm.layer_weight, tx,
                                  extra_params={"coop_ctx": ctx0.to(device, copy=True)})
         step = make_train_step(cfg, tx, dtype=torch.float32,
-                               text_fn=tm.coop_text_fn(static, attn_fn=attention_scores))
+                               text_fn=tm.coop_text_fn(static))
         _, loss = step(state, torch.from_numpy(images).to(device),
                        torch.as_tensor(tm.node_tokens, device=device).long(),
                        sched_to_device(sched, device))
@@ -3337,63 +3426,6 @@ def phase_builder(work):
     assert digest == EXPECTED_BUILDER_SHA256
 
 
-# every key that the root bench.py's seven sections and its ``_emit`` write
-# (its watchdog's and sidecar's aside), the calib bracket after the last
-# section, and the card's stamp
-BENCH_KEYS = (
-    "calib_tflops", "calib_dispatch_ms", "calib_tflops_end", "calib_dispatch_ms_end",
-    "vit_b32_eval_imgs_per_sec", "loader_imgs_per_sec", "loader_imgs_per_sec_per_core",
-    "host_cores", "cached_loader_imgs_per_sec", "mp_loader_imgs_per_sec",
-    "decode_cpu_ms_per_img", "e2e_eval_imgs_per_sec", "e2e_cached_eval_imgs_per_sec",
-    "train_imgs_per_sec", "train_step_ms", "train_batch", "num_compare", "remat",
-    "train_imgs_per_sec_b512", "train_step_ms_b512", "train_imgs_per_sec_b1024",
-    "train_step_ms_b1024", "train_b1024_mode", "coop_train_imgs_per_sec",
-    "coop_train_step_ms", "host_cores_to_feed_chip", "section_done_s", "device",
-)
-
-
-def phase_bench(timeout=900):
-    """``python -m hgr_tpu_torch.bench`` as a user runs it (all seven
-    sections) in a process of its own, its JPEGs in a temporary directory:
-    exit 0, the last line the headline with status "ok", every key of
-    ``BENCH_KEYS``, this card's name; the vit section's K1 launches, which
-    the bench prints as ``# K1 launches: N``, 12 layers x (warm-up + timed)
-    steps. Returns those launches."""
-    import os
-    import tempfile
-
-    from hgr_tpu_torch import bench
-
-    # the smoke's own cached blocks would be the bench's missing memory
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="hgr_bench_jpegs_") as jpegs:
-        t0 = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m", "hgr_tpu_torch.bench"],
-                           cwd=os.path.dirname(os.path.abspath(__file__)),
-                           env=dict(os.environ, HGR_BENCH_JPEG_DIR=jpegs),
-                           capture_output=True, text=True, timeout=timeout)
-        elapsed = time.perf_counter() - t0
-    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
-    lines = p.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        if line.startswith("# "):
-            log(f"[bench] {line[2:]}")
-    result = json.loads(lines[-1])
-    extra = result["extra"]
-    assert (result["metric"], result["unit"], result["status"]) == (
-        bench.METRIC, "imgs/sec/chip", "ok") and result["value"] > 0, lines[-1]
-    missing = [k for k in BENCH_KEYS if k not in extra]
-    assert not missing, f"the bench's line lacks {missing}"
-    assert extra["device"]["name"] == torch.cuda.get_device_name(0), extra["device"]
-    launches = [int(line.rsplit(":", 1)[1]) for line in lines
-                if line.startswith("# K1 launches:")]
-    want = 12 * (bench.WARMUP + bench.EVAL_ITERS)
-    log(f"[bench] {elapsed:.1f} s of command; vit K1 launches {launches} (want [{want}])")
-    assert launches == [want]
-    log(f"[bench] {lines[-1]}")
-    return want
-
-
 def main() -> int:
     import shutil
     import tempfile
@@ -3411,7 +3443,6 @@ def main() -> int:
     bn_act_row, k2_encodes = phase_bn_act(dev)
     ln_row, gelu_row = phase_ln_act(dev)
     phase_chains()
-    bench_vit = phase_bench()
     tm, bank, summary, rn50, k2_rn50, k3_rn50 = phase_slice(dev)
     phase_plain_bank(tm, bank)
     fp32_bank = phase_fp32_bank(tm)
@@ -3443,6 +3474,7 @@ def main() -> int:
         real.pop("tm")
         train = phase_train(dev)
         phase_trace(dev)
+        accum = phase_train_accum(dev)
         phase_train_reference(dev)
         phase_guard(dev)
         coop = phase_coop(dev)
@@ -3457,8 +3489,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    by_path = {"rn50_eval": rn50, "rn50_fp32_bank": fp32_bank, "bench_vit_b32_eval": bench_vit,
-               "vit_b32_eval": vit_launches, "vit_b16_eval": vit16_launches,
+    by_path = {"rn50_eval": rn50, "rn50_fp32_bank": fp32_bank, "vit_b32_eval": vit_launches,
+               "vit_b16_eval": vit16_launches,
                "rn50x4_eval": rn50x4,
                "vit_l14_eval": vit_l14,
                "rn50_real_inputs_eval": real_launches,
@@ -3467,6 +3499,7 @@ def main() -> int:
                "export_text_feats": text,
                **({} if serving is None else {"rn50_serve_classify_files": serving[0]}),
                "rn50_train_steps": train["train_steps"], "rn50_test_after_train": train["test"],
+               "rn50_accum_train_steps": accum[0],
                "rn50_coop_train_steps": coop["train_steps"],
                "rn50_coop_test_after_train": coop["test"],
                "rn50_flat_train_steps": flat["train_steps"],
@@ -3480,6 +3513,7 @@ def main() -> int:
                   **({} if serving is None else {"rn50_serve_classify_files": serving[1]}),
                   "rn50_train_steps": train["k2_train_steps"],
                   "rn50_test_after_train": train["k2_test"],
+                  "rn50_accum_train_steps": accum[1],
                   "rn50_coop_train_steps": coop["k2_train_steps"],
                   "rn50_coop_test_after_train": coop["k2_test"],
                   "rn50_flat_train_steps": flat["k2_train_steps"],
@@ -3491,6 +3525,7 @@ def main() -> int:
                   "vit_l14_eval": k3_vit_l14, "vit_l14_encode": k3_vit_l14_encode,
                   "rn50_train_steps": train["k3_train_steps"],
                   "rn50_test_after_train": train["k3_test"],
+                  "rn50_accum_train_steps": accum[2],
                   "rn50_coop_train_steps": coop["k3_train_steps"],
                   "rn50_coop_test_after_train": coop["k3_test"],
                   "rn50_flat_train_steps": flat["k3_train_steps"],

@@ -4,8 +4,9 @@
 The reference's ``baseline/CLIP/clip_train.py``: encode the image batch and
 the SEEN-class prompt bank, cross-entropy against the batch labels (their
 positions in the seen bank), then the shared hierarchical eval. Every step
-re-encodes all seen prompts (``clip_train.py:212-214``), under autograd and
-so through the plain ``attention_scores``, without remat, as the JAX step.
+re-encodes all seen prompts (``clip_train.py:212-214``), under autograd, so
+the towers run the plain ``attention_scores`` (they see that autograd
+records), without remat, as the JAX step.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from ..models.clip import encode_image, encode_text
-from ..models.layers import attention_scores, l2_normalize
+from ..models.layers import l2_normalize
 
 
 def step_lr(base_lr: float, gamma: float = 0.1, step_size: int = 25) -> Callable[[int], float]:
@@ -29,8 +30,8 @@ def flat_loss(params: Dict[str, Any], images: torch.Tensor, seen_tokens: torch.T
     """Mean cross-entropy of ``exp(logit_scale)``-scaled cosines between the
     images and the seen prompts; ``labels`` index ``seen_tokens``' rows."""
     m = params["clip"]
-    img = l2_normalize(encode_image(m, images, dtype=dtype, attn_fn=attention_scores))
-    txt = l2_normalize(encode_text(m, seen_tokens, dtype=dtype, attn_fn=attention_scores))
+    img = l2_normalize(encode_image(m, images, dtype=dtype))
+    txt = l2_normalize(encode_text(m, seen_tokens, dtype=dtype))
     logits = img.float() @ txt.float().T * torch.exp(m.logit_scale)
     return torch.nn.functional.cross_entropy(logits, labels.long())
 

@@ -362,7 +362,6 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
     (``hgr_tpu/driver.py:370-382``). On a mesh with ``data`` > 1 each step
     takes ``data`` consecutive batches, replica d the d-th of them
     (``hgr_tpu/driver.py:437-500``)."""
-    from .models.layers import attention_scores
     from .train import (
         NegativeSampler,
         ScheduleBuilder,
@@ -388,8 +387,7 @@ def run_train(config: Config, tm: TreeModel, splits, logger: RunLogger) -> Any:
     text_fn = extra_params = extra_labels = None
     if config.coop:
         static, ctx = tm.coop_setup(config.seed)
-        # under autograd: the plain attention, as for the standard text path
-        text_fn = tm.coop_text_fn(static, attn_fn=attention_scores)
+        text_fn = tm.coop_text_fn(static)
         extra_params = {"coop_ctx": ctx}
         extra_labels = {
             "ctx": {"clip": "frozen", "coop_ctx": "clip"},

@@ -6,8 +6,10 @@ one to one. ``clip_init`` draws every parameter from an explicit
 ``torch.Generator`` with the distributions of the JAX ``*_init`` functions
 (not their bits). ``encode_image`` takes NHWC images, raw uint8 or float,
 as the JAX function does. The image tower is the modified ResNet or, when
-``vision_patch_size > 0``, the ViT; only the ViT takes ``attn_fn`` and
-``remat``, as in JAX.
+``vision_patch_size > 0``, the ViT; only the ViT takes ``remat``, as in
+JAX. Neither encode takes an attention: each tower picks the hand kernels
+or their plain twins itself, from whether autograd would record
+(``ops.ln_act.autograd_records``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.attention import attention
 from ..utils.profiling import annotate
 from .layers import Embedding, LayerNorm, _param, l2_normalize, normal_
 from .resnet import ModifiedResNet
@@ -183,7 +184,6 @@ def encode_image(
     m: CLIP,
     images: torch.Tensor,  # [B, H, W, 3] pre-normalised float, or raw uint8
     dtype: torch.dtype = torch.bfloat16,
-    attn_fn=attention,
     remat: bool = False,
 ) -> torch.Tensor:
     with annotate("clip.encode_image"):
@@ -195,7 +195,7 @@ def encode_image(
                 images = (images.float() - mean) * scale
         x = images.to(dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
         if m.cfg.is_vit:
-            return m.visual(x, attn_fn, remat)
+            return m.visual(x, remat)
         return m.visual(x)
 
 
@@ -203,11 +203,10 @@ def encode_text(
     m: CLIP,
     tokens: torch.Tensor,  # [B, T] integer ids
     dtype: torch.dtype = torch.bfloat16,
-    attn_fn=attention,
     remat: bool = False,
 ) -> torch.Tensor:
     with annotate("clip.encode_text"):
-        return text_encoder_apply(m, tokens, dtype=dtype, attn_fn=attn_fn, remat=remat)
+        return text_encoder_apply(m, tokens, dtype=dtype, remat=remat)
 
 
 def cosine_logits(

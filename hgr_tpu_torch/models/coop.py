@@ -13,9 +13,10 @@ the token embeddings, put the trainable ``ctx`` rows into their slots, run
 the causal transformer, pool at argmax(tokens) (EOT has the highest id).
 The gradient reaches ``ctx`` only through its slots.
 
-``attn_fn`` is the text tower's attention: the fused kernel by default (the
-class bank, built without gradients), the plain ``attention_scores`` inside
-the train step, as for the standard text path (``train/om.py``).
+The text tower picks its attention itself (``models/transformer.py``):
+K1 where autograd records nothing (the class bank), the plain
+``attention_scores`` where it records (the train step, through ``ctx`` even
+when CLIP is frozen). Callers pass no attention.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..ops.attention import attention
+from ..ops import ln_act
 from .layers import causal_mask, l2_normalize
 
 N_CTX_DEFAULT = 16
@@ -99,7 +100,6 @@ def coop_encode_text(
     tokenized: torch.Tensor,    # [U, T] integer ids (gathered for current ids)
     ctx_map: torch.Tensor,      # [U, T] integer ctx rows, -1 = the token's own
     dtype: torch.dtype = torch.bfloat16,
-    attn_fn: Callable = attention,
     remat: bool = False,
 ) -> torch.Tensor:
     """Prompt-conditioned text features [U, D] (reference ``TextEncoder`` and
@@ -109,7 +109,8 @@ def coop_encode_text(
     ctx_rows = ctx.to(dtype)[ctx_map.clamp_min(0)]                  # [U, T, W]
     emb = torch.where((ctx_map >= 0)[..., None], ctx_rows, emb)
     x = emb + m.positional_embedding[:T].to(dtype)
-    x = m.transformer(x, causal_mask(T, device=x.device), attn_fn, remat,
+    records = ln_act.autograd_records(x, m.transformer, m.ln_final)
+    x = m.transformer(x, causal_mask(T, device=x.device), records, remat,
                       ln_final=m.ln_final)
     eot = tokenized.argmax(dim=-1)  # first maximal index, as jnp.argmax
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -120,7 +121,6 @@ def make_coop_text_fn(
     static: CoopStatic,
     dtype: torch.dtype = torch.bfloat16,
     remat: bool = False,
-    attn_fn: Callable = attention,
     device=None,
 ) -> Callable:
     """``text_fn(params, ids) -> normalised [len(ids), D]`` through the prompt
@@ -132,7 +132,7 @@ def make_coop_text_fn(
 
     def text_fn(params, ids):
         feats = coop_encode_text(params["clip"], params["coop_ctx"], tokenized[ids],
-                                 ctx_map[ids], dtype=dtype, attn_fn=attn_fn, remat=remat)
+                                 ctx_map[ids], dtype=dtype, remat=remat)
         return l2_normalize(feats)
 
     return text_fn

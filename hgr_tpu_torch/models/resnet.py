@@ -13,8 +13,9 @@ from NHWC keeps channels-last strides, which cuDNN takes as they are.
 Each BatchNorm runs with what follows it (the residual add, the ReLU, the
 2x2 mean, and in a block with a downsample its BatchNorm too) as one call of
 ``ops.bn_act.bn_act``, the fused kernel K2 on CUDA, whose output has no
-``grad_fn``; where autograd would record the call (the train step), the
-plain twin ``layers.batch_norm_act``, the same ops in the same order.
+``grad_fn``; where autograd would record the call (the train step,
+``ops.ln_act.autograd_records``, the rule every tower asks), the plain twin
+``layers.batch_norm_act``, the same ops in the same order.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops import ln_act
 from ..ops.bn_act import bn_act
 from .layers import BatchNorm2d, Conv2d, Linear, _param, batch_norm_act, normal_
 
@@ -32,13 +34,8 @@ EXPANSION = 4
 
 def epilogue(x: torch.Tensor, *modules: nn.Module):
     """``bn_act``, or its plain twin ``batch_norm_act`` where autograd would
-    record the calls: gradients on, and ``x`` or a parameter of ``modules``
-    requires one (then every activation after it does too)."""
-    if torch.is_grad_enabled() and (
-        x.requires_grad or any(p.requires_grad for m in modules for p in m.parameters())
-    ):
-        return batch_norm_act
-    return bn_act
+    record the calls (``ops.ln_act.autograd_records``)."""
+    return batch_norm_act if ln_act.autograd_records(x, *modules) else bn_act
 
 
 class Downsample(nn.Module):

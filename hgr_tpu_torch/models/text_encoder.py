@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.attention import attention
+from ..ops import ln_act
 from .layers import causal_mask
 
 
@@ -22,13 +22,13 @@ def text_encoder_apply(
     m,                      # models.clip.CLIP
     tokens: torch.Tensor,   # [B, T] integer ids
     dtype: torch.dtype = torch.bfloat16,
-    attn_fn=attention,
     remat: bool = False,
 ) -> torch.Tensor:
     T = tokens.shape[1]
     x = m.token_embedding(tokens).to(dtype)
     x = x + m.positional_embedding[:T].to(dtype)
-    x = m.transformer(x, causal_mask(T, device=x.device), attn_fn, remat,
+    records = ln_act.autograd_records(x, m.transformer, m.ln_final)
+    x = m.transformer(x, causal_mask(T, device=x.device), records, remat,
                       ln_final=m.ln_final)
     eot = tokens.argmax(dim=-1)  # first maximal index, as jnp.argmax
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -8,14 +8,21 @@ The JAX package stacks the blocks for ``lax.scan``; here they are a
 ``ModuleList`` run by a Python loop, under the OpenAI names
 ``resblocks.{i}.attn.in_proj_weight`` and so on.
 
-Where autograd would record nothing (``ops.ln_act.autograd_records``: no
-gradients, or no input and no parameter that requires one; ``remat`` then
-has nothing to recompute), the stack runs the same ops in a fused order:
-each residual add goes into the LayerNorm that follows it
+The stack runs hand kernels or their plain twins as its tower says: the
+ViT, the text encoder and CoOp's text path each ask
+``ops.ln_act.autograd_records`` once an encode (gradients on, and the input
+or a parameter requires one) and pass the answer; their own callers pass
+nothing. Where autograd would record, the blocks run plain:
+``layers.attention_scores``, the plain add, LayerNorm and QuickGELU, under
+``remat`` checkpointed. Where it would record nothing (``remat`` then has nothing to recompute), the same ops run in a
+fused order: the attention is ``ops.attention.attention`` (K1), each
+residual add goes into the LayerNorm that follows it
 (``ops.ln_act.add_layer_norm``: the attention half's into ``ln_2``, the MLP
 half's into the next block's ``ln_1`` or into ``ln_final``), and QuickGELU
-is ``ops.ln_act.quick_gelu``. On CUDA those are K3's kernels; on the CPU,
-the plain twins, which give the plain block's result bit for bit.
+is ``ops.ln_act.quick_gelu`` (K3). On CUDA those are the kernels; on the
+CPU, the plain twins, which give the plain block's result bit for bit. A
+check that holds the kernels' path to the plain attention substitutes
+``attention_scores`` for this module's name ``attention``.
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import ln_act
+from ..ops.attention import attention
 from ..utils.profiling import annotate
-from .layers import LayerNorm, Linear, _param, mha, normal_, quick_gelu
+from .layers import LayerNorm, Linear, _param, attention_scores, mha, normal_, quick_gelu
 
 
 class MultiheadAttention(nn.Module):
@@ -80,12 +88,12 @@ class ResidualAttentionBlock(nn.Module):
     def _span(self, i: int):
         return annotate(self.spans[i]) if self.spans else contextlib.nullcontext()
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], attn_fn) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         a = self.attn
         with self._span(0):
             x = x + mha(
                 self.ln_1(x), a.in_proj_weight, a.in_proj_bias,
-                a.out_proj.weight, a.out_proj.bias, self.heads, mask, attn_fn,
+                a.out_proj.weight, a.out_proj.bias, self.heads, mask, attention_scores,
             )
         with self._span(1):
             return x + self.mlp.c_proj(quick_gelu(self.mlp.c_fc(self.ln_2(x))))
@@ -95,7 +103,6 @@ class ResidualAttentionBlock(nn.Module):
         x: torch.Tensor,
         h: Optional[torch.Tensor],
         mask: Optional[torch.Tensor],
-        attn_fn,
         ln_next: Optional[LayerNorm],
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``forward`` with each residual add fused into the LayerNorm after
@@ -107,7 +114,7 @@ class ResidualAttentionBlock(nn.Module):
             if h is None:
                 h = add_ln(x, None, self.ln_1)[1]
             attn = mha(h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
-                       a.out_proj.bias, self.heads, mask, attn_fn)
+                       a.out_proj.bias, self.heads, mask, attention)
             x, h = add_ln(x, attn, self.ln_2)
         with self._span(1):
             out = self.mlp.c_proj(ln_act.quick_gelu(self.mlp.c_fc(h)))
@@ -134,27 +141,27 @@ class Transformer(nn.Module):
         self,
         x: torch.Tensor,
         mask: Optional[torch.Tensor],
-        attn_fn,
+        records: bool,
         remat: bool = False,
         ln_final: Optional[LayerNorm] = None,
     ) -> torch.Tensor:
         """The blocks over ``x``, then ``ln_final`` where given.
         ``remat=True`` checkpoints each block, so the backward pass
         recomputes its activations (``jax.checkpoint`` of the block body,
-        ``hgr_tpu/models/transformer.py:104-107``). Whether autograd would
-        record is asked once a call: if not, the blocks run fused
+        ``hgr_tpu/models/transformer.py:104-107``). ``records`` is the
+        tower's answer from ``ln_act.autograd_records``, asked once an
+        encode. If it is False, the blocks run fused
         (``ResidualAttentionBlock.forward_fused``), the last block's MLP add
         going into ``ln_final`` (or a plain add without it)."""
-        finals = () if ln_final is None else (ln_final,)
-        if not ln_act.autograd_records(x, self, *finals):
+        if not records:
             blocks, h = self.resblocks, None
             for i, blk in enumerate(blocks):
                 nxt = blocks[i + 1].ln_1 if i + 1 < len(blocks) else ln_final
-                x, h = blk.forward_fused(x, h, mask, attn_fn, nxt)
+                x, h = blk.forward_fused(x, h, mask, nxt)
             return x if ln_final is None else h
         for blk in self.resblocks:
             if remat:
-                x = checkpoint(blk, x, mask, attn_fn, use_reentrant=False)
+                x = checkpoint(blk, x, mask, use_reentrant=False)
             else:
-                x = blk(x, mask, attn_fn)
+                x = blk(x, mask)
         return x if ln_final is None else ln_final(x)

@@ -8,10 +8,12 @@ mask, so on the card the fused kernel runs at T = grid² + 1 (50 for
 ViT-B/32, 197 for ViT-B/16, 257 for ViT-L/14). Each block records the spans
 ``vit.attn`` and ``vit.mlp``. Names are OpenAI's (``conv1.weight``,
 ``class_embedding``, ``transformer.resblocks.{i}.*``, ``ln_post``,
-``proj``). Where autograd would record nothing, ``ln_pre`` and ``ln_post``
-run through ``ops.ln_act.add_layer_norm`` (K3 on CUDA) and the blocks run
-fused (``models/transformer.py``); the last block's MLP add stays a plain
-add, since ``ln_post`` reads only the class token's row.
+``proj``). Whether autograd would record is asked once an encode
+(``ops.ln_act.autograd_records``) and handed to the ``Transformer``; where
+it would record nothing, ``ln_pre`` and ``ln_post`` run through
+``ops.ln_act.add_layer_norm`` (K3 on CUDA) and the blocks run fused, with
+K1's attention (``models/transformer.py``); the last block's MLP add stays
+a plain add, since ``ln_post`` reads only the class token's row.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class VisionTransformer(nn.Module):
         self.ln_post.init()
         normal_(self.proj, scale, g)
 
-    def forward(self, x: torch.Tensor, attn_fn, remat: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """x: [B, 3, H, W] in the compute dtype -> [B, output_dim]."""
         x = self.conv1(x)                                  # [B, width, g, g]
         B, width = x.shape[:2]
@@ -63,12 +65,12 @@ class VisionTransformer(nn.Module):
         cls = self.class_embedding.to(x.dtype).expand(B, 1, width)
         x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding.to(x.dtype)
-        plain = ln_act.autograd_records(x, self)
+        records = ln_act.autograd_records(x, self)
 
         def norm(t, ln):
-            return ln(t) if plain else ln_act.add_layer_norm(t, None, ln)[1]
+            return ln(t) if records else ln_act.add_layer_norm(t, None, ln)[1]
 
         x = norm(x, self.ln_pre)
-        x = self.transformer(x, None, attn_fn, remat)
+        x = self.transformer(x, None, records, remat)
         x = norm(x[:, :1], self.ln_post)[:, 0]
         return x @ self.proj.to(x.dtype)

@@ -1,7 +1,10 @@
 """K1, the fused softmax attention (port of ``hgr_tpu/ops/attention.py``).
 
-``attention`` is what the text tower calls. For tensors on the CPU it runs
-the plain twin ``models.layers.attention_scores``; for CUDA tensors it
+``attention`` is what ``models/transformer.py``'s fused blocks call, in the
+text tower and the ViT alike, where autograd would record nothing
+(``ops.ln_act.autograd_records``, asked once a tower call; callers pass no
+attention). For tensors on the CPU it runs the plain twin
+``models.layers.attention_scores``; for CUDA tensors it
 launches the hand-written Hopper kernel in ``csrc/attention.cu`` (see the
 note there for what it computes and what bounds it) or raises. There is no
 fallback from CUDA to the plain version. The kernel library is compiled at
@@ -10,8 +13,9 @@ the first CUDA call (``ops/build.py``), never at import.
 The kernel writes its output through raw pointers, so that output has no
 ``grad_fn``: the kernel has no backward, as the Pallas kernel has none. A
 CUDA call that autograd would record raises instead of silently cutting the
-attention branch out of the gradient; the train step calls the plain
-``attention_scores``, as the JAX step calls XLA's attention.
+attention branch out of the gradient; where autograd records (the train
+step), the towers call the plain ``attention_scores``, as the JAX step
+calls XLA's attention.
 """
 
 from __future__ import annotations
@@ -93,7 +97,7 @@ def refuse_autograd(q, k, v) -> None:
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
             "the attention kernel has no backward: with gradients on, call "
-            "models.layers.attention_scores (the train step does)"
+            "models.layers.attention_scores (the towers do)"
         )
 
 

@@ -15,11 +15,13 @@ where CE_p is the cross-entropy of pair p's compare set averaged over all B
 rows of the batch, zero-padded rows included (``hgr_tpu/train/om.py:75``
 takes no ``valid``).
 
-Both towers run with the plain ``attention_scores``. That is the
-counterpart of the JAX step, which calls the encoders with no ``attn_fn``
-and so runs XLA's attention (``om.py:98,103``); it is not a fallback from
-the fused kernel, which has no backward and is never called under autograd
-(``ops/attention.py``).
+The step passes the towers no attention: each tower sees that autograd
+records (``ops.ln_act.autograd_records``) and runs the plain
+``attention_scores`` and twins, the counterpart of the JAX step, which
+calls the encoders with no attention argument and so runs XLA's attention
+(``om.py:98,103``). That is not a fallback from the hand kernels, which
+have no backward and are never called under autograd. A frozen tower that
+records nothing (the image tower of a CoOp ``ctx`` step) runs its kernels.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ..models.clip import encode_image, encode_text
-from ..models.layers import attention_scores, l2_normalize
+from ..models.layers import l2_normalize
 from .weights import pair_weights
 
 
@@ -88,12 +90,12 @@ def om_loss(
     text_fn: Callable = None,
 ) -> torch.Tensor:
     m = params["clip"]
-    img = encode_image(m, images, dtype=dtype, attn_fn=attention_scores, remat=remat)
+    img = encode_image(m, images, dtype=dtype, remat=remat)
     img = l2_normalize(img)                                        # [B, D]
 
     if text_fn is None:
         toks = node_tokens[sched["unique"]]                        # [U, T]
-        tfeat = encode_text(m, toks, dtype=dtype, attn_fn=attention_scores, remat=remat)
+        tfeat = encode_text(m, toks, dtype=dtype, remat=remat)
         tfeat = l2_normalize(tfeat)                                # [U, D]
     else:
         # a variant text path (the CoOp prompt learner): class ids ->

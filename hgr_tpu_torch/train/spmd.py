@@ -36,7 +36,7 @@ import torch.distributed as dist
 
 from ..config import Config
 from ..models.clip import encode_image, encode_text
-from ..models.layers import attention_scores, l2_normalize
+from ..models.layers import l2_normalize
 from ..parallel.collectives import all_sum_, all_sum_flat_, gather_rows
 from ..parallel.mesh import Mesh
 from .om import pair_ce_loss, resolve_weight_modes
@@ -96,14 +96,13 @@ def make_spmd_train_step(
     def replica_loss(params, images, node_tokens, sched):
         clip = params["clip"]
         B = images.shape[0]
-        img = encode_image(clip, _block(images, m, M), dtype=dtype, attn_fn=attention_scores,
-                           remat=config.remat)
+        img = encode_image(clip, _block(images, m, M), dtype=dtype, remat=config.remat)
         img = gather_rows(l2_normalize(img), mesh.model_group)[:B]
         U = sched["unique"].shape[0]
         ids = _block(sched["unique"], m, M)
         if text_fn is None:
             tf = l2_normalize(encode_text(clip, node_tokens[ids], dtype=dtype,
-                                          attn_fn=attention_scores, remat=config.remat))
+                                          remat=config.remat))
         else:
             tf = text_fn(params, ids)
         tf = gather_rows(tf, mesh.model_group)[:U]

@@ -38,7 +38,6 @@ from .eval.bank import bank_logits, build_bank, pad_to, pad_tokens
 from .eval.metrics import BatchMetrics, metrics_from_preds
 from .hierarchy import Hierarchy
 from .models.clip import CLIP, CLIPConfig, clip_init, encode_image, encode_text, get_config
-from .ops.attention import attention
 from .ops.bank_topk import level_argmax_sorted
 from .text import Tokenizer, get_bank
 from .utils.profiling import annotate
@@ -218,14 +217,13 @@ class TreeModel:
         return torch.bfloat16 if self.config.dtype == "bfloat16" else torch.float32
 
     # ---- bank ------------------------------------------------------------
-    def update_classifier(self, attn_fn=attention) -> torch.Tensor:
+    def update_classifier(self) -> torch.Tensor:
         """Encode all node prompts -> normalised [N_pad, D] bank (reference
-        ``update_classifier``, ``model/clip_tree.py:318-325``). ``attn_fn``
-        replaces the fused attention only where a check compares the two."""
+        ``update_classifier``, ``model/clip_tree.py:318-325``)."""
         tokens = torch.as_tensor(self.node_tokens, device=self.device)
         return build_bank(
             tokens,
-            lambda tk: encode_text(self.model, tk, dtype=self.dtype, attn_fn=attn_fn),
+            lambda tk: encode_text(self.model, tk, dtype=self.dtype),
             chunk=min(512, self.n_pad),
             out_dtype=self.dtype,
         )
@@ -246,14 +244,14 @@ class TreeModel:
                             cfg.transformer_width, self.device)
         return static, ctx
 
-    def coop_text_fn(self, static, remat: Optional[bool] = None, attn_fn=attention):
+    def coop_text_fn(self, static, remat: Optional[bool] = None):
         """``text_fn(params, ids)`` of the prompt learner on this model's
         device; ``remat`` defaults to the config's."""
         from .models.coop import make_coop_text_fn
 
         return make_coop_text_fn(static, dtype=self.dtype,
                                  remat=self.config.remat if remat is None else remat,
-                                 attn_fn=attn_fn, device=self.device)
+                                 device=self.device)
 
     def sort_bank(self, bank: torch.Tensor) -> torch.Tensor:
         """Permute a [N_pad, D] bank into depth-sorted class order (once per

@@ -56,7 +56,6 @@ def spmd_step_rank(rank, cases):
     """One port SPMD step of each case, on its ``mesh``: a list of (loss,
     params after the step as numpy, the state's step, the gradients its
     update applied)."""
-    from hgr_tpu_torch.models.layers import attention_scores
     from hgr_tpu_torch.train import init_train_state, make_optimizer
     from hgr_tpu_torch.train.spmd import make_spmd_train_step
 
@@ -70,7 +69,7 @@ def spmd_step_rank(rank, cases):
         frozen = ()
         if cfg.coop:
             static, _ = tm.coop_setup(0)
-            text_fn = tm.coop_text_fn(static, attn_fn=attention_scores)
+            text_fn = tm.coop_text_fn(static)
             extra_params = {"coop_ctx": torch.tensor(case["coop_ctx"])}
             extra_labels = {"clip": "frozen", "coop_ctx": "clip"}
             frozen = ("clip",)

@@ -8,7 +8,9 @@ twin on the card by ``chip_smoke.py``. The argument checks and the
 import-time behaviour of K2 (``ops/bn_act.py``, the ResNet's fused
 BatchNorm epilogue) and K3 (``ops/ln_act.py``, the transformer block's
 add + LayerNorm and QuickGELU) are held here beside K1's, and K3's
-wrappers on CPU tensors to their plain twins.
+wrappers on CPU tensors to their plain twins; so is the one rule
+(``ops.ln_act.autograd_records``) by which every tower picks the kernels
+or their twins.
 """
 
 import os
@@ -402,6 +404,115 @@ def _kernel_refuses_autograd():
         k1.refuse_autograd(q, q, q)
     with torch.inference_mode():
         k1.refuse_autograd(q, q, q)
+
+
+def test_one_rule_picks_kernel_or_twin(monkeypatch):
+    """``ops.ln_act.autograd_records`` is the one rule for K1, K2 and K3,
+    none of which has a backward. Its truth table: grad mode x an input
+    that requires a gradient x a module parameter that does x parameters
+    set by ``train.trainer.freeze_params`` (frozen, or trained). Then each
+    tower decides through it, asked once an encode (the ResNet once a
+    block): made to answer no, the ResNet calls ``bn_act`` and the
+    transformer towers call ``attention``, ``add_layer_norm`` and
+    ``quick_gelu``; made to answer yes, the plain twins only
+    (``batch_norm_act``, ``attention_scores``); the features are equal bit
+    for bit (on the CPU every entry runs its twin). Unpatched under
+    gradients, a tower frozen by ``freeze_params`` takes the kernels' path
+    and a trained one the twins'."""
+    import itertools
+
+    from hgr_tpu_torch.models import clip, coop, resnet, transformer
+    from hgr_tpu_torch.train.trainer import freeze_params
+
+    mod = torch.nn.Linear(4, 4)
+    for grad, x_grad, p_grad, freeze in itertools.product(
+            (False, True), (False, True), (False, True), (None, "frozen", "trained")):
+        mod.requires_grad_(p_grad)
+        if freeze is not None:
+            freeze_params({"m": mod}, ("m",) if freeze == "frozen" else ())
+        x = torch.zeros(2, 4, requires_grad=x_grad)
+        p_now = {None: p_grad, "frozen": False, "trained": True}[freeze]
+        case = (grad, x_grad, p_grad, freeze)
+        with torch.set_grad_enabled(grad):
+            assert k3.autograd_records(x, mod) == (grad and (x_grad or p_now)), case
+            assert k3.autograd_records(x) == (grad and x_grad), case
+            assert k3.autograd_records(x, torch.nn.Identity(), mod) == (
+                grad and (x_grad or p_now)), case
+        with torch.inference_mode():
+            assert not k3.autograd_records(x, mod), case
+
+    entries = {  # (module, name): kernel path (True) or plain twin (False)
+        (resnet, "bn_act"): True, (resnet, "batch_norm_act"): False,
+        (transformer, "attention"): True, (transformer, "attention_scores"): False,
+        (k3, "add_layer_norm"): True, (k3, "quick_gelu"): True,
+    }
+    calls = dict.fromkeys([name for _, name in entries] + ["rule"], 0)
+    for (module, name) in entries:
+        def counted(*a, _f=getattr(module, name), _n=name, **kw):
+            calls[_n] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(module, name, counted)
+    rule = k3.autograd_records
+
+    rn = clip.clip_init(clip.get_config("TEST-RN"), torch.Generator().manual_seed(0)).eval()
+    vit = clip.clip_init(clip.get_config("TEST-ViT"), torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    images = torch.randn(2, 32, 32, 3, generator=g)
+    toks = torch.zeros(2, 16, dtype=torch.long)
+    toks[:, 0], toks[:, 1:4], toks[:, 4] = 510, 7, 511
+    ctx_map = torch.full(toks.shape, -1)
+    ctx_map[:, 1:3] = torch.arange(2)
+    ctx = 0.02 * torch.randn(2, 32, generator=g)
+    Lv, Lt = vit.cfg.vision_layers[0], vit.cfg.transformer_layers
+    towers = {  # the encode, its model, each entry's calls on the kernels' path, the rule's
+        "resnet image": (lambda m: clip.encode_image(m, images, dtype=torch.float32), rn,
+                       {"bn_act": 3 + 3 * sum(rn.cfg.vision_layers) + 3},
+                       1 + sum(rn.cfg.vision_layers)),
+        "vit image": (lambda m: clip.encode_image(m, images, dtype=torch.float32), vit,
+                      {"attention": Lv, "add_layer_norm": 2 * Lv + 2, "quick_gelu": Lv}, 1),
+        "text": (lambda m: clip.encode_text(m, toks, dtype=torch.float32), vit,
+                 {"attention": Lt, "add_layer_norm": 2 * Lt + 1, "quick_gelu": Lt}, 1),
+        "coop text": (lambda m: coop.coop_encode_text(m, ctx, toks, ctx_map,
+                                                     dtype=torch.float32), vit,
+                      {"attention": Lt, "add_layer_norm": 2 * Lt + 1, "quick_gelu": Lt}, 1),
+    }
+    twin = {"bn_act": "batch_norm_act", "attention": "attention_scores"}
+
+    def run(encode, m):
+        calls.update(dict.fromkeys(calls, 0))
+        return encode(m)
+
+    for tower, (encode, m, kernel_calls, asks) in towers.items():
+        feats = {}
+        for answer in (False, True):
+            def spy(*a, _answer=answer):
+                calls["rule"] += 1
+                return _answer
+            with monkeypatch.context() as mp:
+                mp.setattr(k3, "autograd_records", spy)
+                with torch.inference_mode():
+                    feats[answer] = run(encode, m)
+            want = dict.fromkeys(calls, 0)
+            if answer:
+                want.update({twin[k]: n for k, n in kernel_calls.items() if k in twin})
+            else:
+                want.update(kernel_calls)
+            want["rule"] = asks
+            assert calls == want, (tower, answer, calls)
+        assert torch.equal(feats[False], feats[True]), tower
+        # the real rule, gradients on: frozen by freeze_params, then trained
+        assert k3.autograd_records is rule
+        for frozen in (("clip",), ()):
+            freeze_params({"clip": m}, frozen)
+            try:
+                got = run(encode, m)
+            finally:
+                freeze_params({"clip": m}, ("clip",))
+            path = {k: n for k, n in calls.items() if n}
+            want = (kernel_calls if frozen
+                    else {twin[k]: n for k, n in kernel_calls.items() if k in twin})
+            assert path == want, (tower, frozen, path)
+            assert got.requires_grad != bool(frozen) and torch.equal(got.detach(), feats[False])
 
 
 def test_import_needs_no_nvcc_or_gpu(tmp_path):

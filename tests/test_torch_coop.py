@@ -44,7 +44,6 @@ from hgr_tpu_torch.hierarchy import synthetic_hierarchy  # noqa: E402
 from hgr_tpu_torch.models import coop  # noqa: E402
 from hgr_tpu_torch.models.clip import CLIP, clip_init, get_config  # noqa: E402
 from hgr_tpu_torch.models.convert import from_jax_params  # noqa: E402
-from hgr_tpu_torch.models.layers import attention_scores  # noqa: E402
 from hgr_tpu_torch.tree_model import TreeModel  # noqa: E402
 from hgr_tpu_torch.utils.checkpoint import restore_params  # noqa: E402
 from hgr_tpu_torch.utils.logging import RunLogger  # noqa: E402
@@ -164,7 +163,7 @@ def test_coop_train_step_matches_jax():
                               jtrain.sched_to_device(scheds[1]))
 
         ctx = T(np.asarray(jctx)).clone()
-        text_fn = tm.coop_text_fn(static, attn_fn=attention_scores)
+        text_fn = tm.coop_text_fn(static)
         args = (T(images), T(tm.node_tokens).long(), train.sched_to_device(scheds[0], "cpu"))
         # the gradient, for the mask of the comparison below
         params = train.freeze_params({"clip": tm.model, "layer_weight": tm.layer_weight,

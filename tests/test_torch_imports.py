@@ -7,9 +7,8 @@ reader (``utils/{zstd,ocdbt,zarr,orbax}.py``) included, finds no import of
 ``jax`` (or ``jaxlib``, ``optax``, ``orbax``, ``tensorstore``, ``zstandard``:
 the reader is the port's own), of ``networkx`` or ``regex`` (the port has
 its own chain search and word splitter), none of ``hgr_tpu`` other than
-``hgr_tpu_torch``, and not the root ``bench.py`` (``hgr_tpu_torch/bench.py``
-is the port's own); importing the package in a fresh interpreter leaves them
-all out of ``sys.modules``.
+``hgr_tpu_torch``, and not the root ``bench.py``; importing the package in a
+fresh interpreter leaves them all out of ``sys.modules``.
 """
 
 import ast
@@ -57,7 +56,6 @@ def test_no_jax_or_reference_imports():
     assert {"mesh.py", "distributed.py", "collectives.py", "eval_spmd.py"} <= {
         p.name for p in FILES if p.parent.name == "parallel"}
     assert {"spmd.py", "builder.py", "splits.py"} <= {p.name for p in FILES}
-    assert REPO / "hgr_tpu_torch" / "bench.py" in FILES
     assert {"zstd.py", "ocdbt.py", "zarr.py", "orbax.py"} <= {
         p.name for p in FILES if p.parent.name == "utils"}
     assert not bad, f"imports of JAX or the JAX package: {bad}"
@@ -80,7 +78,7 @@ def test_package_import_leaves_jax_unloaded():
         "import hgr_tpu_torch.parallel.distributed, hgr_tpu_torch.parallel.collectives\n"
         "import hgr_tpu_torch.parallel.eval_spmd, hgr_tpu_torch.train.spmd\n"
         "import hgr_tpu_torch.hierarchy.builder, hgr_tpu_torch.data.splits\n"
-        "import hgr_tpu_torch.utils.orbax, hgr_tpu_torch.utils.zarr, hgr_tpu_torch.bench\n"
+        "import hgr_tpu_torch.utils.orbax, hgr_tpu_torch.utils.zarr\n"
         "from hgr_tpu_torch.hierarchy import synthetic_hierarchy\n"
         "from hgr_tpu_torch.text import Tokenizer\n"
         "synthetic_hierarchy(3, 3, 4, 0)\n"

@@ -226,15 +226,13 @@ def _mean_loss_grads(over, hier, sd, scheds, images, ctx):
     """The port's one-process gradient of the mean replica loss: the mask
     of the parameter comparison (AdamW's first step is about lr * sign(g),
     so a gradient at rounding level may flip its sign)."""
-    from hgr_tpu_torch.models.layers import attention_scores
-
     cfg = Config(**over)
     tm = TreeModel.build(cfg, hier, pad_multiple=64, device="cpu")
     tm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     text_fn, params = None, {"clip": tm.model, "layer_weight": tm.layer_weight}
     if cfg.coop:
         static, _ = tm.coop_setup(0)
-        text_fn = tm.coop_text_fn(static, attn_fn=attention_scores)
+        text_fn = tm.coop_text_fn(static)
         params["coop_ctx"] = torch.tensor(ctx)
     params = train.freeze_params(params, ("clip",) if cfg.coop else ())
     loss_fn = train.make_om_loss_fn(torch.float32, "OM", cfg.weights, cfg.weighting,

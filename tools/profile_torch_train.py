@@ -58,7 +58,6 @@ def main() -> int:
     from hgr_tpu_torch.driver import build_model, synthetic_splits
     from hgr_tpu_torch.hierarchy import profiled_hierarchy
     from hgr_tpu_torch.models.clip import encode_image, encode_text
-    from hgr_tpu_torch.models.layers import attention_scores
     from hgr_tpu_torch.train import (NegativeSampler, ScheduleBuilder, freeze_params,
                                      init_train_state, make_optimizer, make_train_step,
                                      sched_to_device)
@@ -126,8 +125,7 @@ def main() -> int:
         f.float().square().sum().backward()
 
     def text_part():
-        f = encode_text(params["clip"], toks, dtype=tm.dtype, attn_fn=attention_scores,
-                        remat=True)
+        f = encode_text(params["clip"], toks, dtype=tm.dtype, remat=True)
         f.float().square().sum().backward()
 
     def optimizer_part():
