@@ -18,19 +18,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    library yardstick (``scaled_dot_product_attention``, never called by the
    port), and each case's bound;
 3b. K2 (``ops/bn_act.py``, the ResNet's fused BatchNorm epilogue) against
-   its plain twin ``batch_norm_act`` on the card, bit for bit, in bf16 and
-   fp32 (``BN_ACT_CASES``: RN50's epilogue shapes at batch 512, RN50x4's
-   widths, every variant at odd sizes; some inputs -0.0); the cases of
-   ``TIMED_BN_ACT`` timed by CUDA-graph replay against their bytes at 3.35
-   TB/s, beside the twin's time; then ``encode_image`` of RN50 (bf16 and
-   fp32, batch 512) and RN50x4 (bf16, batch 64) with seeded BatchNorm
-   statistics: ``rn_epilogues`` K2 launches an encode (54 and 84), the
-   features equal to the twin path's, and the tower's time on each path.
-   Every later phase that counts K1's launches on an RN path counts K2's
-   beside them and asserts ``rn_epilogues`` an encoded batch (each mesh
-   rank's half batch too; 0 inside OM, flat and SPMD train steps, one
-   encode a step inside CoOp's, whose CLIP is frozen); the kernel table's
-   K2 row holds those counts by path;
+   its plain twins on the card, in bf16 and fp32. Its backward first
+   (``BN_ACT_BACKWARD_CASES``: RN50's train epilogues at batch 256, every
+   variant at odd sizes): dx and dres equal to autograd of
+   ``batch_norm_act``, the parameter gradients within ``BN_ACT_GRAD_TOL``
+   of autograd's and of ``batch_norm_act_backward``'s, the batch-256 cases
+   timed against their bytes and against autograd of the plain sequence.
+   Then its forward, bit for bit (``BN_ACT_CASES``: RN50's epilogue shapes
+   at batch 512, RN50x4's widths, every variant at odd sizes; some inputs
+   -0.0); the cases of ``TIMED_BN_ACT`` timed by CUDA-graph replay against
+   their bytes at 3.35 TB/s, beside the twin's time; then ``encode_image``
+   of RN50 (bf16 and fp32, batch 512) and RN50x4 (bf16, batch 64) with
+   seeded BatchNorm statistics: ``rn_epilogues`` K2 launches an encode (54
+   and 84), the features equal to the twin path's, and the tower's time on
+   each path; and RN50's tower forward and backward under autograd at batch
+   256: 54 forward and 54 backward launches, the features equal to the
+   plain epilogues' bit for bit, the gradients close, peak memory no
+   higher. Every later phase that counts K1's launches on an RN path counts
+   K2's beside them and asserts ``rn_epilogues`` an encoded batch (each
+   mesh rank's half batch too; one encode a step inside CoOp's, whose CLIP
+   is frozen), and ``rn_epilogues`` forward and backward launches a step
+   inside OM, accumulated, flat and SPMD train steps (its autograd
+   Function); the kernel table's K2 rows hold those counts by path;
 3c. K3 (``ops/ln_act.py``, the transformer block's residual add +
    LayerNorm and its QuickGELU) against the plain twins on the card, in
    bf16 and fp32 (``LN_ACT_CASES``, ``GELU_CASES``: the ViT-L/14, ViT-B/16
@@ -100,9 +109,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 11. OM training at full width: ``driver.run_train`` on RN50 in bf16 with
     remat, batch 256, 256 negatives, 4 episodes, then ``run_test`` over 2
     batches; every loss finite, the CLIP weights and ``layer_weight`` moved,
-    no K1 or K2 launch inside a train step (autograd runs the plain
-    attention and epilogues) and 432 K1 and 2 x 54 K2 launches in the test
-    after it, and ``clip_0`` restores into a fresh
+    no K1 launch inside a train step (autograd runs the plain attention), 54
+    K2 forward and 54 backward launches a step (its autograd Function), and
+    432 K1 and 2 x 54 K2 launches in the test after it, and ``clip_0``
+    restores into a fresh
     train state; prints the steps' median time, images/s, the prompts
     encoded per step and peak memory;
 11b. ``--trace_dir``: two OM steps write one Chrome trace naming CUDA
@@ -110,12 +120,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
 11c. OM training under gradient accumulation (``accum_steps=2``): RN50 in
     bf16 with remat, batch 1,024 as 2 microbatches of 512, 256 negatives,
     2 updates; no parameter moves after a first microbatch, the watched
-    ones and ``layer_weight`` after the second, no K1, K2 or K3 launch;
+    ones and ``layer_weight`` after the second, no K1 or K3 launch, 54 K2
+    forward and 54 backward launches a microbatch;
     prints the update's time and peak memory;
 12. one OM train step in float32 on the card against the port's CPU path
-    (small TEST-ViT config, the same weights and schedule): the loss and the
+    (small TEST-ViT and TEST-RN configs, the same weights and schedule; on
+    TEST-RN, K2's forward and backward 18 launches each): the loss and the
     updated weights agree within the CPU tests' tolerances;
-13. K1's, K2's and K3's guards: a CUDA call that autograd would record raises;
+13. K1's, K2's and K3's guards: a CUDA call that autograd would record
+    raises; K2's autograd Function takes it (one forward and one backward
+    launch, the gradient the twin's);
 14. CoOp OM training at full width (RN50, bf16, remat, ``--coop_train
     ctx``, prompts of T = 48): 4 steps at batch 256 through
     ``driver.run_train``, every CLIP tensor bitwise unchanged, the context
@@ -191,6 +205,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -572,6 +587,13 @@ def rn_epilogues(clip_cfg) -> int:
     return 3 + 3 * sum(clip_cfg.vision_layers) + 3
 
 
+def rn_epilogues_of(arch: str) -> int:
+    """``rn_epilogues`` of a zoo architecture."""
+    from hgr_tpu_torch.models.clip import get_config
+
+    return rn_epilogues(get_config(arch))
+
+
 class SeededBN:
     """BatchNorm parameters as ``models.layers.BatchNorm2d`` holds them,
     drawn from ``g``: a fold that is not the identity."""
@@ -642,15 +664,197 @@ def bn_act_bytes(shape, dtype, residual, pool) -> int:
 BN_ACT_ENCODES = (("RN50", 512, (torch.bfloat16, torch.float32)),
                   ("RN50x4", 64, (torch.bfloat16,)))
 
+# phase 3b's backward cases: RN50's epilogues in the train step at batch 256
+# (layer1's bn3 with either residual and its bn1, the stem's pooled bn3, a
+# strided block's pooled bn2, layer2.0's downsample pool, layer4's bn3), all
+# timed; then every variant at the odd sizes of BN_ACT_CASES
+BN_ACT_BACKWARD_CASES = [
+    ((256, 256, 56, 56), ((True, "plain", True, False), (True, "folded", True, False),
+                          (False, None, False, True))),
+    ((256, 64, 56, 56), (RELU,)),
+    ((256, 64, 112, 112), (POOL_RELU,)),
+    ((256, 128, 56, 56), (POOL_RELU,)),
+    ((256, 2048, 7, 7), ((True, "plain", True, False),)),
+    *BN_ACT_CASES[-2:],
+]
+BN_ACT_BACKWARD_MAIN = ((256, 256, 56, 56), (True, "plain", True, False))
+# the backward's parameter gradients (fp32 [C] each, over N*H*W terms) against
+# the backward twin on the card (the same g_m, fp32 sums in another order) and
+# against autograd of the forward twin, which in bf16 also rounds each product
+# g*x to bf16 before summing and the sums of g and g*x to bf16 (2^-9 relative
+# each): the largest gap over the tensor's largest magnitude
+BN_ACT_GRAD_TOL = {"twin": 1e-4, torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def bn_act_backward_bytes(shape, dtype, fold, residual, relu, pool) -> int:
+    """Bytes K2's backward must move: g (the output's size) read once, x
+    read where relu's mask or the fold's sum needs it, the residual where
+    the mask or its own fold's sum does, dx (and dres) written once; the
+    [C] sums are noise. The pool-only epilogue reads g alone."""
+    N, C, H, W = shape
+    elem = torch.tensor([], dtype=dtype).element_size()
+    n_in = N * C * H * W
+    n_out = N * C * (H // 2) * (W // 2) if pool else n_in
+    reads = (relu or fold) + (bool(residual) and (relu or residual == "folded"))
+    return (n_out + n_in * (reads + 1 + bool(residual))) * elem
+
+
+def _rel_gap(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def check_bn_act_backward(dev, g, shape, dtype, variants, timed):
+    """K2's backward at one shape and dtype, each variant against autograd of
+    the forward twin (dx and dres equal; the parameter gradients within
+    ``BN_ACT_GRAD_TOL``) and against the backward twin. Logs a line each;
+    returns the kernel-table row of the timed variants, keyed by variant."""
+    from hgr_tpu_torch.models.layers import batch_norm_act, batch_norm_act_backward
+    from hgr_tpu_torch.ops.bn_act import bn_act_backward
+
+    N, C, H, W = shape
+
+    def nhwc(h=H, w=W):
+        t = torch.randn((N, h, w, C), generator=g, device=dev).mul_(2).to(dtype)
+        t.view(-1)[::97] = -0.0
+        return t.permute(0, 3, 1, 2)
+
+    x, res = nhwc(), nhwc()
+    bn, rbn = SeededBN(C, g, dev), SeededBN(C, g, dev)
+    rows, name = {}, str(dtype).split(".")[-1]
+    for fold, residual, relu, pool in variants:
+        b, r = bn if fold else None, res if residual else None
+        rb = rbn if residual == "folded" else None
+        leaves = [x.detach().requires_grad_(True)] + (
+            [res.detach().requires_grad_(True)] if r is not None else [])
+        trained = [None if m is None else SimpleNamespace(**{
+            k: getattr(m, k).detach().requires_grad_(True)
+            for k in ("weight", "bias", "running_mean", "running_var")}) for m in (b, rb)]
+        for m in trained:
+            if m is not None:
+                leaves += [m.weight, m.bias, m.running_mean, m.running_var]
+        out = batch_norm_act(leaves[0], trained[0], leaves[1] if r is not None else None,
+                             trained[1], relu, pool)
+        grad = nhwc(*out.shape[2:]) if pool else nhwc()
+        want = torch.autograd.grad(out, leaves, grad, retain_graph=True)
+        dx, dres, bn_grads, rbn_grads = bn_act_backward(grad, x, b, r, rb, relu, pool)
+        got = [dx] + ([dres] if r is not None else []) + (bn_grads or []) + (rbn_grads or [])
+        with torch.no_grad():
+            tw = batch_norm_act_backward(grad, x, b, r, rb, relu, pool)
+        twin = [tw[0]] + ([tw[1]] if r is not None else []) + (tw[2] or []) + (tw[3] or [])
+        torch.cuda.synchronize()
+        n_act = 1 + (r is not None)
+        for i in range(n_act):
+            assert dev.type != "cuda" or got[i].is_contiguous(
+                memory_format=torch.channels_last), got[i].stride()
+            if not (torch.equal(got[i], want[i]) and torch.equal(got[i], twin[i])):
+                raise AssertionError(
+                    f"K2's backward differs from autograd of its twin at {shape} {name} "
+                    f"fold={fold} residual={residual} relu={relu} pool={pool}, "
+                    f"{('dx', 'dres')[i]}: max |diff| "
+                    f"{float((got[i].float() - want[i].float()).abs().max()):.3e}")
+        gap_twin = max((_rel_gap(a, t) for a, t in zip(got[n_act:], twin[n_act:])), default=0.0)
+        gap = max((_rel_gap(a, w) for a, w in zip(got[n_act:], want[n_act:])), default=0.0)
+        variant = (fold, residual, relu, pool)
+        line = (f"[k2-bwd] bn_act backward {shape} {name} fold={fold} residual={residual} "
+                f"relu={relu} pool={pool}: dx{', dres' if r is not None else ''} equal to "
+                f"autograd's; parameter gradients' largest gap {gap:.2e} to autograd's (tol "
+                f"{BN_ACT_GRAD_TOL[dtype]:g}), {gap_twin:.2e} to the backward twin's (tol "
+                f"{BN_ACT_GRAD_TOL['twin']:g})")
+        assert gap <= BN_ACT_GRAD_TOL[dtype] and gap_twin <= BN_ACT_GRAD_TOL["twin"], line
+        if timed:
+            nbytes = bn_act_backward_bytes(shape, dtype, fold, residual, relu, pool)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            row = dict(ms=graph_ms(lambda: bn_act_backward(grad, x, b, r, rb, relu, pool)),
+                       eager_ms=cuda_ms(lambda: bn_act_backward(grad, x, b, r, rb, relu, pool)),
+                       plain_ms=cuda_ms(lambda: torch.autograd.grad(out, leaves, grad,
+                                                                   retain_graph=True)),
+                       bound_ms=bound, bound_by="bytes", max_rel_err=gap)
+            line += (f" | kernel {row['ms']:.4f} ms (two launches, graph replay), eager "
+                     f"{row['eager_ms']:.4f} ms a call with the host's; autograd of the plain "
+                     f"sequence {row['plain_ms']:.4f} ms eager | bound {bound:.4f} ms "
+                     f"({nbytes / 1e9:.3f} GB), {bound / row['ms']:.1%} of 3.35 TB/s")
+            rows[variant] = row
+        log(line)
+        del out, want, got, twin, leaves, grad
+    return rows
+
+
+def check_encode_under_autograd(dev, m, images, dtype=torch.bfloat16):
+    """The image tower's forward and backward as the train step runs them
+    (every tensor of ``m.visual`` trained), through K2's Function and
+    through the plain epilogues (``bn_act_autograd`` patched to the twin):
+    the features equal bit for bit, 54 forward and 54 backward K2 launches
+    for RN50, each gradient within 3e-2 of the plain path's in norm (cuDNN's
+    weight gradients may sum in another order; autograd rounds the
+    BatchNorm sums to bf16), peak memory no higher, and both paths' times.
+    Returns the K2 path's (forward, backward) launches as its counters read
+    them."""
+    from hgr_tpu_torch.models import clip, resnet
+    from hgr_tpu_torch.models.layers import batch_norm_act
+    from hgr_tpu_torch.ops.bn_act import bn_act, bn_act_backward
+
+    trained = dict(m.visual.state_dict(keep_vars=True))
+    for t in trained.values():
+        t.requires_grad_(True)
+    proj = torch.randn(images.shape[0], m.cfg.embed_dim, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(5))
+
+    def step():
+        for t in trained.values():
+            t.grad = None
+        feats = clip.encode_image(m, images, dtype=dtype)
+        (feats.float() * proj).sum().backward()
+        return feats.detach()
+
+    try:
+        out = {}
+        for path in ("k2", "plain"):
+            with (mock.patch.object(resnet, "bn_act_autograd", batch_norm_act)
+                  if path == "plain" else contextlib.nullcontext()):
+                bn_act.launches = bn_act_backward.launches = 0
+                _reset_peak(dev)
+                feats = step()
+                torch.cuda.synchronize()
+                out[path] = dict(feats=feats, launches=(bn_act.launches, bn_act_backward.launches),
+                                 peak=_peak_gib(dev), ms=cuda_ms(step, reps=3, warmup=1),
+                                 grads={k: t.grad.clone() for k, t in trained.items()})
+        gaps = {k: float((out["k2"]["grads"][k] - g).norm() / g.norm().clamp_min(1e-30))
+                for k, g in out["plain"]["grads"].items()}
+        worst = max(gaps, key=gaps.get)
+        same = torch.equal(out["k2"]["feats"], out["plain"]["feats"])
+        want = rn_epilogues(m.cfg)
+        log(f"[k2-bwd] RN50 encode_image forward and backward under autograd, {dtype}, batch "
+            f"{images.shape[0]}: K2 launches (forward, backward) {out['k2']['launches']} (want "
+            f"{want} each; the plain path {out['plain']['launches']}); features equal to the "
+            f"plain epilogues' bit for bit: {same}; {len(gaps)} gradients, largest norm gap "
+            f"{gaps[worst]:.2e} ({worst}; tol 3e-2); tower forward + backward "
+            f"{out['k2']['ms']:.2f} ms with K2, {out['plain']['ms']:.2f} ms plain; peak "
+            f"{out['k2']['peak']:.2f} GiB with K2, {out['plain']['peak']:.2f} GiB plain")
+        assert out["k2"]["launches"] == (want, want) and out["plain"]["launches"] == (0, 0)
+        assert same, float((out["k2"]["feats"].float() - out["plain"]["feats"].float()).abs().max())
+        assert gaps[worst] <= 3e-2, (worst, gaps[worst])
+        assert out["k2"]["peak"] <= out["plain"]["peak"], (out["k2"]["peak"], out["plain"]["peak"])
+        return out["k2"]["launches"]
+    finally:
+        for t in trained.values():
+            t.requires_grad_(False)
+            t.grad = None
+
 
 def phase_bn_act(dev, cases=BN_ACT_CASES, encodes=BN_ACT_ENCODES):
-    """K2 against its plain twin on the card: every case of ``BN_ACT_CASES``
-    in bf16 and fp32, bit for bit (the inputs hold some -0.0); the timed
-    cases against their bytes at 3.35 TB/s with the twin's time as
-    ``library_ms``; then the launches of an RN50 and an RN50x4 encode and
-    their features, held equal to the twin path's. Returns the kernel-table
-    row of the main shape and the K2 launches each encode counted, keyed
-    ``<arch>_encode_<dtype>``."""
+    """K2 against its plain twins on the card: first its backward at every
+    case of ``BN_ACT_BACKWARD_CASES`` in bf16 and fp32 (``check_bn_act_backward``;
+    the batch-256 cases timed against their bytes and autograd of the plain
+    sequence); then its forward at every case of ``BN_ACT_CASES`` in bf16 and
+    fp32, bit for bit (the inputs hold some -0.0), the timed cases against
+    their bytes at 3.35 TB/s with the twin's time as ``library_ms``; then
+    the launches of an RN50 and an RN50x4 encode and their features, held
+    equal to the twin path's, and RN50's tower forward and backward under
+    autograd at batch 256 (``check_encode_under_autograd``). Returns the
+    kernel-table rows of the forward's and the backward's main shapes, the
+    K2 launches each encode counted, keyed ``<arch>_encode_<dtype>`` (the
+    autograd encode's forward as ``rn50_encode_train_bfloat16``), and the
+    backward launches that encode counted, under the same key."""
     from unittest import mock
 
     from hgr_tpu_torch.models import clip, resnet
@@ -658,7 +862,13 @@ def phase_bn_act(dev, cases=BN_ACT_CASES, encodes=BN_ACT_ENCODES):
     from hgr_tpu_torch.ops.bn_act import bn_act
 
     g = torch.Generator(device=dev).manual_seed(3)
-    main, counted = None, {}
+    main, counted, counted_backward = None, {}, {}
+    for shape, variants in BN_ACT_BACKWARD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = check_bn_act_backward(dev, g, shape, dtype, variants, timed=shape[0] == 256)
+            if shape == BN_ACT_BACKWARD_MAIN[0] and dtype == torch.bfloat16:
+                backward = rows[BN_ACT_BACKWARD_MAIN[1]]
+        torch.cuda.empty_cache()
     for shape, variants in cases:
         N, C, H, W = shape
         for dtype in (torch.bfloat16, torch.float32):
@@ -736,9 +946,12 @@ def phase_bn_act(dev, cases=BN_ACT_CASES, encodes=BN_ACT_ENCODES):
             assert launches == rn_epilogues(cfg), launches
             assert same, float((feats.float() - plain.float()).abs().max())
             counted[f"{arch.lower()}_encode_{name}"] = launches
+        if arch == "RN50":  # the train step's tower, at the train cell's batch
+            counted["rn50_encode_train_bfloat16"], counted_backward[
+                "rn50_encode_train_bfloat16"] = check_encode_under_autograd(dev, m, images[:256])
         del m
     torch.cuda.empty_cache()
-    return main, counted
+    return main, backward, counted, counted_backward
 
 
 def ln_act_launches(clip_cfg, bank_chunks=0, image_batches=0):
@@ -1211,27 +1424,30 @@ def phase_vit_features(tm, batch=512):
 def run_counting_launches(fn, *args):
     """``fn(*args)`` (a driver's train run) with K1's launches split at the
     test after training: returns the result and ``{"train_steps": n,
-    "test": m}``, K2's as ``k2_train_steps`` and ``k2_test``, and K3's
+    "test": m}``, K2's forward's as ``k2_train_steps`` and ``k2_test``, its
+    backward's as ``k2b_train_steps`` and ``k2b_test``, and K3's
     (add_layer_norm, quick_gelu) as ``k3_train_steps`` and ``k3_test``. A
     spy on the path, not on what it computes."""
     from hgr_tpu_torch import driver
     from hgr_tpu_torch.ops.attention import attention
-    from hgr_tpu_torch.ops.bn_act import bn_act
+    from hgr_tpu_torch.ops.bn_act import bn_act, bn_act_backward
 
     seen = {}
     real = driver.run_test
 
     def run_test_spy(*a, **kw):
         seen["train_steps"], seen["k2_train_steps"] = attention.launches, bn_act.launches
+        seen["k2b_train_steps"] = bn_act_backward.launches
         seen["k3_train_steps"] = k3_launches()
         out = real(*a, **kw)
         seen["test"] = attention.launches - seen["train_steps"]
         seen["k2_test"] = bn_act.launches - seen["k2_train_steps"]
+        seen["k2b_test"] = bn_act_backward.launches - seen["k2b_train_steps"]
         seen["k3_test"] = tuple(n - m for n, m in zip(k3_launches(), seen["k3_train_steps"]))
         return out
 
     driver.run_test = run_test_spy
-    attention.launches = bn_act.launches = 0
+    attention.launches = bn_act.launches = bn_act_backward.launches = 0
     k3_reset()
     try:
         out = fn(*args)
@@ -1348,11 +1564,14 @@ def phase_train(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compar
         f"{seen['test']} in the test after them")
     assert seen["train_steps"] == 0, "K1 ran inside a train step"
     assert seen["test"] == bank_launches, seen
-    k2_test = test_batches * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0
-    log(f"[train] K2 launches: {seen['k2_train_steps']} inside the train steps (autograd runs "
-        f"the plain epilogue), {seen['k2_test']} in the test after them (want {k2_test})")
-    assert seen["k2_train_steps"] == 0, "K2 ran inside a train step"
-    assert seen["k2_test"] == k2_test, seen
+    k2_steps, k2_test = ((n * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0)
+                         for n in (episodes, test_batches))
+    log(f"[train] K2 launches (forward, backward): ({seen['k2_train_steps']}, "
+        f"{seen['k2b_train_steps']}) inside the train steps (want {k2_steps} each: its autograd "
+        f"Function), ({seen['k2_test']}, {seen['k2b_test']}) in the test after them (want "
+        f"{k2_test}, 0)")
+    assert (seen["k2_train_steps"], seen["k2b_train_steps"]) == (k2_steps, k2_steps), seen
+    assert (seen["k2_test"], seen["k2b_test"]) == (k2_test, 0), seen
     check_k3_train("train", dev, tm, seen, test_batches)
 
     fresh = init_train_state(clip_init(tm.clip_cfg, torch.Generator().manual_seed(1), dev),
@@ -1378,13 +1597,15 @@ def phase_train_accum(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=1024, acc
     ``batch`` as ``accum`` microbatches of ``batch // accum`` (bf16, remat,
     ``num_compare`` negatives), ``updates`` full updates. Within an update
     no parameter moves before its last microbatch, and then the watched
-    ones and ``layer_weight`` do; K1, K2 and K3 launch 0 times (every
-    microbatch runs under autograd). Logs the last update's host-clock ms."""
+    ones and ``layer_weight`` do; K1 and K3 launch 0 times (every
+    microbatch runs under autograd), K2 forward and backward ``rn_epilogues``
+    times a microbatch (its autograd Function). Logs the last update's
+    host-clock ms."""
     from hgr_tpu_torch import driver
     from hgr_tpu_torch.config import Config
     from hgr_tpu_torch.hierarchy import profiled_hierarchy
     from hgr_tpu_torch.ops.attention import attention
-    from hgr_tpu_torch.ops.bn_act import bn_act
+    from hgr_tpu_torch.ops.bn_act import bn_act, bn_act_backward
     from hgr_tpu_torch.train import (NegativeSampler, ScheduleBuilder, init_train_state,
                                      make_optimizer, make_train_step, sched_to_device)
 
@@ -1408,7 +1629,7 @@ def phase_train_accum(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=1024, acc
     watched = ("visual.conv1.weight", "visual.attnpool.c_proj.weight",
                "transformer.resblocks.0.attn.in_proj_weight", "layer_weight")
 
-    attention.launches = bn_act.launches = 0
+    attention.launches = bn_act.launches = bn_act_backward.launches = 0
     k3_reset()
     _reset_peak(dev)
     losses = []
@@ -1428,80 +1649,92 @@ def phase_train_accum(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=1024, acc
         still = [n for n in watched if torch.equal(trained[n].detach(), before[n])]
         assert not still, f"update {u}: {still} did not move"
         assert state.opt_state.mini_step == 0 and state.opt_state.count == u + 1
-    seen = (attention.launches, bn_act.launches, k3_launches())
+    seen = (attention.launches, bn_act.launches, bn_act_backward.launches, k3_launches())
+    k2 = updates * accum * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0
+    want = (0, k2, k2, (0, 0))
     log(f"[train-accum] {arch} bf16 remat, batch {batch} as {accum} x {cfg.batch_size}, "
         f"{num_compare} negatives, {updates} updates: losses {losses}; parameters still after "
         f"each non-last microbatch, moved after the last; last update {update_ms:.1f} ms = "
         f"{batch / update_ms * 1e3:.1f} images/s (host clock); peak memory {_peak_gib(dev):.2f} "
-        f"GiB; K1, K2, K3 launches {seen} (want 0, 0, (0, 0)); on {_card_name(dev)}")
+        f"GiB; K1, K2 forward, K2 backward, K3 launches {seen} (want {want}); on "
+        f"{_card_name(dev)}")
     assert all(math.isfinite(x) for x in losses), losses
-    assert seen == (0, 0, (0, 0)), seen
+    assert seen == want, seen
     return seen
 
 
-def phase_train_reference(dev):
+def phase_train_reference(dev, archs=("TEST-ViT", "TEST-RN")):
     """One OM train step in float32 on the card and on the port's CPU path
-    from the same weights, images and schedule (TEST-ViT, remat on): the
-    loss within 1e-5 relative, the updated weights within 5e-3 relative +
-    3e-5 wherever the gradient is above 1e-6 (AdamW's first step is about
-    lr * sign(g), so a gradient at rounding level may flip its sign)."""
+    from the same weights, images and schedule (remat on), for each of
+    ``archs``: the loss within 1e-5 relative, the updated weights within
+    5e-3 relative + 3e-5 wherever the gradient is above 1e-6 (AdamW's first
+    step is about lr * sign(g), so a gradient at rounding level may flip its
+    sign). TEST-RN's card step runs K2's autograd Function, ``rn_epilogues``
+    forward and as many backward launches (the CPU step its plain twins),
+    so the whole update with K2's backward is held to the CPU path."""
     from hgr_tpu_torch.config import Config
     from hgr_tpu_torch.hierarchy import synthetic_hierarchy
+    from hgr_tpu_torch.ops.bn_act import bn_act, bn_act_backward
     from hgr_tpu_torch.train import (NegativeSampler, ScheduleBuilder, freeze_params,
                                      init_train_state, make_om_loss_fn, make_optimizer,
                                      make_train_step, sched_to_device)
     from hgr_tpu_torch.tree_model import TreeModel
 
-    cfg = Config(arch="TEST-ViT", dtype="float32", batch_size=4, num_compare=6, remat=True,
-                 lr=1e-3, w_lr=1e-2)
-    hier = synthetic_hierarchy(3, 4, 5, 0)
-    sides = {}
-    for name, device in (("cpu", "cpu"), ("card", dev)):
-        tm = TreeModel.build(cfg, hier, pad_multiple=64, device=device)
-        if name == "cpu":
-            tm.init_params(0)
-            weights = tm.model.state_dict()
-        else:
-            tm.load_state_dict(weights)
-        sides[name] = tm
-    target = int(hier.level(hier.max_depth)[3])
-    sched = ScheduleBuilder(hier, NegativeSampler(hier, sides["cpu"].train_index, 6, seed=0),
-                            cfg.out_ratio, cfg.in_ratio, 6).build(target)
-    images = np.random.default_rng(0).standard_normal((4, 32, 32, 3)).astype(np.float32)
+    for arch in archs:
+        cfg = Config(arch=arch, dtype="float32", batch_size=4, num_compare=6, remat=True,
+                     lr=1e-3, w_lr=1e-2)
+        hier = synthetic_hierarchy(3, 4, 5, 0)
+        sides = {}
+        for name, device in (("cpu", "cpu"), ("card", dev)):
+            tm = TreeModel.build(cfg, hier, pad_multiple=64, device=device)
+            if name == "cpu":
+                tm.init_params(0)
+                weights = tm.model.state_dict()
+            else:
+                tm.load_state_dict(weights)
+            sides[name] = tm
+        target = int(hier.level(hier.max_depth)[3])
+        sched = ScheduleBuilder(hier, NegativeSampler(hier, sides["cpu"].train_index, 6, seed=0),
+                                cfg.out_ratio, cfg.in_ratio, 6).build(target)
+        images = np.random.default_rng(0).standard_normal((4, 32, 32, 3)).astype(np.float32)
 
-    cpu = sides["cpu"]
-    params = freeze_params({"clip": cpu.model, "layer_weight": cpu.layer_weight}, ())
-    loss_fn = make_om_loss_fn(torch.float32, cfg.training_method, cfg.weights, cfg.weighting,
-                              remat=True)
-    loss_fn(params, torch.from_numpy(images), torch.as_tensor(cpu.node_tokens).long(),
-            sched_to_device(sched, "cpu")).backward()
-    grads = {k: v.grad.clone() for k, v in cpu.model.state_dict(keep_vars=True).items()}
-    for v in cpu.model.state_dict(keep_vars=True).values():
-        v.grad = None
-    cpu.layer_weight.grad = None
+        cpu = sides["cpu"]
+        params = freeze_params({"clip": cpu.model, "layer_weight": cpu.layer_weight}, ())
+        loss_fn = make_om_loss_fn(torch.float32, cfg.training_method, cfg.weights, cfg.weighting,
+                                  remat=True)
+        loss_fn(params, torch.from_numpy(images), torch.as_tensor(cpu.node_tokens).long(),
+                sched_to_device(sched, "cpu")).backward()
+        grads = {k: v.grad.clone() for k, v in cpu.model.state_dict(keep_vars=True).items()}
+        for v in cpu.model.state_dict(keep_vars=True).values():
+            v.grad = None
+        cpu.layer_weight.grad = None
 
-    out = {}
-    for name, tm in sides.items():
-        tx = make_optimizer(cfg, 10)
-        state = init_train_state(tm.model, tm.layer_weight, tx)
-        step = make_train_step(cfg, tx, dtype=torch.float32)
-        _, loss = step(state, torch.from_numpy(images).to(tm.device),
-                       torch.as_tensor(tm.node_tokens, device=tm.device).long(),
-                       sched_to_device(sched, tm.device))
-        out[name] = (float(loss), {k: v.cpu() for k, v in tm.model.state_dict().items()},
-                     tm.layer_weight.detach().cpu())
-    (lc, pc, wc), (lg, pg, wg) = out["cpu"], out["card"]
-    rel = abs(lg - lc) / abs(lc)
-    worst = float("-inf")
-    for k, g in grads.items():
-        m = g.abs() > 1e-6
-        excess = (pg[k][m] - pc[k][m]).abs() - (3e-5 + 5e-3 * pc[k][m].abs())
-        worst = max(worst, float(excess.max()) if m.any() else -1.0)
-    lw_err = float((wg - wc).abs().max())
-    log(f"[train-small] one float32 OM step, card vs cpu: loss {lg:.7f} vs {lc:.7f} (rel "
-        f"{rel:.2e}, tol 1e-5); updated weights: largest excess over 3e-5 + 5e-3|w| "
-        f"{worst:.3e} (must be <= 0); layer_weight max_abs_err {lw_err:.2e}")
-    assert rel <= 1e-5 and worst <= 0 and lw_err <= 3e-5 + 5e-3 * float(wc.abs().max())
+        out = {}
+        for name, tm in sides.items():
+            tx = make_optimizer(cfg, 10)
+            state = init_train_state(tm.model, tm.layer_weight, tx)
+            step = make_train_step(cfg, tx, dtype=torch.float32)
+            bn_act.launches = bn_act_backward.launches = 0
+            _, loss = step(state, torch.from_numpy(images).to(tm.device),
+                           torch.as_tensor(tm.node_tokens, device=tm.device).long(),
+                           sched_to_device(sched, tm.device))
+            out[name] = (float(loss), {k: v.cpu() for k, v in tm.model.state_dict().items()},
+                         tm.layer_weight.detach().cpu(), (bn_act.launches, bn_act_backward.launches))
+        (lc, pc, wc, _), (lg, pg, wg, k2) = out["cpu"], out["card"]
+        rel = abs(lg - lc) / abs(lc)
+        worst = float("-inf")
+        for k, g in grads.items():
+            m = g.abs() > 1e-6
+            excess = (pg[k][m] - pc[k][m]).abs() - (3e-5 + 5e-3 * pc[k][m].abs())
+            worst = max(worst, float(excess.max()) if m.any() else -1.0)
+        lw_err = float((wg - wc).abs().max())
+        k2_want = (rn_epilogues(sides["card"].clip_cfg),) * 2 if dev.type == "cuda" else (0, 0)
+        log(f"[train-small] one float32 OM step of {arch}, card vs cpu: loss {lg:.7f} vs "
+            f"{lc:.7f} (rel {rel:.2e}, tol 1e-5); updated weights: largest excess over 3e-5 + "
+            f"5e-3|w| {worst:.3e} (must be <= 0); layer_weight max_abs_err {lw_err:.2e}; K2 "
+            f"launches (forward, backward) on the card {k2} (want {k2_want})")
+        assert rel <= 1e-5 and worst <= 0 and lw_err <= 3e-5 + 5e-3 * float(wc.abs().max())
+        assert k2 == k2_want, (arch, k2, k2_want)
 
 
 def phase_coop(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare=256, episodes=4,
@@ -1559,6 +1792,7 @@ def phase_coop(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, num_compare
     assert seen["train_steps"] == 0, "K1 ran inside a train step"
     assert seen["test"] == bank_launches, seen
     assert (seen["k2_train_steps"], seen["k2_test"]) == (k2_steps, k2_test), seen
+    assert (seen["k2b_train_steps"], seen["k2b_test"]) == (0, 0), seen  # no gradient to CLIP
     check_k3_train("coop", dev, tm, seen, test_batches, frozen_encodes=episodes)
     saved = restore_params(os.path.join(cfg.save_path, "clip_0"))
     assert torch.equal(saved["coop_ctx"], tm.coop_ctx.detach().cpu()), "clip_0's coop_ctx"
@@ -1631,13 +1865,15 @@ def phase_flat(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=256, n_seen=1000
     for k in watched:
         assert not torch.equal(sd[k], before[k]), f"{k} did not move"
     assert torch.equal(tm.layer_weight.detach(), lw_before), "layer_weight moved"
-    k2_test = test_batches * rn_epilogues(tm.clip_cfg)
+    k2_steps, k2_test = (n * rn_epilogues(tm.clip_cfg) for n in (steps, test_batches))
     log(f"[flat] K1 launches: {seen['train_steps']} inside the train steps, {seen['test']} in "
-        f"the test after them; K2 launches {seen['k2_train_steps']} inside the train steps, "
-        f"{seen['k2_test']} in the test (want {k2_test})")
+        f"the test after them; K2 launches (forward, backward) ({seen['k2_train_steps']}, "
+        f"{seen['k2b_train_steps']}) inside the train steps (want {k2_steps} each), "
+        f"({seen['k2_test']}, {seen['k2b_test']}) in the test (want {k2_test}, 0)")
     assert seen["train_steps"] == 0, "K1 ran inside a train step"
     assert seen["test"] == bank_launches, seen
-    assert (seen["k2_train_steps"], seen["k2_test"]) == (0, k2_test), seen
+    assert (seen["k2_train_steps"], seen["k2b_train_steps"]) == (k2_steps, k2_steps), seen
+    assert (seen["k2_test"], seen["k2b_test"]) == (k2_test, 0), seen
     check_k3_train("flat", dev, tm, seen, test_batches)
     shutil.rmtree(cfg.save_path, ignore_errors=True)
     return seen
@@ -2510,8 +2746,10 @@ def phase_export_text(dev, real, arch="RN50x4", bank_launches=432):
 
 
 def phase_guard(dev):
-    """K1, K2 and K3 refuse a call that autograd would record: they have no
-    backward."""
+    """K1, K2 and K3 refuse a call that autograd would record (K1 and K3
+    have no backward; K2's direct launch records no graph), and K2's
+    autograd Function takes it: one forward and one backward launch, the
+    gradient the twin's."""
     from hgr_tpu_torch.ops.attention import attention
 
     q = torch.randn(2, 2, 8, 64, device=dev, requires_grad=True)
@@ -2527,20 +2765,30 @@ def phase_guard(dev):
         attention(q, q, q)
     assert attention.launches == n + 1
 
-    from hgr_tpu_torch.ops.bn_act import bn_act
+    from hgr_tpu_torch.models.layers import batch_norm_act
+    from hgr_tpu_torch.ops.bn_act import bn_act, bn_act_backward
+
+    from hgr_tpu_torch.ops.bn_act import bn_act_autograd
 
     x = torch.randn(2, 4, 4, 8, device=dev).permute(0, 3, 1, 2).requires_grad_(True)
-    n = bn_act.launches
+    n, nb = bn_act.launches, bn_act_backward.launches
     try:
         bn_act(x, None, relu=True)
     except RuntimeError as e:
         log(f"[guard] bn_act on a CUDA tensor that requires grad raises: {e}")
     else:
         raise AssertionError("bn_act ran under autograd")
-    assert bn_act.launches == n
+    assert (bn_act.launches, bn_act_backward.launches) == (n, nb)
+    y = bn_act_autograd(x, None, relu=True)
+    (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    (want,) = torch.autograd.grad(batch_norm_act(x, None, relu=True), x, torch.ones_like(y))
+    log(f"[guard] bn_act_autograd on it: {type(y.grad_fn).__name__}, one forward and one "
+        f"backward launch, the gradient equal to the twin's")
+    assert type(y.grad_fn).__name__ == "BnActBackward" and torch.equal(dx, want)
+    assert (bn_act.launches, bn_act_backward.launches) == (n + 1, nb + 1)
     with torch.no_grad():
-        bn_act(x, None, relu=True)
-    assert bn_act.launches == n + 1
+        assert bn_act(x, None, relu=True).grad_fn is None
+    assert (bn_act.launches, bn_act_backward.launches) == (n + 2, nb + 1)
 
     from hgr_tpu_torch.ops.ln_act import add_layer_norm, quick_gelu
 
@@ -2652,7 +2900,8 @@ def cli_count(args, timeout=600):
     """The CLI (``driver.main(args)``) in a process of its own through this
     script's ``--cli-rank`` mode, as one rank of no world; K1's and K2's
     launches are read from its count file, as :func:`torchrun` reads each
-    rank's. Returns (standard output, K1 launches, K2 launches)."""
+    rank's. Returns (standard output, K1 launches, K2 forward launches, K2
+    backward launches)."""
     import os
     import tempfile
 
@@ -2662,8 +2911,8 @@ def cli_count(args, timeout=600):
                            capture_output=True, text=True, timeout=timeout, env=env)
         assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
         with open(os.path.join(count_dir, "rank0")) as f:
-            k1, k2 = map(int, f.read().split())
-        return p.stdout, k1, k2
+            k1, k2, k2b = map(int, f.read().split())
+        return p.stdout, k1, k2, k2b
 
 
 def phase_orbax(dev, real, work, batch=256, num_compare=256, level_sizes=LEVEL_SIZES,
@@ -2732,7 +2981,7 @@ def phase_orbax(dev, real, work, batch=256, num_compare=256, level_sizes=LEVEL_S
     cli = real["cfg_args"] + ["--load", "True", "--load_path", ckpt, "--max_test_batches", "1",
                               "--folder", folder, "--device", str(dev.index or 0)]
     t0 = time.time()
-    _, launches, k2 = cli_count(cli)
+    _, launches, k2, k2b = cli_count(cli)
     cli_cfg = Config.from_args(cli)
     final = _final_eval(cli_cfg.save_path)
     k2_want = (-(-int(final["num_samples"]) // cli_cfg.test_batch_size)
@@ -2741,7 +2990,7 @@ def phase_orbax(dev, real, work, batch=256, num_compare=256, level_sizes=LEVEL_S
         f"{time.time() - t0:.1f} s: K1 launches {launches}, K2 launches {k2} (want {k2_want}); "
         f"final {json.dumps(final)}")
     assert launches == bank_launches, f"K1 launched {launches} times, not {bank_launches}"
-    assert k2 == k2_want, f"K2 launched {k2} times, not {k2_want}"
+    assert k2 == k2_want and k2b == 0, f"K2 launched {k2} and {k2b} times, not {k2_want}, 0"
     assert final["num_samples"] > 0 and all(
         math.isfinite(v) for v in final.values() if isinstance(v, float)), final
 
@@ -2836,7 +3085,8 @@ def torchrun(args, nproc=MESH_WORLD, timeout=600, pred_dir=None):
     counted; with ``pred_dir``, each rank's merged predictions saved there).
     Each rank writes its counts to a file of its own, since the ranks'
     standard outputs share one pipe and may interleave. Returns (standard
-    output, each rank's K1 launches, each rank's K2 launches)."""
+    output, each rank's K1 launches, each rank's K2 forward launches, each
+    rank's K2 backward launches)."""
     import os
     import tempfile
 
@@ -2852,21 +3102,21 @@ def torchrun(args, nproc=MESH_WORLD, timeout=600, pred_dir=None):
             with open(os.path.join(count_dir, f)) as fh:
                 launches[int(f[len("rank"):])] = tuple(map(int, fh.read().split()))
     assert sorted(launches) == list(range(nproc)), (launches, p.stdout[-3000:])
-    k1, k2 = zip(*(launches[r] for r in range(nproc)))
-    return p.stdout, list(k1), list(k2)
+    k1, k2, k2b = zip(*(launches[r] for r in range(nproc)))
+    return p.stdout, list(k1), list(k2), list(k2b)
 
 
 def cli_rank(argv):
     """One rank of :func:`torchrun`: ``python -m hgr_tpu_torch``'s
-    ``driver.main`` with K1's and K2's counts reset just before and read
-    just after. Where ``$CHIP_SMOKE_PRED_DIR`` is set, a spy on the sharded eval keeps
+    ``driver.main`` with K1's and K2's (forward and backward) counts reset
+    just before and read just after. Where ``$CHIP_SMOKE_PRED_DIR`` is set, a spy on the sharded eval keeps
     each batch's target and this rank's merged predictions
     (``ShardedEval.merged_preds``) and saves them there as ``rank{r}.pt``."""
     import os
 
     from hgr_tpu_torch import driver
     from hgr_tpu_torch.ops.attention import attention
-    from hgr_tpu_torch.ops.bn_act import bn_act
+    from hgr_tpu_torch.ops.bn_act import bn_act, bn_act_backward
     from hgr_tpu_torch.parallel.eval_spmd import ShardedEval
 
     pred_dir, seen = os.environ.get(PRED_DIR_ENV), []
@@ -2883,13 +3133,13 @@ def cli_rank(argv):
             return out
 
         ShardedEval.metrics_from_logits, ShardedEval.merged_preds = metrics_spy, merge_spy
-    attention.launches = bn_act.launches = 0
+    attention.launches = bn_act.launches = bn_act_backward.launches = 0
     driver.main(argv)
     rank = os.environ["RANK"]
     with open(os.path.join(os.environ[COUNT_DIR_ENV], f"rank{rank}"), "w") as f:
-        f.write(f"{attention.launches} {bn_act.launches}")
+        f.write(f"{attention.launches} {bn_act.launches} {bn_act_backward.launches}")
     sys.stdout.write(f"[cli-rank {rank}] K1 launches {attention.launches}, K2 launches "
-                     f"{bn_act.launches}\n")
+                     f"{bn_act.launches} forward, {bn_act_backward.launches} backward\n")
     sys.stdout.flush()
     if pred_dir:
         torch.save(seen, os.path.join(pred_dir, f"rank{os.environ['RANK']}.pt"))
@@ -2965,7 +3215,7 @@ def phase_mesh_eval(real, bank_launches=432):
             "--load_path", os.path.join(real["save_path"], "clip_0")]
     mesh = ["--mesh_data", "2", "--mesh_model", "2", "--dist_backend", "gloo"]
     t0 = time.time()
-    _, launches, k2 = torchrun(args + mesh, pred_dir=pred_dir)
+    _, launches, k2, k2b = torchrun(args + mesh, pred_dir=pred_dir)
     wall = time.time() - t0
     cfg = Config.from_args(args)
     finals = [r for r in map(json.loads, open(os.path.join(cfg.save_path, "metrics.jsonl")))
@@ -3043,7 +3293,7 @@ def phase_mesh_eval(real, bank_launches=432):
     assert all(v >= n_img // 2 for v in caught.values()), caught  # such faults would fail
     assert diff <= near + 1e-3, (got, want)  # path and point: fp32 sums in another order
     assert launches == [bank_launches] * MESH_WORLD, launches
-    assert k2 == [k2_want] * MESH_WORLD, k2
+    assert k2 == [k2_want] * MESH_WORLD and k2b == [0] * MESH_WORLD, (k2, k2b)
     return launches, k2
 
 
@@ -3263,8 +3513,10 @@ def phase_mesh_train(dev, work, steps=2, batch=256, num_compare=256, arch="RN50"
     batches, and the gradient that step's update applies against that
     process's mean gradient (cosine). Then ``python -m hgr_tpu_torch
     --train True`` with the mesh under ``torch.distributed.run``, 2 episodes
-    (one step of 2 replicas; no K2 launch, autograd runs the plain
-    epilogues). Returns each CLI rank's K1 launches in it."""
+    (one step of 2 replicas; each rank's image tower, its block of the
+    replica's batch, launches K2 forward and backward ``rn_epilogues``
+    times, through its autograd Function). Returns each CLI rank's K1
+    launches in it."""
     import os
     import shutil
 
@@ -3330,18 +3582,19 @@ def phase_mesh_train(dev, work, steps=2, batch=256, num_compare=256, arch="RN50"
             "--synthetic_images_per_class", str(batch), "--print_freq", "1", "--folder", folder,
             "--mesh_data", "2", "--mesh_model", "2", "--dist_backend", "gloo"]
     t0 = time.time()
-    _, launches, k2 = torchrun(args)
+    _, launches, k2, k2b = torchrun(args)
     save = Config.from_args(args).save_path
     records = [json.loads(line) for line in open(os.path.join(save, "metrics.jsonl"))]
     losses = [r["loss"] for r in records if r["event"] == "train"]
     log(f"[mesh-train] CLI `python -m hgr_tpu_torch --train True --n_episodes 2 --mesh_data 2 "
         f"--mesh_model 2 --dist_backend gloo` under torch.distributed.run: {time.time() - t0:.1f} "
         f"s of command, rank 0 logged losses {losses}, wrote {sorted(os.listdir(save))}; K1 "
-        f"launches by rank {launches}, K2 by rank {k2} (the train steps run the plain attention "
-        f"and epilogues)")
+        f"launches by rank {launches} (the train step runs the plain attention), K2 forward "
+        f"{k2} and backward {k2b} by rank (want {rn_epilogues_of(arch)} each: one step, its "
+        f"autograd Function)")
     assert len(losses) == 1 and math.isfinite(losses[0])
     assert os.path.isdir(os.path.join(save, "clip_0")) and launches == [0] * MESH_WORLD
-    assert k2 == [0] * MESH_WORLD, k2
+    assert k2 == k2b == [rn_epilogues_of(arch)] * MESH_WORLD, (k2, k2b)
     shutil.rmtree(folder, ignore_errors=True)
     return launches
 
@@ -3440,7 +3693,7 @@ def main() -> int:
     dev = select_device("cuda:0")
     n_procs = min(8, os.cpu_count() or 1)
     main_row = phase_kernels(dev)
-    bn_act_row, k2_encodes = phase_bn_act(dev)
+    bn_act_row, bn_act_backward_row, k2_encodes, k2b_encodes = phase_bn_act(dev)
     ln_row, gelu_row = phase_ln_act(dev)
     phase_chains()
     tm, bank, summary, rn50, k2_rn50, k3_rn50 = phase_slice(dev)
@@ -3506,7 +3759,7 @@ def main() -> int:
                "rn50_flat_test_after_train": flat["test"],
                "test_rn_clip_flat_baseline_bank": clip_flat,
                "rn50_mesh_eval": sum(mesh_eval[0]), "rn50_mesh_train_steps": sum(mesh_train)}
-    # K2's launches as each phase counted them (the mesh train's 0 is asserted there)
+    # K2's forward launches as each phase counted them (the mesh train's are asserted there)
     k2_by_path = {**k2_encodes, "rn50_eval": k2_rn50, "rn50x4_eval": k2_rn50x4,
                   "rn50_real_inputs_eval": k2_real, "rn50_orbax_load_eval": orbax_load[1],
                   "rn50_files_num_proc_workers_eval": decoded["k2"],
@@ -3519,13 +3772,18 @@ def main() -> int:
                   "rn50_flat_train_steps": flat["k2_train_steps"],
                   "rn50_flat_test_after_train": flat["k2_test"],
                   "rn50_mesh_eval": sum(mesh_eval[1])}
+    # K2's backward launches: each train phase's (the mesh train's are asserted there)
+    k2b_by_path = {**k2b_encodes,
+                   "rn50_train_steps": train["k2b_train_steps"],
+                   "rn50_accum_train_steps": accum[2],
+                   "rn50_flat_train_steps": flat["k2b_train_steps"]}
     # K3's (add_layer_norm, quick_gelu) launches as each phase counted them
     k3_by_path = {"rn50_eval": k3_rn50, "vit_b32_eval": k3_vit, "vit_b16_eval": k3_vit16,
                   "vit_b16_encode": k3_vit16_encode, "rn50x4_eval": k3_rn50x4,
                   "vit_l14_eval": k3_vit_l14, "vit_l14_encode": k3_vit_l14_encode,
                   "rn50_train_steps": train["k3_train_steps"],
                   "rn50_test_after_train": train["k3_test"],
-                  "rn50_accum_train_steps": accum[2],
+                  "rn50_accum_train_steps": accum[3],
                   "rn50_coop_train_steps": coop["k3_train_steps"],
                   "rn50_coop_test_after_train": coop["k3_test"],
                   "rn50_flat_train_steps": flat["k3_train_steps"],
@@ -3546,6 +3804,14 @@ def main() -> int:
         launches=sum(k2_by_path.values()),
         launches_by_path=k2_by_path,
         **bn_act_row,
+    ), dict(
+        name="bn_act_backward",
+        route="cuda",
+        source="hgr_tpu_torch/csrc/bn_act.cu",
+        replaces="none (XLA fuses the epilogues' backward on the TPU)",
+        launches=sum(k2b_by_path.values()),
+        launches_by_path=k2b_by_path,
+        **bn_act_backward_row,
     )] + [dict(
         name=name,
         route="cuda",

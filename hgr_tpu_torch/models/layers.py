@@ -66,9 +66,16 @@ def batch_norm(
 ) -> torch.Tensor:
     """Inference-mode BN on NCHW folded into one multiply-add; the fold is
     computed in fp32 and cast, as ``hgr_tpu/models/layers.py:114-117``."""
+    inv, shift = _fold(scale, bias, mean, var, x.dtype, eps)
+    return x * inv + shift
+
+
+def _fold(scale, bias, mean, var, dtype: torch.dtype, eps: float = 1e-5):
+    """``batch_norm``'s fold: (inv, shift) rounded to ``dtype``, each
+    ``[C, 1, 1]``."""
     inv = torch.rsqrt(var + eps) * scale
     shift = bias - mean * inv
-    return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+    return inv.to(dtype)[:, None, None], shift.to(dtype)[:, None, None]
 
 
 def batch_norm_act(
@@ -93,6 +100,70 @@ def batch_norm_act(
     if relu:
         x = F.relu(x)
     return F.avg_pool2d(x, 2) if pool else x
+
+
+def _fold_grads(bn, sum_g: torch.Tensor, sum_gy: torch.Tensor, eps: float = 1e-5):
+    """The fp32 gradients of ``bn``'s weight, bias, running_mean and
+    running_var, given the per-channel sums of the gradient at the folded
+    multiply-add's output (``sum_g``, the shift's gradient) and of that
+    gradient times its input (``sum_gy``, the scale's), through
+    ``inv = rsqrt(var + eps) * weight`` and ``shift = bias - mean * inv``."""
+    rs = torch.rsqrt(bn.running_var + eps)
+    d_inv = sum_gy - sum_g * bn.running_mean
+    return [d_inv * rs, sum_g, -(sum_g * (rs * bn.weight)),
+            d_inv * bn.weight * (-0.5 * rs * rs * rs)]
+
+
+def batch_norm_act_backward(
+    g: torch.Tensor,
+    x: torch.Tensor,
+    bn: Optional["BatchNorm2d"],
+    residual: Optional[torch.Tensor] = None,
+    residual_bn: Optional["BatchNorm2d"] = None,
+    relu: bool = False,
+    pool: bool = False,
+):
+    """The gradients of ``batch_norm_act(x, bn, residual, residual_bn, relu,
+    pool)`` given ``g``, the gradient of its output, as the backward kernel
+    in ``ops/bn_act.py`` computes them; its plain twin. The pool spreads
+    each ``g / 4`` over its 2x2 window (an odd last row or column gets 0);
+    the ReLU passes it where the pre-activation, recomputed from ``x`` and
+    ``residual`` with the forward's arithmetic, is not ``<= 0``: ``g_m``.
+    ``dx = g_m * inv`` and ``dres = g_m`` (``g_m * rinv`` through
+    ``residual_bn``) in ``x``'s dtype; each BatchNorm's four parameter
+    gradients in fp32 through its fold, from fp32 per-channel sums of
+    ``g_m``, ``g_m * x`` and ``g_m * residual``. Returns ``(dx, dres,
+    bn_grads, residual_bn_grads)``, each None where there is no such
+    input, a BatchNorm's as ``[weight, bias, running_mean, running_var]``."""
+    if pool:
+        H, W = x.shape[2:]
+        g = (g * 0.25).repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        g = F.pad(g, (0, W % 2, 0, H % 2))
+    y = x
+    if bn is not None:
+        inv, shift = _fold(bn.weight, bn.bias, bn.running_mean, bn.running_var, x.dtype)
+        y = x * inv + shift
+    r = residual
+    if residual_bn is not None:
+        rinv, rshift = _fold(residual_bn.weight, residual_bn.bias, residual_bn.running_mean,
+                             residual_bn.running_var, x.dtype)
+        r = residual * rinv + rshift
+    if residual is not None:
+        y = y + r
+    g_m = torch.where(y <= 0, 0, g) if relu else g
+    sum_g = g_m.float().sum((0, 2, 3))
+    bn_grads = rbn_grads = dres = None
+    dx = g_m
+    if bn is not None:
+        dx = g_m * inv
+        bn_grads = _fold_grads(bn, sum_g, (g_m.float() * x.float()).sum((0, 2, 3)))
+    if residual is not None:
+        dres = g_m
+        if residual_bn is not None:
+            dres = g_m * rinv
+            rbn_grads = _fold_grads(residual_bn, sum_g,
+                                    (g_m.float() * residual.float()).sum((0, 2, 3)))
+    return dx, dres, bn_grads, rbn_grads
 
 
 def attention_scores(

@@ -12,10 +12,12 @@ from NHWC keeps channels-last strides, which cuDNN takes as they are.
 
 Each BatchNorm runs with what follows it (the residual add, the ReLU, the
 2x2 mean, and in a block with a downsample its BatchNorm too) as one call of
-``ops.bn_act.bn_act``, the fused kernel K2 on CUDA, whose output has no
+K2: ``ops.bn_act.bn_act``, the fused kernel on CUDA, whose output has no
 ``grad_fn``; where autograd would record the call (the train step,
-``ops.ln_act.autograd_records``, the rule every tower asks), the plain twin
-``layers.batch_norm_act``, the same ops in the same order.
+``ops.ln_act.autograd_records``, the rule every tower asks),
+``ops.bn_act.bn_act_autograd``, the same forward as an autograd Function
+with K2's backward kernel. On the CPU both run the plain twins
+(``layers.batch_norm_act`` and its backward).
 """
 
 from __future__ import annotations
@@ -26,16 +28,16 @@ import torch
 from torch import nn
 
 from ..ops import ln_act
-from ..ops.bn_act import bn_act
-from .layers import BatchNorm2d, Conv2d, Linear, _param, batch_norm_act, normal_
+from ..ops.bn_act import bn_act, bn_act_autograd
+from .layers import BatchNorm2d, Conv2d, Linear, _param, normal_
 
 EXPANSION = 4
 
 
 def epilogue(x: torch.Tensor, *modules: nn.Module):
-    """``bn_act``, or its plain twin ``batch_norm_act`` where autograd would
-    record the calls (``ops.ln_act.autograd_records``)."""
-    return batch_norm_act if ln_act.autograd_records(x, *modules) else bn_act
+    """``bn_act``, or its autograd Function ``bn_act_autograd`` where
+    autograd would record the calls (``ops.ln_act.autograd_records``)."""
+    return bn_act_autograd if ln_act.autograd_records(x, *modules) else bn_act
 
 
 class Downsample(nn.Module):

@@ -4,12 +4,12 @@ QuickGELU, each in one pass.
 ``add_layer_norm`` and ``quick_gelu`` are what ``models/transformer.py`` and
 ``models/vit.py`` call where autograd would record nothing.
 ``autograd_records`` is the one rule for every hand kernel of the port (K1,
-K2, K3), none of which has a backward: each tower asks it
-(``models/resnet.py`` once a block; ``models/vit.py``,
-``models/text_encoder.py`` and ``models/coop.py`` once an encode, handing
-the answer to ``models/transformer.py``) and runs the plain twins where it
-says yes; callers pass nothing. For tensors on the CPU the two entries here
-run the plain twins (``models.layers.layer_norm`` after a plain add, and
+K2, K3): each tower asks it (``models/resnet.py`` once a block;
+``models/vit.py``, ``models/text_encoder.py`` and ``models/coop.py`` once
+an encode, handing the answer to ``models/transformer.py``) and where it
+says yes runs the plain twins of K1 and K3, which have no backward, and
+K2's autograd Function (``ops/bn_act.py``); callers pass nothing. For
+tensors on the CPU the two entries here run the plain twins (``models.layers.layer_norm`` after a plain add, and
 ``models.layers.quick_gelu``); for CUDA tensors they launch the hand-written
 Hopper kernels in ``csrc/ln_act.cu`` (see the note there for what they
 compute, how close to the twins, and what bounds them), or raise. There is
@@ -60,7 +60,8 @@ def autograd_records(x: torch.Tensor, *modules: torch.nn.Module) -> bool:
     """Whether autograd would record a forward over ``x`` and ``modules``:
     gradients on, and ``x`` or a parameter of ``modules`` requires one (then
     every activation after it does too). The towers ask once an encode and take
-    the plain twins where it does, the hand kernels (K1, K2, K3) where not."""
+    the plain twins of K1 and K3 and K2's autograd Function where it does, the
+    hand kernels' no-gradient path (K1, K2, K3) where not."""
     return torch.is_grad_enabled() and (
         x.requires_grad or any(p.requires_grad for m in modules for p in m.parameters())
     )

@@ -16,12 +16,15 @@ rows of the batch, zero-padded rows included (``hgr_tpu/train/om.py:75``
 takes no ``valid``).
 
 The step passes the towers no attention: each tower sees that autograd
-records (``ops.ln_act.autograd_records``) and runs the plain
-``attention_scores`` and twins, the counterpart of the JAX step, which
-calls the encoders with no attention argument and so runs XLA's attention
-(``om.py:98,103``). That is not a fallback from the hand kernels, which
-have no backward and are never called under autograd. A frozen tower that
-records nothing (the image tower of a CoOp ``ctx`` step) runs its kernels.
+records (``ops.ln_act.autograd_records``). The ResNet image tower then runs
+K2, its BatchNorm epilogue kernel, as an autograd Function with a
+hand-written backward (``ops.bn_act.bn_act_autograd``); the transformer
+towers run the plain ``attention_scores`` and twins, the counterpart of the
+JAX step, which calls the encoders with no attention argument and so runs
+XLA's attention (``om.py:98,103``). That is not a fallback from K1 and K3,
+which have no backward and are never called under autograd. A frozen tower
+that records nothing (the image tower of a CoOp ``ctx`` step) runs its
+kernels' no-gradient path.
 """
 
 from __future__ import annotations

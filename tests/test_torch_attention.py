@@ -181,7 +181,8 @@ BAD_ARGUMENTS = [
 def test_kernel_argument_checks():
     """What the kernel does not take is refused before any launch, each
     case with its own message: arguments, devices other than the CPU and
-    CUDA, and calls that autograd would record."""
+    CUDA, and calls that autograd would record; K2's and K3's twins, K2's
+    backward among them."""
     _cuda_route_refuses_other_devices()
     _kernel_refuses_autograd()
     for bad, match in BAD_ARGUMENTS:
@@ -197,6 +198,8 @@ def test_kernel_argument_checks():
             k1._check(q, k, v, mask)
     _check_head_dim_padding()
     _bn_act_refuses_bad_arguments()
+    for route in BN_ACT_ROUTES:
+        _check_bn_act_backward_twin(route)
     _ln_act_refuses_bad_arguments()
     for dtype in (torch.float32, torch.bfloat16):
         for with_delta in (False, True):
@@ -240,10 +243,12 @@ class _BN:
 
 def _bn_act_refuses_bad_arguments():
     """K2 refuses, before any launch and each with its own message, what its
-    kernel does not take (layout, dtype, channels, residual shape, a
+    kernels do not take (layout, dtype, channels, residual shape, a
     residual with the pool, BatchNorm parameters), devices other than the
-    CPU and CUDA, and a call that autograd would record; a channels-last
-    call it takes passes."""
+    CPU and CUDA, and a direct launch that autograd would record (any of its
+    tensors, the running statistics too, requires a gradient, with gradients
+    on), which ``bn_act_autograd`` takes; a channels-last call it takes
+    passes."""
     def nhwc(N=2, C=16, H=4, W=4, dtype=torch.bfloat16):
         return torch.zeros(N, H, W, C, dtype=dtype).permute(0, 3, 1, 2)
 
@@ -273,18 +278,117 @@ def _bn_act_refuses_bad_arguments():
         k2.bn_act(torch.zeros(1, 8, 2, 2, device="meta"), None)
     with pytest.raises(ValueError, match="CUDA tensors"):
         k2.bn_act_cuda(x, _BN(16))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        k2.bn_act_backward(torch.zeros(1, 8, 2, 2, device="meta"),
+                           torch.zeros(1, 8, 2, 2, device="meta"), None)
     for args in ((x, _BN(16)), (x, _BN(16), nhwc(), _BN(16)), (x, None, None, None)):
         k2.refuse_autograd(*args)
     bn = _BN(16)
-    bn.weight.requires_grad_(True)
+    bn.running_var.requires_grad_(True)
     for args in ((nhwc().requires_grad_(True), None), (x, bn),
                  (x, None, nhwc().requires_grad_(True), None), (x, None, x, bn)):
-        with pytest.raises(RuntimeError, match="batch_norm_act"):
+        with pytest.raises(RuntimeError, match="bn_act_autograd"):
             k2.refuse_autograd(*args)
         with torch.no_grad():
             k2.refuse_autograd(*args)
         with torch.inference_mode():
             k2.refuse_autograd(*args)
+
+
+class _SeededBN:
+    """BatchNorm tensors drawn from ``g`` (a fold that is not the identity),
+    each requiring a gradient as the train step's do."""
+
+    def __init__(self, C, g):
+        self.weight = torch.randn(C, generator=g) * 0.5 + 1
+        self.bias = torch.randn(C, generator=g) * 0.5
+        self.running_mean = torch.randn(C, generator=g) * 0.5
+        self.running_var = torch.rand(C, generator=g) * 2 + 0.05
+        for t in self.leaves():
+            t.requires_grad_(True)
+
+    def leaves(self):
+        return [self.weight, self.bias, self.running_mean, self.running_var]
+
+
+# the ResNet's epilogues: (bn, residual, residual_bn, relu, pool)
+BN_ACT_ROUTES = {
+    "bn_relu": (True, False, False, True, False),
+    "bn_relu_pool": (True, False, False, True, True),
+    "pool_only": (False, False, False, False, True),
+    "residual_relu": (True, True, False, True, False),
+    "residual_bn_relu": (True, True, True, True, False),
+}
+
+
+def _check_bn_act_backward_twin(route):
+    """K2's backward twin ``layers.batch_norm_act_backward``, and the
+    autograd Function's CPU route (``ops.bn_act.bn_act_autograd``, which
+    saves only ``x`` and the residual), against ``torch.autograd`` of
+    ``batch_norm_act`` in fp32, for each epilogue the ResNet runs: the
+    gradients of ``x`` and the residual equal, those of each BatchNorm's
+    weight, bias, running_mean and running_var within 1e-5 of the largest
+    (only the order of fp32 sums differs). The shape has an odd height, so
+    the pool drops a row; the inputs hold 0.0 and -0.0, and where the
+    residual is plain it cancels some pre-activations to exactly 0, where
+    the ReLU's gradient stops."""
+    from hgr_tpu_torch.models.layers import batch_norm_act, batch_norm_act_backward
+
+    fold, res, res_fold, relu, pool = BN_ACT_ROUTES[route]
+    g = torch.Generator().manual_seed(sorted(BN_ACT_ROUTES).index(route))
+    N, C, H, W = 3, 16, 7, 6
+
+    def act():  # channels-last, as the convolutions give it, with some 0.0 and -0.0
+        t = torch.randn(N, H, W, C, generator=g)
+        t.view(-1)[::13], t.view(-1)[5::17] = 0.0, -0.0
+        return t.permute(0, 3, 1, 2)
+
+    x = act()
+    residual = act() if res else None
+    bn = _SeededBN(C, g) if fold else None
+    residual_bn = _SeededBN(C, g) if res_fold else None
+    if res and not res_fold:  # a residual that cancels: pre-activations of exactly 0
+        with torch.no_grad():
+            pre = batch_norm_act(x, bn)
+            residual.permute(0, 2, 3, 1).view(-1)[::11] = -pre.permute(0, 2, 3, 1).reshape(-1)[::11]
+            assert bool((batch_norm_act(x, bn, residual) == 0).any())
+    x.requires_grad_(True)
+    if res:
+        residual.requires_grad_(True)
+    leaves = [x] + ([residual] if res else []) + (bn.leaves() if fold else []) + (
+        residual_bn.leaves() if res_fold else [])
+    args = (bn, residual, residual_bn, relu, pool)
+
+    out = batch_norm_act(x, *args)
+    grad = torch.randn(out.shape, generator=g)
+    want = torch.autograd.grad(out, leaves, grad)
+
+    with torch.no_grad():
+        dx, dres, bn_grads, rbn_grads = batch_norm_act_backward(
+            grad, x, bn, residual, residual_bn, relu, pool)
+    twin = [dx] + ([dres] if res else []) + (bn_grads or []) + (rbn_grads or [])
+    assert (dres is None) == (not res) and (bn_grads is None) == (not fold)
+    assert (rbn_grads is None) == (not res_fold)
+
+    fn_out = k2.bn_act_autograd(x, *args)
+    assert torch.equal(fn_out, out) and type(fn_out.grad_fn).__name__ == "BnActBackward"
+    saved = fn_out.grad_fn.saved_tensors
+    assert saved[0] is x and (saved[1] is residual if res else saved[1] is None)
+    fn_grads = torch.autograd.grad(fn_out, leaves, grad)
+
+    n_act = 1 + res
+    for got in (twin, list(fn_grads)):
+        assert len(got) == len(want)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.shape == b.shape and a.dtype == b.dtype, (route, i)
+            if i < n_act:
+                assert torch.equal(a, b), (route, i, float((a - b).abs().max()))
+            else:
+                err = float((a - b).abs().max())
+                assert err <= 1e-5 * float(b.abs().max()), (route, i, err)
+                assert bool(b.abs().max() > 0), (route, i)
+    if pool:  # the odd last row gets no gradient
+        assert not bool(want[0][:, :, -1].any())
 
 
 class _LN:
@@ -407,18 +511,19 @@ def _kernel_refuses_autograd():
 
 
 def test_one_rule_picks_kernel_or_twin(monkeypatch):
-    """``ops.ln_act.autograd_records`` is the one rule for K1, K2 and K3,
-    none of which has a backward. Its truth table: grad mode x an input
-    that requires a gradient x a module parameter that does x parameters
-    set by ``train.trainer.freeze_params`` (frozen, or trained). Then each
-    tower decides through it, asked once an encode (the ResNet once a
-    block): made to answer no, the ResNet calls ``bn_act`` and the
-    transformer towers call ``attention``, ``add_layer_norm`` and
-    ``quick_gelu``; made to answer yes, the plain twins only
-    (``batch_norm_act``, ``attention_scores``); the features are equal bit
-    for bit (on the CPU every entry runs its twin). Unpatched under
-    gradients, a tower frozen by ``freeze_params`` takes the kernels' path
-    and a trained one the twins'."""
+    """``ops.ln_act.autograd_records`` is the one rule for K1, K2 and K3.
+    Its truth table: grad mode x an input that requires a gradient x a
+    module parameter that does x parameters set by
+    ``train.trainer.freeze_params`` (frozen, or trained). Then each tower
+    decides through it, asked once an encode (the ResNet once a block):
+    made to answer no, the ResNet calls ``bn_act`` and the transformer
+    towers call ``attention``, ``add_layer_norm`` and ``quick_gelu``; made
+    to answer yes, the ResNet calls K2's autograd Function
+    ``bn_act_autograd`` and the transformer towers the plain twins only
+    (``attention_scores``); the features are equal bit for bit (on the CPU
+    every entry runs its twin). Unpatched under gradients, a tower frozen
+    by ``freeze_params`` takes the no-gradient path and a trained one the
+    autograd path."""
     import itertools
 
     from hgr_tpu_torch.models import clip, coop, resnet, transformer
@@ -442,7 +547,7 @@ def test_one_rule_picks_kernel_or_twin(monkeypatch):
             assert not k3.autograd_records(x, mod), case
 
     entries = {  # (module, name): kernel path (True) or plain twin (False)
-        (resnet, "bn_act"): True, (resnet, "batch_norm_act"): False,
+        (resnet, "bn_act"): True, (resnet, "bn_act_autograd"): False,
         (transformer, "attention"): True, (transformer, "attention_scores"): False,
         (k3, "add_layer_norm"): True, (k3, "quick_gelu"): True,
     }
@@ -476,7 +581,7 @@ def test_one_rule_picks_kernel_or_twin(monkeypatch):
                                                      dtype=torch.float32), vit,
                       {"attention": Lt, "add_layer_norm": 2 * Lt + 1, "quick_gelu": Lt}, 1),
     }
-    twin = {"bn_act": "batch_norm_act", "attention": "attention_scores"}
+    twin = {"bn_act": "bn_act_autograd", "attention": "attention_scores"}
 
     def run(encode, m):
         calls.update(dict.fromkeys(calls, 0))

@@ -96,7 +96,7 @@ def _check_text(pair, lengths, T):
 def test_image_tower_test_rn(test_rn, rn50_width, monkeypatch):
     """TEST-RN, then RN50's widths at a cut resolution, from float and uint8
     images; each tower's BatchNorm epilogues go through K2's wrapper without
-    gradients and through its plain twin under autograd."""
+    gradients and through its autograd Function under autograd."""
     for setup in (test_rn, rn50_width):
         for uint8 in (False, True):
             _check_image(setup, uint8)
@@ -106,14 +106,15 @@ def test_image_tower_test_rn(test_rn, rn50_width, monkeypatch):
 def _check_epilogue_route(pair, monkeypatch):
     """The ResNet calls ``ops.bn_act.bn_act`` (K2 on CUDA) once per
     BatchNorm epilogue under ``inference_mode`` (the stem's 3, 3 a block, and
-    a pool of the input of each strided block's downsample), and the plain
-    ``batch_norm_act`` as often where autograd records the forward; the
-    features agree, and the gradient reaches every BatchNorm's weight and
-    bias."""
+    a pool of the input of each strided block's downsample), and K2's
+    autograd Function ``bn_act_autograd`` as often where autograd records
+    the forward; the features agree, and the gradient reaches every
+    BatchNorm's weight, bias, running_mean and running_var (the train step
+    trains all four), finite and not all zero."""
     from hgr_tpu_torch.models import resnet
 
     _, cfg, m = pair
-    calls = {"bn_act": 0, "batch_norm_act": 0}
+    calls = {"bn_act": 0, "bn_act_autograd": 0}
     for name in calls:
         def counted(*a, _f=getattr(resnet, name), _n=name, **kw):
             calls[_n] += 1
@@ -123,24 +124,25 @@ def _check_epilogue_route(pair, monkeypatch):
     x = torch.from_numpy(_images(cfg, True))
     with torch.inference_mode():
         want = tclip.encode_image(m, x, dtype=torch.float32)
-    assert calls == {"bn_act": per_encode, "batch_norm_act": 0}
-    for p in m.visual.parameters():
-        p.requires_grad_(True)
+    assert calls == {"bn_act": per_encode, "bn_act_autograd": 0}
+    trained = list(m.visual.state_dict(keep_vars=True).values())
+    for t in trained:
+        t.requires_grad_(True)
     try:
         got = tclip.encode_image(m, x, dtype=torch.float32)
         got.square().sum().backward()
-        assert calls == {"bn_act": per_encode, "batch_norm_act": per_encode}
+        assert calls == {"bn_act": per_encode, "bn_act_autograd": per_encode}
         assert torch.equal(got.detach(), want)
         bns = [mod for mod in m.visual.modules() if isinstance(mod, resnet.BatchNorm2d)]
         assert len(bns) == 3 + 3 * sum(cfg.vision_layers) + 4
         for bn in bns:
-            for p in (bn.weight, bn.bias):
-                assert p.grad is not None and torch.isfinite(p.grad).all()
-                assert p.grad.abs().sum() > 0
+            for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var):
+                assert t.grad is not None and torch.isfinite(t.grad).all()
+                assert t.grad.abs().sum() > 0
     finally:
-        for p in m.visual.parameters():
-            p.requires_grad_(False)
-            p.grad = None
+        for t in trained:
+            t.requires_grad_(False)
+            t.grad = None
 
 
 def test_text_tower_test_rn(test_rn, rn50_width):
