@@ -5,6 +5,7 @@ from __future__ import annotations
 import gc
 import time
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import torch
@@ -29,6 +30,7 @@ class Outcome:
 class RunContext:
     cell: str
     cfg: Dict
+    family: ModuleType            # the configuration's (hbench/family.py)
     traffic: Dict
     seed: int
     seconds: float
@@ -47,7 +49,8 @@ class RunContext:
         return weight_seed(self.seed)
 
     def build(self, keep_weights: bool = False) -> Program:
-        return build_program(self.cfg, self.seed, self.device, self.clock, keep_weights)
+        return build_program(self.family, self.cfg, self.seed, self.device, self.clock,
+                             keep_weights)
 
     def sync(self) -> None:
         if self.device.type == "cuda":

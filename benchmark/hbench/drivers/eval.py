@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import check, inputs, reference, work
+from ..family import bank_rows, image_features
 from .base import Outcome, RunContext, free_program
 
 
@@ -86,14 +87,15 @@ def run(rc: RunContext) -> Outcome:
     out.e2e["eval_imgs_per_s"] = n * B / (t1 - t0)
     out.spans = {"eval.image_tower_ms": [e[0].elapsed_time(e[1]) for e in events],
                  "eval.head_ms": [e[1].elapsed_time(e[2]) for e in events]}
-    step_flops = B * work.image_flops(cfg) + work.head_flops(cfg, B, classes.num_nodes)
+    step_flops = B * rc.family.image_flops(cfg) + work.head_flops(cfg, B, classes.num_nodes)
     out.work = {"flops": n * step_flops, "window_s": t1 - t0}
     out.notes.append(f"# eval: {n} batches of {B} in {t1 - t0:.4f} s; accumulated "
                      f"num {float(total.num):.0f}")
     if rc.trace:
         nt, *_ = window(n, rc.trace_seconds, True)
-        if cfg["vision"]["patch_size"]:  # K1 runs in the ViT tower
-            out.work["k1_bound_s"] = work.bound_s(work.vit_attention_work(cfg, nt * B))
+        k1 = rc.family.image_attention_work(cfg, nt * B)
+        if k1 is not None:  # K1 runs in the image tower
+            out.work["k1_bound_s"] = work.bound_s(k1)
     out.memory_peak = rc.memory_peak()
     saved = {
         "bank_s": bank_s[: classes.num_nodes].cpu(),
@@ -134,19 +136,19 @@ def judge(rc: RunContext, classes, ring, targets, saved, quant=None) -> Dict[str
     takes the program's place (the control), which reads ``bank_row_err``
     and ``feat_err`` only: its head, the reference's, is exact given its
     features, so ``metric_excess`` would read 0."""
-    cfg, dev, tr = rc.cfg, rc.device, rc.traffic
+    cfg, dev, tr, fam = rc.cfg, rc.device, rc.traffic, rc.family
     reference.set_fp32(dev)
-    sd = reference.draw_weights(cfg, rc.weight_seed, dev)
+    sd = fam.draw_weights(cfg, rc.weight_seed, dev)
     tokens = torch.as_tensor(classes.tokens(cfg), device=dev).long()
     N = classes.num_nodes
     rows = np.sort(inputs.stream(rc.seed, 63).choice(N, size=min(tr["check_rows"], N),
                                                      replace=False))
     rows_t = torch.as_tensor(rows, device=dev)
-    ref_rows = reference.bank_rows(sd, cfg, tokens[rows_t])
+    ref_rows = bank_rows(fam, sd, cfg, tokens[rows_t])
     B, R = tr["batch"], tr["ring_batches"]
     ids = sorted(saved["batches"])
     imgs = torch.as_tensor(np.concatenate([ring[i % R] for i in ids]), device=dev)
-    ref_feats = reference.image_features(sd, cfg, imgs)
+    ref_feats = image_features(fam, sd, cfg, imgs)
     if quant is None:
         order = saved["order"]
         if not np.array_equal(np.sort(order), np.arange(N)):
@@ -158,8 +160,8 @@ def judge(rc: RunContext, classes, ring, targets, saved, quant=None) -> Dict[str
         feats = torch.cat([saved["batches"][i][0] for i in ids]).to(dev)
         prog_rows = bank[rows_t].float()
     else:
-        prog_rows = reference.bank_rows(sd, cfg, tokens[rows_t], quant)
-        feats = reference.image_features(sd, cfg, imgs, quant)
+        prog_rows = bank_rows(fam, sd, cfg, tokens[rows_t], quant)
+        feats = image_features(fam, sd, cfg, imgs, quant)
     out = {"bank_row_err": check.row_err(prog_rows, ref_rows),
            "feat_err": check.frob_err(feats.float(), ref_feats)}
     if quant is None:

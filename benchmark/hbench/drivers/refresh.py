@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import check, inputs, reference, work
+from ..family import bank_rows
 from .base import Outcome, RunContext, free_program
 
 
@@ -72,10 +73,10 @@ def run(rc: RunContext) -> Outcome:
     out = Outcome(attempted=n, failed=0)
     out.e2e["bank_refresh_ms"] = (t1 - t0) / n * 1e3
     lengths = inputs.prompt_lengths(classes.tokens(cfg))
-    out.work = {"flops": n * work.text_flops(cfg, lengths), "window_s": t1 - t0}
+    out.work = {"flops": n * rc.family.text_flops(cfg, lengths), "window_s": t1 - t0}
     if rc.trace:
         nt, *_ = window(n, rc.trace_seconds, True)
-        out.work["k1_bound_s"] = nt * work.bound_s(work.text_attention_work(cfg, lengths))
+        out.work["k1_bound_s"] = nt * work.bound_s(rc.family.text_attention_work(cfg, lengths))
     out.memory_peak = rc.memory_peak()
     out.notes.append(f"# bank-refresh: {n} refreshes in {t1 - t0:.4f} s")
     saved = {"order": np.asarray(tm.depth_order[:N]),
@@ -87,9 +88,9 @@ def run(rc: RunContext) -> Outcome:
 
 
 def judge(rc: RunContext, classes, saved, quant=None) -> Dict[str, float]:
-    cfg, dev = rc.cfg, rc.device
+    cfg, dev, fam = rc.cfg, rc.device, rc.family
     reference.set_fp32(dev)
-    sd = reference.draw_weights(cfg, rc.weight_seed, dev)
+    sd = fam.draw_weights(cfg, rc.weight_seed, dev)
     tokens = torch.as_tensor(classes.tokens(cfg), device=dev).long()
     N = classes.num_nodes
     rows = np.sort(inputs.stream(rc.seed, 53).choice(N, size=min(rc.traffic["check_rows"], N),
@@ -104,11 +105,11 @@ def judge(rc: RunContext, classes, saved, quant=None) -> Dict[str, float]:
     worst = 0.0
     for k, bank_s in saved["banks"].items():
         w = changed_weights(rc, sd, k)
-        ref = reference.bank_rows(w, cfg, tokens[rows_t])
+        ref = bank_rows(fam, w, cfg, tokens[rows_t])
         if quant is None:
             prog = bank_s[torch.as_tensor(pos_of[rows])].to(dev).float()
         else:
-            prog = reference.bank_rows(w, cfg, tokens[rows_t], quant)
+            prog = bank_rows(fam, w, cfg, tokens[rows_t], quant)
         worst = max(worst, check.row_err(prog, ref))
     return {"bank_row_err": worst}
 

@@ -20,6 +20,7 @@ signs; the three steps' losses are read and printed.
 from __future__ import annotations
 
 import time
+from types import ModuleType
 from typing import Dict, List
 
 import numpy as np
@@ -153,7 +154,7 @@ def run(rc: RunContext) -> Outcome:
     out.spans = {"train.host_schedule_ms": window_build}
     lengths = inputs.prompt_lengths(classes.tokens(cfg))
     prompts = [np.unique(sc.compare[sc.compare_valid]) for sc in window_scheds]
-    out.work = {"flops": sum(train_flops(cfg, B, lengths[p]) for p in prompts),
+    out.work = {"flops": sum(train_flops(rc.family, cfg, B, lengths[p]) for p in prompts),
                 "window_s": t1 - t0}
     prompts = [len(p) for p in prompts]
     out.notes.append(f"# train: {n} steps of {B} in {t1 - t0:.4f} s; last loss "
@@ -189,12 +190,12 @@ def sets_of(sched) -> Dict[str, np.ndarray]:
             "label": np.asarray(sched.label), "pair_valid": np.asarray(sched.pair_valid)}
 
 
-def train_flops(cfg: Dict, batch: int, lengths) -> float:
-    """Model operations of one step: the image tower over the batch, the
-    text tower over the step's distinct prompts at their own lengths, and
-    the logits of every image against them; forward and backward, three
-    times the forward (remat's recompute not counted)."""
-    fwd = batch * work.image_flops(cfg) + work.text_flops(cfg, lengths)
+def train_flops(fam: ModuleType, cfg: Dict, batch: int, lengths) -> float:
+    """Model operations of one step by the family's counts: the image tower
+    over the batch, the text tower over the step's distinct prompts at
+    their own lengths, and the logits of every image against them; forward
+    and backward, three times the forward (remat's recompute not counted)."""
+    fwd = batch * fam.image_flops(cfg) + fam.text_flops(cfg, lengths)
     return 3.0 * (fwd + work.head_flops(cfg, batch, len(lengths)))
 
 
@@ -202,7 +203,7 @@ def judge(rc: RunContext, classes, ring, targets, saved, quant=None) -> Dict[str
     """Loss, first gradient and change of the three checked steps against
     the reference's; with ``quant`` the reference in that precision (and its
     own draw of negatives) stands in the program's place."""
-    cfg, dev, tr = rc.cfg, rc.device, rc.traffic
+    cfg, dev, tr, fam = rc.cfg, rc.device, rc.traffic, rc.family
     reference.set_fp32(dev)
     tree = classes.tree
     levels = reference_train.levels_of(tree)
@@ -212,14 +213,14 @@ def judge(rc: RunContext, classes, ring, targets, saved, quant=None) -> Dict[str
     R = tr["ring_batches"]
 
     def follow(q, sets_for):
-        sd = reference.draw_weights(cfg, rc.weight_seed, dev)
+        sd = fam.draw_weights(cfg, rc.weight_seed, dev)
         trainer = reference_train.Trainer(sd, lw0, hyper(rc))
         losses, grads = [], None
         for s in range(CHECKED_STEPS):
             t = int(targets[s])
             imgs = torch.as_tensor(ring[s % R], device=dev)
             losses.append(float(reference_train.om_loss(
-                trainer.params, trainer.lw, cfg, imgs, tokens, tree, t, sets_for(s, t),
+                fam, trainer.params, trainer.lw, cfg, imgs, tokens, tree, t, sets_for(s, t),
                 ratios, q)))
             g = trainer.update()
             if s == 0:

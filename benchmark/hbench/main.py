@@ -64,7 +64,7 @@ def main(argv, t_start: float, t_imported: float) -> int:
     dev = torch.device("cuda", 0)
     with clock.part("cuda_init"):
         torch.zeros(1, device=dev)
-    rc = RunContext(cell=cell.name, cfg=cell.cfg, traffic=cell.traffic,
+    rc = RunContext(cell=cell.name, cfg=cell.cfg, family=cell.family, traffic=cell.traffic,
                     seed=args.seed % 2**63, seconds=args.seconds, trace=bool(args.trace),
                     device=dev, clock=clock)
     driver = importlib.import_module(f"hbench.drivers.{cell.traffic['driver']}")

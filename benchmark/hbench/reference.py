@@ -7,6 +7,14 @@ off), with no kernels, caches or fused steps. It imports nothing of the
 program. The weights are a state dict under OpenAI's names, which the
 benchmark draws (:func:`draw_weights`) and hands to both sides.
 
+The harness reaches these functions through ``benchmark/families/clip.py``,
+the family of every configuration that names none (``hbench/family.py``).
+``tests/test_torch_models.py`` loads this file by its path, on its own,
+and calls :func:`param_spec`, :func:`encode_image` and
+:func:`encode_text` on the configuration layout it reads here: a change to
+any of them has to update that test too, and the file takes no new
+top-level relative import.
+
 ``quant`` replaces the input of every matrix product and convolution by
 its image in a lower precision: the control, the reference put in the
 program's place one precision step below the configuration's bf16
@@ -17,7 +25,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -323,26 +331,6 @@ def encode_image(sd, cfg: Dict, images: torch.Tensor, quant: Quant = None) -> to
 
 def normalize(x: torch.Tensor) -> torch.Tensor:
     return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-
-
-@torch.no_grad()
-def bank_rows(sd, cfg: Dict, tokens: torch.Tensor, quant: Quant = None,
-              chunk: int = 1024) -> torch.Tensor:
-    """Normalised text features of ``tokens`` [N, T], in chunks, at the
-    length of the longest prompt (positions past a prompt's EOT reach no
-    feature under the causal mask)."""
-    t_need = int(tokens.argmax(dim=1).max()) + 1
-    parts: List[torch.Tensor] = []
-    for i in range(0, tokens.shape[0], chunk):
-        parts.append(normalize(encode_text(sd, cfg, tokens[i: i + chunk, :t_need], quant)))
-    return torch.cat(parts)
-
-
-@torch.no_grad()
-def image_features(sd, cfg: Dict, images: torch.Tensor, quant: Quant = None,
-                   chunk: int = 128) -> torch.Tensor:
-    return torch.cat([encode_image(sd, cfg, images[i: i + chunk], quant)
-                      for i in range(0, images.shape[0], chunk)])
 
 
 def set_fp32(device) -> None:

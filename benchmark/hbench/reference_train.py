@@ -4,8 +4,9 @@ The OM step of the HGR-Net paper as the program's configuration states it
 (``out_ratio``, ``in_ratio``, ``num_compare``, the ``topk`` sampling rule
 with ``k = 1``, ``adaptive`` pair weights over a trainable per-depth
 weight, a global-norm clip, AdamW on CLIP and SGD on the per-depth weight),
-written from that description over :mod:`hbench.reference`'s float32
-CLIP. It imports nothing of the program.
+written from that description over the float32 encoders of the
+configuration's family (``hbench/family.py``). It imports nothing of the
+program.
 
 For a target class t with root path P (root child .. t), the outer loop
 takes the last ``ceil(out_ratio |P|)`` nodes of P, deepest first; for each
@@ -24,6 +25,7 @@ its own (:func:`draw_compare_sets`).
 from __future__ import annotations
 
 import math
+from types import ModuleType
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -102,18 +104,19 @@ def adaptive(w: torch.Tensor, pos: int, n: int) -> torch.Tensor:
     return torch.softmax(torch.pow(100.0, w[:n]), dim=0)[pos]
 
 
-def om_loss(sd: Dict[str, torch.Tensor], lw: torch.Tensor, cfg: Dict, images: torch.Tensor,
-            tokens: torch.Tensor, tree: Tree, target: int, sets: List[List[int]],
-            ratios, quant=None, chunk: int = 64) -> torch.Tensor:
-    """The OM loss of one batch of one target, with its gradient taken by
-    autograd; the image tower runs in chunks of ``chunk`` rows, each
-    backpropagated at once, so the returned value is detached."""
+def om_loss(fam: ModuleType, sd: Dict[str, torch.Tensor], lw: torch.Tensor, cfg: Dict,
+            images: torch.Tensor, tokens: torch.Tensor, tree: Tree, target: int,
+            sets: List[List[int]], ratios, quant=None, chunk: int = 64) -> torch.Tensor:
+    """The OM loss of one batch of one target through the encoders of the
+    configuration's family ``fam`` (``hbench/family.py``), with its
+    gradient taken by autograd; the image tower runs in chunks of ``chunk``
+    rows, each backpropagated at once, so the returned value is detached."""
     ps = pairs(tree, target, *ratios)
     uniq = sorted({c for s in sets for c in s})
     pos = {c: i for i, c in enumerate(uniq)}
     toks = tokens[torch.as_tensor(uniq, device=tokens.device)]
     toks = toks[:, : int(toks.argmax(dim=1).max()) + 1]
-    text = reference.normalize(reference.encode_text(sd, cfg, toks, quant))      # [U, D]
+    text = reference.normalize(fam.encode_text(sd, cfg, toks, quant))            # [U, D]
     idx = [torch.as_tensor([pos[c] for c in s], device=text.device) for s in sets]
     w = torch.stack([adaptive(lw, p[3], p[4]) * adaptive(lw, p[5], p[6]) for p in ps])
     scale = sd["logit_scale"].exp()
@@ -123,7 +126,7 @@ def om_loss(sd: Dict[str, torch.Tensor], lw: torch.Tensor, cfg: Dict, images: to
     w_d = w.detach().requires_grad_(True)
     scale_d = scale.detach().requires_grad_(True)
     for i in range(0, B, chunk):
-        img = reference.normalize(reference.encode_image(sd, cfg, images[i: i + chunk], quant))
+        img = reference.normalize(fam.encode_image(sd, cfg, images[i: i + chunk], quant))
         part = 0.0
         for p, ix in enumerate(idx):
             logits = scale_d * img @ text_d[ix].T                                  # [b, C]

@@ -8,8 +8,19 @@ CPU test; ``benchmark/limits/<cell>.json`` holds the limit of each number
 the cell checks (``limits``), the limits at the CPU test's sizes
 (``tiny_limits``) and the faults the cell can have (``faults``, of
 ``hbench/faults.py``); a per-layer metric's reader is
-``benchmark/metrics/<metric>.py``. Adding a cell, a configuration, a mix
-of a known driver or a metric adds files and entries and edits none.
+``benchmark/metrics/<metric>.py``; a configuration's reference family is
+``benchmark/families/<family>.py``, which its ``"family"`` key names
+(``clip`` where it names none; ``hbench/family.py`` lists what a family
+defines), found by its path under the checkout the cell was loaded
+from, so that a copy of ``benchmark/`` finds its own. Adding a cell, a configuration, a mix of a known driver, a
+metric or a family adds files and entries and edits none: a family is
+added by its file and a configuration that names it. Two things stay in
+the harness's code, whatever the family: the keys of a configuration that
+the drivers read (``arch``, ``dtype``, ``embed_dim``, ``classes``,
+``vision.image_resolution``, ``text.context_length`` and
+``text.vocab_size``), and ``drivers/refresh.py``'s name for the text
+tower's positional embedding, ``positional_embedding``, OpenAI's key: a
+family whose state dict names it otherwise cannot run the refresh mix.
 """
 
 from __future__ import annotations
@@ -18,7 +29,10 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
+
+from . import family
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 
@@ -28,6 +42,7 @@ class Cell:
     name: str
     chips: int
     cfg: Dict
+    family: ModuleType             # the configuration's family (hbench/family.py)
     traffic: Dict
     limits: Dict[str, float]
     tiny_limits: Dict[str, float]  # at the CPU test's sizes
@@ -57,7 +72,8 @@ def load_cell(name: str, root: Path) -> Cell:
     with open(bench_dir / "limits" / f"{name}.json") as f:
         limits = json.load(f)
     return Cell(
-        name=name, chips=int(w["chips"]), cfg=cfg, traffic=traffic, limits=limits["limits"],
+        name=name, chips=int(w["chips"]), cfg=cfg, family=family.load(cfg, bench_dir),
+        traffic=traffic, limits=limits["limits"],
         tiny_limits=limits["tiny_limits"], faults=limits["faults"],
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in bench["per_layer"] if _applies(m, name)],

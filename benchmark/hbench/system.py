@@ -6,7 +6,7 @@ The program is ``hgr_tpu_torch``, driven through its public entry points:
 its unseen classes and the run's seed (the program draws its synthetic
 prompts from it, which the reference draws again from its own copy of the
 convention), and ``TreeModel.load_state_dict`` the weights the benchmark
-drew on the card.
+drew on the card by the configuration's family (``hbench/family.py``).
 """
 
 from __future__ import annotations
@@ -15,11 +15,12 @@ import contextlib
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Dict, List, Tuple
 
 import numpy as np
 
-from . import inputs, reference
+from . import inputs
 
 
 class SetupClock:
@@ -81,9 +82,10 @@ class Program:
     weights: Dict = field(default_factory=dict)  # the drawn state dict, where a cell keeps it
 
 
-def build_program(cfg: Dict, seed: int, device, clock: SetupClock,
+def build_program(family: ModuleType, cfg: Dict, seed: int, device, clock: SetupClock,
                   keep_weights: bool = False) -> Program:
-    """The TreeModel of ``cfg`` over the benchmark's classes and weights."""
+    """The TreeModel of ``cfg`` over the benchmark's classes and the weights
+    ``family`` draws."""
     with clock.part("imports"):
         from hgr_tpu_torch.config import Config
         from hgr_tpu_torch.hierarchy import Hierarchy
@@ -98,6 +100,6 @@ def build_program(cfg: Dict, seed: int, device, clock: SetupClock,
                              pad_multiple=cfg["classes"]["pad_multiple"], seed=seed,
                              device=device)
     with clock.part("weights"):
-        sd = reference.draw_weights(cfg, weight_seed(seed), device)
+        sd = family.draw_weights(cfg, weight_seed(seed), device)
         tm.load_state_dict(sd)
     return Program(tm, classes, sd if keep_weights else {})

@@ -34,9 +34,9 @@ def main() -> None:
     driver = importlib.import_module(f"hbench.drivers.{cell.traffic['driver']}")
     for seed in (int(s) for s in a.seeds.split(",")):
         t = time.perf_counter()
-        rc = RunContext(cell=cell.name, cfg=cell.cfg, traffic=cell.traffic, seed=seed % 2**63,
-                        seconds=a.seconds, trace=False, device=torch.device("cuda", 0),
-                        clock=SetupClock(t))
+        rc = RunContext(cell=cell.name, cfg=cell.cfg, family=cell.family, traffic=cell.traffic,
+                        seed=seed % 2**63, seconds=a.seconds, trace=False,
+                        device=torch.device("cuda", 0), clock=SetupClock(t))
         nums = driver.control(rc, reference.fp8)
         print(json.dumps({"workload": a.workload, "seed": seed, "control": "fp8",
                           "over": check.over(nums, cell.limits),

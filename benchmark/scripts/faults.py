@@ -31,9 +31,9 @@ def main() -> None:
     driver = importlib.import_module(f"hbench.drivers.{cell.traffic['driver']}")
     faults.plant(setattr, a.fault)
     for seed in (int(s) for s in a.seeds.split(",")):
-        rc = RunContext(cell=cell.name, cfg=cell.cfg, traffic=cell.traffic, seed=seed % 2**63,
-                        seconds=a.seconds, trace=False, device=torch.device("cuda", 0),
-                        clock=SetupClock(time.perf_counter()))
+        rc = RunContext(cell=cell.name, cfg=cell.cfg, family=cell.family, traffic=cell.traffic,
+                        seed=seed % 2**63, seconds=a.seconds, trace=False,
+                        device=torch.device("cuda", 0), clock=SetupClock(time.perf_counter()))
         out = driver.run(rc)
         print(json.dumps({"workload": a.workload, "fault": a.fault, "seed": seed,
                           "not_correct": not check.within(out.checks, cell.limits),

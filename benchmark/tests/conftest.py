@@ -38,27 +38,10 @@ def load_json(rel):
         return json.load(f)
 
 
-def tiny_config(cfg):
-    """A configuration of the benchmark cut to the program's TEST sizes, for
-    CPU runs (the published widths run only on the card)."""
-    cfg = json.loads(json.dumps(cfg))
-    cfg["classes"] = {"level_sizes": [3, 12, 30, 40, 20], "hierarchy_seed": 0, "cross_edges": 0,
-                      "n_seen": 70, "pad_multiple": 128}
-    cfg["text"] = {"context_length": 77, "vocab_size": 512, "width": 32, "heads": 2, "layers": 2}
-    cfg["embed_dim"] = 64
-    if cfg["vision"]["patch_size"]:
-        cfg["arch"] = "TEST-ViT"
-        cfg["vision"] = {"layers": 2, "width": 64, "patch_size": 8, "image_resolution": 32}
-    else:
-        cfg["arch"] = "TEST-RN"
-        cfg["vision"] = {"layers": [1, 1, 1, 1], "width": 16, "patch_size": 0,
-                         "image_resolution": 32}
-    return cfg
-
-
 def tiny_run_context(cell_name, seed=2**31 + 7, seconds=0.5, root=ROOT):
     """(driver module, limits at tiny sizes, RunContext) of a cell at tiny
-    sizes on the CPU: its configuration cut to TEST sizes, its traffic
+    sizes on the CPU: its configuration cut to TEST sizes by its family's
+    ``tiny`` (the published widths run only on the card), its traffic
     under the mix's ``tiny`` sizes, its limits file's ``tiny_limits``
     (each above the sound program's largest reading at those sizes and
     below the control's and the faults' smallest, from CPU runs on three
@@ -76,6 +59,6 @@ def tiny_run_context(cell_name, seed=2**31 + 7, seconds=0.5, root=ROOT):
     assert set(cell.tiny_limits) == set(cell.limits)
     driver = importlib.import_module(f"hbench.drivers.{traffic['driver']}")
     return driver, cell.tiny_limits, RunContext(
-        cell=cell_name, cfg=tiny_config(cell.cfg), traffic=traffic, seed=seed,
-        seconds=seconds, trace=False, device=torch.device("cpu"),
+        cell=cell_name, cfg=cell.family.tiny(cell.cfg), family=cell.family, traffic=traffic,
+        seed=seed, seconds=seconds, trace=False, device=torch.device("cpu"),
         clock=SetupClock(time.perf_counter()))

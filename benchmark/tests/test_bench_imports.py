@@ -1,6 +1,6 @@
 """What the benchmark may import: no JAX or JAX package anywhere, none of
 the program's retired benchmarks, and nothing of the program in the
-reference's modules. Module names are compared whole, by their part before
+reference's modules or in a family's file (``families/*.py``). Module names are compared whole, by their part before
 the first dot, so ``hgr_tpu_torch`` passes where ``hgr_tpu`` fails."""
 
 import ast
@@ -15,7 +15,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "hgr_tpu", "bench", "chi
              "tools"}
 # the yardstick: reference, comparison, inputs, work counts, trace reduction
 REFERENCE_SIDE = ["reference.py", "reference_train.py", "check.py", "inputs.py", "work.py",
-                  "trace.py", "spec.py"]
+                  "trace.py", "spec.py", "family.py"]
+FAMILIES = sorted((Path(BENCH) / "families").glob("*.py"))
 
 
 def _imports(path: Path):
@@ -25,6 +26,7 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def _sources():
@@ -42,6 +44,17 @@ def test_no_forbidden_import(path):
 def test_reference_imports_nothing_of_the_program(name):
     mods = list(_imports(Path(BENCH) / "hbench" / name))
     assert not [m for m in mods if m.split(".")[0] == "hgr_tpu_torch"], mods
+
+
+@pytest.mark.parametrize("path", FAMILIES, ids=lambda p: p.name)
+def test_family_imports_nothing_of_the_program(path):
+    """A family imports nothing of the program, and of the harness only the
+    reference's side, through which nothing of the program comes either."""
+    mods = list(_imports(path))
+    assert not [m for m in mods if m.split(".")[0] == "hgr_tpu_torch"], mods
+    side = {"hbench"} | {"hbench." + n[: -len(".py")] for n in REFERENCE_SIDE}
+    harness = [m for m in mods if m.split(".")[0] == "hbench"]
+    assert all(".".join(m.split(".")[:2]) in side for m in harness), harness
 
 
 def test_forbidden_modules_compares_whole_names():
@@ -65,13 +78,15 @@ def test_a_run_loads_no_jax():
     code = (
         "import sys; sys.path[:0] = [%r, %r]\n"
         "from hbench import main, spec, reference, check, work, trace\n"
-        "from hbench import reference_train, faults\n"
+        "from hbench import reference_train, faults, family\n"
+        "from pathlib import Path\n"
+        "for p in Path(%r).glob('*.py'): family.load({'family': p.stem}, Path(%r))\n"
         "from hbench.drivers import base, eval, refresh, train\n"
         "import hgr_tpu_torch.train, hgr_tpu_torch.data\n"
         "import hgr_tpu_torch.tree_model, hgr_tpu_torch.config\n"
         "import hgr_tpu_torch.hierarchy, hgr_tpu_torch.models.clip, hgr_tpu_torch.eval.metrics\n"
         "bad = main.forbidden_modules()\n"
-        "assert not bad, bad\n" % (BENCH, ROOT)
+        "assert not bad, bad\n" % (BENCH, ROOT, str(Path(BENCH) / "families"), BENCH)
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=300, env={"PATH": "/usr/bin:/bin", "USE_FLAX": "0"})

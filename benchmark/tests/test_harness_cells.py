@@ -93,6 +93,53 @@ def test_added_cell_found_without_edits(tmp_path):
     _run_tiny("vitb16.eval-b64", root=tmp_path)
 
 
+NEGATE_IMAGE = """
+
+_encode_image = encode_image
+
+
+def encode_image(sd, cfg, images, quant=None):
+    return -_encode_image(sd, cfg, images, quant)
+"""
+
+
+@pytest.mark.parametrize("negated", [False, True], ids=["as_clip", "image_negated"])
+def test_added_family_found_without_edits(tmp_path, negated):
+    """A family added in a copy, by a family file, a configuration that
+    names it, a cell entry and a limits file only, loads and runs at TEST
+    sizes with the harness as it is, and is correct. The same family with
+    its ``encode_image`` scaled by -1 comes out not correct: the check
+    reads the configuration's family, not CLIP's by default."""
+    from hbench import check, spec
+
+    bench_dir = tmp_path / "benchmark"
+    shutil.copytree(Path(ROOT) / "benchmark", bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    source = (bench_dir / "families" / "clip.py").read_text()
+    (bench_dir / "families" / "twin.py").write_text(source + (NEGATE_IMAGE if negated else ""))
+    cfg = dict(load_json("benchmark/configs/clip-vit-b16.json"), name="twin-b16",
+               family="twin")
+    (bench_dir / "configs" / "twin-b16.json").write_text(json.dumps(cfg))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "twin-b16", "source": "test",
+                             "file": "benchmark/configs/twin-b16.json", "reduced": [],
+                             "why": "test"})
+    bench["workloads"].append({"name": "twin.eval-b512", "config": "twin-b16",
+                               "traffic": "eval-b512", "chips": 1, "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    limits = load_json("benchmark/limits/vitb16.eval-b512.json")
+    (bench_dir / "limits" / "twin.eval-b512.json").write_text(json.dumps(limits))
+    cell = spec.load_cell("twin.eval-b512", tmp_path)
+    assert Path(cell.family.__file__) == bench_dir / "families" / "twin.py"
+    if not negated:
+        _run_tiny("twin.eval-b512", root=tmp_path)
+        return
+    driver, limits, rc = tiny_run_context("twin.eval-b512", root=tmp_path)
+    out = driver.run(rc)
+    assert out.checks["feat_err"] > limits["feat_err"], out.checks
+    assert not check.within(out.checks, limits)
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_runs_tiny_on_cpu(name):
     """Each cell of BENCHMARK.json at TEST sizes on the CPU (``_run_tiny``)."""
@@ -147,8 +194,9 @@ def test_control_fails_on_chip(cuda_device, name):
 
     cell = spec.load_cell(name, Path(ROOT))
     for seed in (2**31 + 101, 2**31 + 102, 2**31 + 103):
-        rc = RunContext(cell=name, cfg=cell.cfg, traffic=cell.traffic, seed=seed, seconds=10.0,
-                        trace=False, device=cuda_device, clock=SetupClock(time.perf_counter()))
+        rc = RunContext(cell=name, cfg=cell.cfg, family=cell.family, traffic=cell.traffic,
+                        seed=seed, seconds=10.0, trace=False, device=cuda_device,
+                        clock=SetupClock(time.perf_counter()))
         nums = _driver(cell).control(rc, reference.fp8)
         assert np.isfinite(list(nums.values())).all()
         assert check.over(nums, cell.limits), (seed, nums)
