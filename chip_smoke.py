@@ -77,7 +77,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 8b. ViT-L/14 at full width through the user's route: an OpenAI-layout fp16
    ``.pt`` with seeded weights (428 M parameters), ``load_torch`` and
    ``run_test`` over one batch of 512 (432 + 24 launches at T = 257); one
-   batch's features through K1 held to the plain attention's;
+   batch's features through K1 held to the plain attention's; then
+   EVA02-CLIP-L/14 with seeded weights the same way (``phase_eva02_l14``:
+   432 + 24 K1 launches, K3 900 + 73 and no QuickGELU), its features
+   through K1 and through K3 held to the plain attention's and blocks';
 9. real inputs at RN50 width: the hierarchy as ``graph_edges_cls.json``,
    the splits, 18,278 word-like names, a BPE merges table learned from the
    prompts, an OpenAI-layout ``.pt`` and a decode cache of 2,048 seeded
@@ -285,16 +288,17 @@ def log(*a):
 def plain_attention():
     """The towers' fused blocks with the plain ``attention_scores`` in K1's
     place, to hold K1's path to the plain attention: the one name
-    ``models/transformer.py`` calls there, substituted. Asserts that K1 did
-    not launch inside; K1's count outside goes on as if the block were not
-    there."""
-    from hgr_tpu_torch.models import transformer
+    ``models/transformer.py`` and ``models/eva_vit.py`` call there,
+    substituted. Asserts that K1 did not launch inside; K1's count outside
+    goes on as if the block were not there."""
+    from hgr_tpu_torch.models import eva_vit, transformer
     from hgr_tpu_torch.models.layers import attention_scores
     from hgr_tpu_torch.ops.attention import attention
 
     saved, attention.launches = attention.launches, 0
     try:
-        with mock.patch.object(transformer, "attention", attention_scores):
+        with mock.patch.object(transformer, "attention", attention_scores), \
+                mock.patch.object(eva_vit, "attention", attention_scores):
             yield
         assert attention.launches == 0, f"K1 ran {attention.launches} times on the plain path"
     finally:
@@ -957,14 +961,19 @@ def phase_bn_act(dev, cases=BN_ACT_CASES, encodes=BN_ACT_ENCODES):
 def ln_act_launches(clip_cfg, bank_chunks=0, image_batches=0):
     """K3's launches, (add_layer_norm, quick_gelu): a text encode (a bank
     chunk) 2L + 1 and L (block 0's ln_1, each block's ln_2, the next
-    block's ln_1 with the MLP's add, ln_final with the last one), a ViT
-    image encode 2L + 2 and L (ln_pre and ln_post beside the blocks'; the
-    last block's add is a plain one); nothing for a ResNet's image tower."""
+    block's ln_1 with the MLP's add, ln_final with the last one; no
+    QuickGELU in a GELU text tower), a ViT image encode 2L + 2 and L (ln_pre
+    and ln_post beside the blocks'; the last block's add is a plain one),
+    an EVA-02 image encode 3L + 1 and 0 (block 0's norm1, each block's
+    inner_attn_ln and norm2, the next block's norm1 with the MLP's add, the
+    final norm with the last one, on the class token's rows); nothing for a
+    ResNet's image tower."""
     lt = clip_cfg.transformer_layers
+    gelu_t = 0 if clip_cfg.text_activation == "gelu" else lt
     li = clip_cfg.vision_layers[0] if clip_cfg.is_vit else 0
     images = image_batches if clip_cfg.is_vit else 0
-    return (bank_chunks * (2 * lt + 1) + images * (2 * li + 2),
-            bank_chunks * lt + images * li)
+    ln_i, gelu_i = (3 * li + 1, 0) if clip_cfg.vision_block == "eva02" else (2 * li + 2, li)
+    return (bank_chunks * (2 * lt + 1) + images * ln_i, bank_chunks * gelu_t + images * gelu_i)
 
 
 def bank_chunks(tm) -> int:
@@ -991,6 +1000,7 @@ class SeededLN:
     def __init__(self, D, g, dev):
         self.weight = torch.randn(D, generator=g, device=dev) * 0.5 + 1.0
         self.bias = torch.randn(D, generator=g, device=dev) * 0.5
+        self.eps = 1e-5
 
 
 # phase 3c's add_layer_norm cases, (rows, width, with a delta, rows picked
@@ -1181,7 +1191,7 @@ def phase_ln_features(tm, batch=512):
     each path. Returns K3's launches of the encode."""
     from unittest import mock
 
-    from hgr_tpu_torch.models import transformer
+    from hgr_tpu_torch.models import eva_vit, transformer
     from hgr_tpu_torch.models.clip import encode_image
     from hgr_tpu_torch.models.layers import l2_normalize
     from hgr_tpu_torch.ops import ln_act
@@ -1200,7 +1210,8 @@ def phase_ln_features(tm, batch=512):
         launches = k3_launches()
         k3_ms = cuda_ms(encode, reps=3, warmup=1)
         with mock.patch.object(ln_act, "autograd_records", lambda *a: True), \
-                mock.patch.object(transformer, "attention_scores", attention):
+                mock.patch.object(transformer, "attention_scores", attention), \
+                mock.patch.object(eva_vit, "attention_scores", attention):
             k3_reset()
             want = l2_normalize(encode()).float()
             assert k3_launches() == (0, 0), k3_launches()
@@ -2438,6 +2449,24 @@ def phase_vit_l14(dev, work):
     phase_vit_features(tm)
     k3_encode = phase_ln_features(tm)
     os.remove(path)
+    return launches, k3, k3_encode
+
+
+def phase_eva02_l14(dev):
+    """EVA02-CLIP-L/14 eval at full width (the zoo's ``"EVA02-CLIP-L/14"``:
+    EVA-02's block, vision 1024 wide, 24 layers of 16 heads, 2-D rotary,
+    SwiGLU 2,730 wide, patch 14, so T = 257; the GELU text tower 768 wide,
+    12 heads) with seeded weights, through ``run_test`` over one batch of 512
+    against the 18,432-row bank (K1: 432 launches in the bank, 24 in the
+    image tower; K3 as ``ln_act_launches`` counts, no QuickGELU), then one
+    batch's features through K1 held to the plain attention's, and through
+    K3 to the plain blocks'. Returns K1's and K3's launches in ``run_test``
+    and K3's in that one encode."""
+    tm, _, _, launches, _, k3 = phase_slice(dev, arch="EVA02-CLIP-L/14", batches=1,
+                                            image_launches=24,
+                                            folder="runs/chip_smoke_eva02_l14")
+    phase_vit_features(tm)
+    k3_encode = phase_ln_features(tm)
     return launches, k3, k3_encode
 
 
@@ -3715,6 +3744,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="hgr_real_inputs_")
     try:
         vit_l14, k3_vit_l14, k3_vit_l14_encode = phase_vit_l14(dev, work)
+        eva02, k3_eva02, k3_eva02_encode = phase_eva02_l14(dev)
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
         mesh_eval = phase_mesh_eval(real)
@@ -3746,6 +3776,7 @@ def main() -> int:
                "vit_b16_eval": vit16_launches,
                "rn50x4_eval": rn50x4,
                "vit_l14_eval": vit_l14,
+               "eva02_l14_eval": eva02,
                "rn50_real_inputs_eval": real_launches,
                "rn50_orbax_load_eval": orbax_load[0],
                "rn50_files_num_proc_workers_eval": decoded["launches"],
@@ -3781,6 +3812,7 @@ def main() -> int:
     k3_by_path = {"rn50_eval": k3_rn50, "vit_b32_eval": k3_vit, "vit_b16_eval": k3_vit16,
                   "vit_b16_encode": k3_vit16_encode, "rn50x4_eval": k3_rn50x4,
                   "vit_l14_eval": k3_vit_l14, "vit_l14_encode": k3_vit_l14_encode,
+                  "eva02_l14_eval": k3_eva02, "eva02_l14_encode": k3_eva02_encode,
                   "rn50_train_steps": train["k3_train_steps"],
                   "rn50_test_after_train": train["k3_test"],
                   "rn50_accum_train_steps": accum[3],

@@ -6,10 +6,11 @@ one to one. ``clip_init`` draws every parameter from an explicit
 ``torch.Generator`` with the distributions of the JAX ``*_init`` functions
 (not their bits). ``encode_image`` takes NHWC images, raw uint8 or float,
 as the JAX function does. The image tower is the modified ResNet or, when
-``vision_patch_size > 0``, the ViT; only the ViT takes ``remat``, as in
-JAX. Neither encode takes an attention: each tower picks the hand kernels
-or their plain twins itself, from whether autograd would record
-(``ops.ln_act.autograd_records``).
+``vision_patch_size > 0``, the ViT: OpenAI's block, or EVA-02's where
+``vision_block`` is ``"eva02"`` (``models/eva_vit.py``, EVA02-CLIP); only a
+ViT takes ``remat``, as in JAX. Neither encode takes an attention: each
+tower picks the hand kernels or their plain twins itself, from whether
+autograd would record (``ops.ln_act.autograd_records``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from ..utils.profiling import annotate
+from .eva_vit import EVAVisionTransformer
 from .layers import Embedding, LayerNorm, _param, l2_normalize, normal_
 from .resnet import ModifiedResNet
 from .text_encoder import text_encoder_apply
@@ -43,6 +45,10 @@ class CLIPConfig:
     transformer_width: int = 512
     transformer_heads: int = 8
     transformer_layers: int = 12
+    # beyond OpenAI's CLIP (EVA02-CLIP); the defaults are OpenAI's
+    vision_block: str = "openai"     # the ViT's block: "openai" or "eva02"
+    vision_mlp_width: int = 0        # eva02: the SwiGLU's width
+    text_activation: str = "quick_gelu"  # the text MLP's: "quick_gelu" or "gelu"
 
     @property
     def is_vit(self) -> bool:
@@ -101,6 +107,23 @@ CONFIGS: Dict[str, CLIPConfig] = {
         transformer_width=768,
         transformer_heads=12,
     ),
+    # EVA02-CLIP-L/14 (Sun et al. 2023, arXiv:2303.15389; github.com/baaivision/EVA,
+    # EVA-CLIP/rei/eva_clip/model_configs/EVA02-CLIP-L-14.json): EVA-02's block
+    # (head_width 64, mlp_ratio 2.6667 -> 2,730, rope with pt_hw_seq_len 16 and
+    # intp_freq, naiveswiglu, subln, LayerNorm eps 1e-6: the constants of
+    # models/eva_vit.py), T = 257; OpenAI's text
+    # block with nn.GELU (the json has no quick_gelu key)
+    "EVA02-CLIP-L/14": CLIPConfig(
+        embed_dim=768,
+        vision_layers=(24,),
+        vision_width=1024,
+        vision_patch_size=14,
+        transformer_width=768,
+        transformer_heads=12,
+        vision_block="eva02",
+        vision_mlp_width=2730,
+        text_activation="gelu",
+    ),
     "TEST-RN": CLIPConfig(
         embed_dim=64,
         image_resolution=32,
@@ -124,6 +147,22 @@ CONFIGS: Dict[str, CLIPConfig] = {
         transformer_heads=2,
         transformer_layers=2,
     ),
+    "TEST-EVA": CLIPConfig(
+        embed_dim=64,
+        image_resolution=32,
+        vision_layers=(2,),
+        vision_width=128,
+        vision_patch_size=8,
+        context_length=77,
+        vocab_size=512,
+        transformer_width=32,
+        transformer_heads=2,
+        transformer_layers=2,
+        vision_block="eva02",
+        vision_mlp_width=341,  # int(128 * 2.6667), EVA's rounding; grid 4, so
+                               # the rotary's positions are scaled by 16 / 4
+        text_activation="gelu",
+    ),
 }
 
 
@@ -138,7 +177,16 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.is_vit:
+        if cfg.vision_block not in ("openai", "eva02") or cfg.text_activation not in (
+                "quick_gelu", "gelu"):
+            raise ValueError(f"unknown vision_block {cfg.vision_block!r} or text_activation "
+                             f"{cfg.text_activation!r}")
+        if cfg.vision_block == "eva02":
+            self.visual = EVAVisionTransformer(
+                cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
+                cfg.vision_layers[0], cfg.vision_heads, cfg.vision_mlp_width, cfg.embed_dim,
+            )
+        elif cfg.is_vit:
             self.visual = VisionTransformer(
                 cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
                 cfg.vision_layers[0], cfg.vision_heads, cfg.embed_dim,
@@ -149,7 +197,8 @@ class CLIP(nn.Module):
                 cfg.image_resolution, cfg.vision_width,
             )
         w = cfg.transformer_width
-        self.transformer = Transformer(w, cfg.transformer_layers, cfg.transformer_heads)
+        self.transformer = Transformer(w, cfg.transformer_layers, cfg.transformer_heads,
+                                       exact_gelu=cfg.text_activation == "gelu")
         self.token_embedding = Embedding(cfg.vocab_size, w)
         self.positional_embedding = _param(cfg.context_length, w)
         self.ln_final = LayerNorm(w)

@@ -5,10 +5,18 @@ package's parameter pytree.
 plain ``state_dict``, as ``hgr_tpu/models/convert.py:208-223`` and the
 reference's ``clip/clip.py:112-130`` do) and ``sniff_config`` reads its
 architecture from the shapes (``hgr_tpu/models/convert.py:103-157``, the
-reference's ``build_model``, ``clip/model.py:395-432``). The port's modules
-carry OpenAI's key names, so loading is near-identity: tensors become fp32,
-and BatchNorm's ``num_batches_tracked`` counters and the archive's
-``input_resolution``/``context_length``/``vocab_size`` entries are dropped.
+reference's ``build_model``, ``clip/model.py:395-432``), and EVA-CLIP's
+``CustomCLIP`` layout too (``visual.patch_embed``, ``visual.blocks``:
+``models/eva_vit.py``; the text tower under ``text.``, which the loader
+takes off, since the port keeps OpenAI's top-level names).
+The port's modules carry the checkpoints' key names, so loading is
+near-identity: tensors become fp32, and BatchNorm's ``num_batches_tracked``
+counters, the archive's ``input_resolution``/``context_length``/
+``vocab_size`` entries, and what the port derives, EVA's rotary tables
+(``visual.rope.freqs_cos`` and ``_sin``, repeated in each block's
+``attn.rope``) and a text tower's causal ``attn_mask``, are dropped. No
+published EVA-CLIP checkpoint has been read: the layout is held to
+EVA-CLIP's key names in the tests.
 
 ``from_jax_params`` is the inverse of ``hgr_tpu/models/convert.py:
 convert_state_dict`` (``:160-205``): it takes the JAX pytree with numpy (or
@@ -141,9 +149,21 @@ def from_jax_resnet(params: Mapping[str, Any]) -> StateDict:
 _NOT_WEIGHTS = ("input_resolution", "context_length", "vocab_size")
 
 
+def _is_weight(key: str) -> bool:
+    return (key not in _NOT_WEIGHTS and not key.endswith(("num_batches_tracked", "attn_mask"))
+            and not (key.startswith("visual.") and key.endswith((".freqs_cos", ".freqs_sin"))))
+
+
+def _openai_name(key: str) -> str:
+    """EVA-CLIP's ``CustomCLIP`` name -> the port's: its text tower's
+    ``text.`` taken off (``text.transformer.resblocks.0.ln_1.weight`` ->
+    ``transformer.resblocks.0.ln_1.weight``); other names unchanged."""
+    return key[len("text."):] if key.startswith("text.") else key
+
+
 def sniff_config(sd: Mapping[str, Any]) -> CLIPConfig:
-    """The architecture of an OpenAI-layout ``state_dict``, from its shapes
-    (``hgr_tpu/models/convert.py:103-157``)."""
+    """The architecture of an OpenAI- or EVA02-CLIP-layout ``state_dict``,
+    from its shapes (``hgr_tpu/models/convert.py:103-157``)."""
     is_vit = "visual.proj" in sd
     embed_dim = sd["text_projection"].shape[1]
     context_length = sd["positional_embedding"].shape[0]
@@ -155,6 +175,15 @@ def sniff_config(sd: Mapping[str, Any]) -> CLIPConfig:
                 transformer_width=transformer_width,
                 transformer_heads=transformer_width // 64,
                 transformer_layers=transformer_layers)
+    if "visual.patch_embed.proj.weight" in sd:
+        conv = sd["visual.patch_embed.proj.weight"]
+        grid = round((sd["visual.pos_embed"].shape[1] - 1) ** 0.5)
+        vision_layers = len({k.split(".")[2] for k in sd if k.startswith("visual.blocks.")})
+        return CLIPConfig(image_resolution=conv.shape[-1] * grid, vision_layers=(vision_layers,),
+                          vision_width=conv.shape[0], vision_patch_size=conv.shape[-1],
+                          vision_block="eva02",
+                          vision_mlp_width=sd["visual.blocks.0.mlp.w1.weight"].shape[0],
+                          text_activation="gelu", **text)  # EVA-CLIP's json: no quick_gelu
     if is_vit:
         vision_layers = len(
             {k.split(".")[3] for k in sd if k.startswith("visual.transformer.resblocks")})
@@ -171,7 +200,8 @@ def sniff_config(sd: Mapping[str, Any]) -> CLIPConfig:
 
 
 def load_torch_checkpoint(path: str) -> Tuple[CLIPConfig, StateDict]:
-    """An OpenAI CLIP ``.pt`` -> (config, fp32 ``state_dict`` on the CPU that
+    """An OpenAI CLIP ``.pt``, or an EVA02-CLIP ``state_dict`` in
+    ``CustomCLIP``'s layout, -> (config, fp32 ``state_dict`` on the CPU that
     ``CLIP(config).load_state_dict`` takes). A TorchScript archive is tried
     first, then a pickled ``state_dict`` (or a module holding one)."""
     try:
@@ -179,6 +209,5 @@ def load_torch_checkpoint(path: str) -> Tuple[CLIPConfig, StateDict]:
     except Exception:
         obj = torch.load(path, map_location="cpu", weights_only=False)
         sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
-    sd = {k: v.detach().float() for k, v in sd.items()
-          if k not in _NOT_WEIGHTS and not k.endswith("num_batches_tracked")}
+    sd = {_openai_name(k): v.detach().float() for k, v in sd.items() if _is_weight(k)}
     return sniff_config(sd), sd

@@ -51,9 +51,11 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(
-    x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0
+    x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
+    b: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
+    return F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
+                    stride=stride, padding=padding)
 
 
 def batch_norm(
@@ -242,41 +244,51 @@ def normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
 
 
 class Linear(nn.Module):
-    def __init__(self, d_in: int, d_out: int):
+    """``bias=False`` holds no bias (EVA-02's q, k and v projections)."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True):
         super().__init__()
         self.weight = _param(d_out, d_in)
-        self.bias = _param(d_out)
+        self.bias = _param(d_out) if bias else None
 
     def init(self, g: torch.Generator, std: Optional[float] = None) -> None:
         """Normal weights (std ``d_in ** -0.5`` by default), zero bias
         (``linear_init``)."""
         normal_(self.weight, self.weight.shape[1] ** -0.5 if std is None else std, g)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int):
+    """``eps`` is a constant of the architecture (1e-5 in OpenAI's CLIP,
+    1e-6 in EVA-02's image tower), not a weight: ``ops.ln_act`` reads it."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.weight = _param(dim)
         self.bias = _param(dim)
+        self.eps = eps
 
     def init(self) -> None:
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class Conv2d(nn.Module):
-    """Bias-free conv (CLIP's ResNet convs have none)."""
+    """Bias-free by default (CLIP's convs have none); ``bias=True`` adds one
+    (EVA-02's patch embedding), zero after ``init``."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+                 bias: bool = False):
         super().__init__()
         self.weight = _param(cout, cin, k, k)
+        self.bias = _param(cout) if bias else None
         self.stride, self.padding = stride, padding
 
     def init(self, g: torch.Generator) -> None:
@@ -287,9 +299,11 @@ class Conv2d(nn.Module):
             self.weight.copy_(
                 (torch.rand(self.weight.shape, generator=g) * 2 - 1) * bound
             )
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.weight, self.stride, self.padding)
+        return conv2d(x, self.weight, self.stride, self.padding, self.bias)
 
 
 class BatchNorm2d(nn.Module):

@@ -4,6 +4,9 @@
 Behaviour of the reference's ``Transformer`` / ``ResidualAttentionBlock``
 (``clip/model.py:153-199``): QuickGELU MLP, packed-QKV attention, optional
 causal mask, and the reference's init scheme (``clip/model.py:302-315``).
+With ``exact_gelu`` the MLP's activation is ``torch.nn.functional.gelu``
+instead: EVA-CLIP's text tower (``eva_clip/model.py`` builds ``nn.GELU``
+where the model config has no ``quick_gelu`` key).
 The JAX package stacks the blocks for ``lax.scan``; here they are a
 ``ModuleList`` run by a Python loop, under the OpenAI names
 ``resblocks.{i}.attn.in_proj_weight`` and so on.
@@ -31,6 +34,7 @@ import contextlib
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -61,11 +65,15 @@ class ResidualAttentionBlock(nn.Module):
     """With ``span``, the attention half records the span ``{span}.attn``
     and the MLP half ``{span}.mlp`` (``utils/profiling.annotate``); in
     ``forward_fused`` the attention half's span holds its add (in ``ln_2``)
-    and the MLP half's span holds the MLP's add (in the next LayerNorm)."""
+    and the MLP half's span holds the MLP's add (in the next LayerNorm).
+    ``exact_gelu`` takes GELU for QuickGELU (K3's ``quick_gelu`` in the
+    fused order)."""
 
-    def __init__(self, width: int, heads: int, span: Optional[str] = None):
+    def __init__(self, width: int, heads: int, span: Optional[str] = None,
+                 exact_gelu: bool = False):
         super().__init__()
         self.heads = heads
+        self.exact_gelu = exact_gelu
         self.spans = (f"{span}.attn", f"{span}.mlp") if span else None
         self.attn = MultiheadAttention(width)
         self.ln_1 = LayerNorm(width)
@@ -96,7 +104,8 @@ class ResidualAttentionBlock(nn.Module):
                 a.out_proj.weight, a.out_proj.bias, self.heads, mask, attention_scores,
             )
         with self._span(1):
-            return x + self.mlp.c_proj(quick_gelu(self.mlp.c_fc(self.ln_2(x))))
+            h = self.mlp.c_fc(self.ln_2(x))
+            return x + self.mlp.c_proj(F.gelu(h) if self.exact_gelu else quick_gelu(h))
 
     def forward_fused(
         self,
@@ -117,7 +126,8 @@ class ResidualAttentionBlock(nn.Module):
                        a.out_proj.bias, self.heads, mask, attention)
             x, h = add_ln(x, attn, self.ln_2)
         with self._span(1):
-            out = self.mlp.c_proj(ln_act.quick_gelu(self.mlp.c_fc(h)))
+            h = self.mlp.c_fc(h)
+            out = self.mlp.c_proj(F.gelu(h) if self.exact_gelu else ln_act.quick_gelu(h))
             if ln_next is None:
                 return x + out, None
             return add_ln(x, out, ln_next)
@@ -125,12 +135,13 @@ class ResidualAttentionBlock(nn.Module):
 
 class Transformer(nn.Module):
     """``span`` names the spans each block records (``ResidualAttentionBlock``);
-    None records none."""
+    None records none. ``exact_gelu``: every block's MLP takes GELU."""
 
-    def __init__(self, width: int, layers: int, heads: int, span: Optional[str] = None):
+    def __init__(self, width: int, layers: int, heads: int, span: Optional[str] = None,
+                 exact_gelu: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, span) for _ in range(layers)
+            ResidualAttentionBlock(width, heads, span, exact_gelu) for _ in range(layers)
         )
 
     def init(self, g: torch.Generator) -> None:

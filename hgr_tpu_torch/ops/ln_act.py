@@ -17,7 +17,9 @@ no fallback from CUDA to the plain version. The kernel library is compiled
 at the first CUDA call (``ops/build.py``), never at import.
 
 The kernels take bf16 or fp32 activations whose width is a multiple of 8
-from 8 to 1024 (every CLIP tower's), fp32 LayerNorm parameters, and rows
+from 8 to 1024 (every CLIP tower's, and EVA-02's 1,024-wide norms; its
+2,730-wide ``ffn_ln`` stays a PyTorch op), fp32 LayerNorm parameters with
+the LayerNorm's own ``eps`` (``models.layers.LayerNorm.eps``), and rows
 given with a row stride; they return contiguous tensors with no
 ``grad_fn``: a CUDA call that autograd would record raises.
 """
@@ -32,7 +34,6 @@ import torch
 from ..models.layers import layer_norm, quick_gelu as quick_gelu_twin
 from . import build
 
-EPS = 1e-5  # models.layers.layer_norm's
 MAX_WIDTH = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_int, _c_ll, _c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
@@ -164,7 +165,7 @@ def add_layer_norm_cuda(
         s = torch.empty_like(y)
         d_ptr, s_ptr = delta.data_ptr(), s.data_ptr()
     _launch(lib.hgr_add_layer_norm, x.get_device(), _DTYPES[x.dtype], x.data_ptr(), d_ptr,
-            s_ptr, y.data_ptr(), w.data_ptr(), b.data_ptr(), EPS, y.numel() // width, width,
+            s_ptr, y.data_ptr(), w.data_ptr(), b.data_ptr(), ln.eps, y.numel() // width, width,
             x_ld, d_ld)
     add_layer_norm.launches += 1
     return s, y
@@ -174,13 +175,13 @@ def add_layer_norm(
     x: torch.Tensor, delta: Optional[torch.Tensor], ln
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``s = x + delta`` (``x`` without ``delta``) and ``y = LayerNorm(s)``
-    with ``ln``'s weight and bias, over the last dim: the plain twin on the
-    CPU, the kernel on CUDA."""
+    with ``ln``'s weight, bias and eps, over the last dim: the plain twin on
+    the CPU, the kernel on CUDA."""
     if x.is_cuda:
         return add_layer_norm_cuda(x, delta, ln)
     if x.is_cpu:
         s = x if delta is None else x + delta
-        return s, layer_norm(s, ln.weight, ln.bias)
+        return s, layer_norm(s, ln.weight, ln.bias, ln.eps)
     raise ValueError(f"add_layer_norm runs on cpu or cuda tensors, not {x.device}")
 
 

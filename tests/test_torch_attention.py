@@ -392,7 +392,10 @@ def _check_bn_act_backward_twin(route):
 
 
 class _LN:
-    """LayerNorm parameters as ``models.layers.LayerNorm`` holds them."""
+    """LayerNorm parameters as ``models.layers.LayerNorm`` holds them (its
+    ``eps`` a class attribute, so that ``vars`` gives weight and bias)."""
+
+    eps = 1e-5
 
     def __init__(self, D, dtype=torch.float32, seed=0):
         g = torch.Generator().manual_seed(seed)

@@ -193,12 +193,14 @@ def test_vit_image_tower_matches_jax(monkeypatch):
     """ViT features in fp32 against JAX, rtol 1e-4 + atol 1e-5, from raw
     uint8 and float images, for each configuration of ``VIT``; the ViT
     blocks' spans (``_check_vit_block_spans``); and the transformer's fused
-    blocks against its plain ones (``_check_fused_blocks``)."""
+    blocks against its plain ones (``_check_fused_blocks``), EVA-02's too
+    (``_check_eva_fused_blocks``)."""
     for name in VIT:
         _vit_matches_jax(*VIT[name])
     _check_vit_block_spans()
     for dtype in (torch.float32, torch.bfloat16):
         _check_fused_blocks(monkeypatch, dtype)
+        _check_eva_fused_blocks(monkeypatch, dtype)
 
 
 def _vit_matches_jax(arch, over):
@@ -213,41 +215,53 @@ def _vit_matches_jax(arch, over):
 
 def test_remat_gradients_match():
     """Checkpointed blocks (``remat=True``) give the gradients of the plain
-    forward, in both transformer towers."""
-    _, cfg, m = _pair("TEST-ViT")
-    x = torch.from_numpy(_images(cfg, False))
-    toks = torch.from_numpy(_tokens(cfg, [4, 9], 16)).long()
-    grads = []
-    for remat in (False, True):
+    forward, in both transformer towers, for TEST-ViT and then TEST-EVA
+    (EVA-02's image tower, the GELU text tower)."""
+    eva = tclip.clip_init(tclip.get_config("TEST-EVA"), torch.Generator().manual_seed(0)).eval()
+    for m, deep in ((_pair("TEST-ViT")[2], "visual.transformer.resblocks.1.mlp.c_fc.weight"),
+                    (eva, "visual.blocks.1.mlp.w1.weight")):
+        cfg = m.cfg
+        x = torch.from_numpy(_images(cfg, False))
+        toks = torch.from_numpy(_tokens(cfg, [4, 9], 16)).long()
+        grads = []
+        for remat in (False, True):
+            for p in m.parameters():
+                p.requires_grad_(True)
+                p.grad = None
+            loss = (tclip.encode_image(m, x, dtype=torch.float32, remat=remat).square().sum()
+                    + tclip.encode_text(m, toks, dtype=torch.float32, remat=remat).square().sum())
+            loss.backward()
+            grads.append({n: p.grad.clone() for n, p in m.named_parameters()
+                          if p.grad is not None})
         for p in m.parameters():
-            p.requires_grad_(True)
-            p.grad = None
-        loss = (tclip.encode_image(m, x, dtype=torch.float32, remat=remat).square().sum()
-                + tclip.encode_text(m, toks, dtype=torch.float32, remat=remat).square().sum())
-        loss.backward()
-        grads.append({n: p.grad.clone() for n, p in m.named_parameters() if p.grad is not None})
-    for p in m.parameters():
-        p.requires_grad_(False)
-    assert set(grads[0]) == set(grads[1]) and "logit_scale" not in grads[0]
-    assert grads[0]["visual.transformer.resblocks.1.mlp.c_fc.weight"].abs().sum() > 0
-    for n, g in grads[0].items():
-        torch.testing.assert_close(grads[1][n], g, rtol=1e-6, atol=1e-7, msg=n)
+            p.requires_grad_(False)
+        assert set(grads[0]) == set(grads[1]) and "logit_scale" not in grads[0]
+        assert grads[0][deep].abs().sum() > 0
+        for n, g in grads[0].items():
+            torch.testing.assert_close(grads[1][n], g, rtol=1e-6, atol=1e-7, msg=n)
 
 
 def test_rn_configs_match_jax():
     """Every configuration and official digest of JAX's zoo is the port's,
-    field by field; the port's one name beyond it is ViT-L/14, which has no
-    digest, and is held to OpenAI's geometry (``_check_vit_l14_geometry``)
-    and, cut small, to the plain reference (``_check_vit_l14_cut_reference``).
+    field by field, the port's fields beyond JAX's at their OpenAI defaults
+    (``PORT_DEFAULTS``); the port's names beyond it are ViT-L/14, which has
+    no digest, and is held to OpenAI's geometry (``_check_vit_l14_geometry``)
+    and, cut small, to the plain reference (``_check_vit_l14_cut_reference``),
+    and EVA02-CLIP-L/14 with its TEST-EVA, held to EVA-CLIP's json and
+    layout (``_check_eva02_geometry``), read from a file under EVA-CLIP's
+    ``CustomCLIP`` names (``_check_eva02_checkpoint_layout``) and, cut
+    small, held to the eva02 family's reference
+    (``_check_eva02_cut_reference``).
     RN50x4's image tower at 64 px (its attention pool: 2,560 channels, 40
     heads of 64, 5 tokens) matches JAX's with weights drawn by the port and
     carried to JAX by its ``convert_state_dict`` and back by
     ``from_jax_params``."""
-    assert set(tclip.CONFIGS) - set(jclip.CONFIGS) == {"ViT-L/14"}
+    assert set(tclip.CONFIGS) - set(jclip.CONFIGS) == {"ViT-L/14", "EVA02-CLIP-L/14", "TEST-EVA"}
     for name, cfg in jclip.CONFIGS.items():
-        assert dataclasses.asdict(tclip.get_config(name)) == dataclasses.asdict(cfg), name
+        assert dataclasses.asdict(tclip.get_config(name)) == \
+            dict(dataclasses.asdict(cfg), **PORT_DEFAULTS), name
     assert zoo.OFFICIAL_SHA256 == jzoo.OFFICIAL_SHA256
-    assert zoo.available_models() == jzoo.available_models() + ["ViT-L/14"]
+    assert zoo.available_models() == jzoo.available_models() + ["ViT-L/14", "EVA02-CLIP-L/14"]
     cfg = dataclasses.replace(tclip.get_config("RN50x4"), image_resolution=64)
     assert cfg.vision_heads == 40 and cfg.transformer_heads == 10
     m = tclip.clip_init(cfg, torch.Generator().manual_seed(0)).eval()
@@ -259,7 +273,14 @@ def test_rn_configs_match_jax():
     _check_image((params, jcfg, m), uint8=True)
     _check_vit_l14_geometry()
     _check_vit_l14_cut_reference()
+    _check_eva02_geometry()
+    _check_eva02_checkpoint_layout()
+    _check_eva02_cut_reference()
 
+
+# the port's CLIPConfig fields beyond the JAX package's (for EVA02-CLIP), at
+# the values that keep OpenAI's architectures
+PORT_DEFAULTS = dict(vision_block="openai", vision_mlp_width=0, text_activation="quick_gelu")
 
 # OpenAI's ViT-L/14 (clip/clip.py's "ViT-L/14" entry of _MODELS, whose
 # checkpoint clip/model.py build_model reads these from): vision 1024 wide,
@@ -268,7 +289,20 @@ def test_rn_configs_match_jax():
 OPENAI_VIT_L14 = dict(embed_dim=768, image_resolution=224, vision_layers=(24,),
                       vision_width=1024, vision_patch_size=14, context_length=77,
                       vocab_size=49408, transformer_width=768, transformer_heads=12,
-                      transformer_layers=12)
+                      transformer_layers=12, **PORT_DEFAULTS)
+
+# EVA-CLIP's EVA02-CLIP-L-14.json (github.com/baaivision/EVA,
+# EVA-CLIP/rei/eva_clip/model_configs/), the fields that set its geometry; it
+# has no quick_gelu key, so eva_clip/model.py builds nn.GELU in the text
+# tower, and the vision tower's norm_layer is LayerNorm with eps 1e-6
+EVA02_CLIP_L14_JSON = {
+    "embed_dim": 768,
+    "vision_cfg": {"image_size": 224, "layers": 24, "width": 1024, "head_width": 64,
+                   "mlp_ratio": 2.6667, "patch_size": 14, "rope": True, "pt_hw_seq_len": 16,
+                   "intp_freq": True, "naiveswiglu": True, "subln": True},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 768, "heads": 12,
+                 "layers": 12},
+}
 
 
 def _plain_reference():
@@ -355,6 +389,216 @@ def _check_vit_l14_cut_reference():
     with torch.inference_mode():
         want_i = ref.encode_image(sd, rcfg, images)
         want_t = ref.encode_text(sd, rcfg, tokens)
+        got = {dt: (tclip.encode_image(m, images, dtype=dt).float(),
+                    tclip.encode_text(m, tokens, dtype=dt).float())
+               for dt in (torch.float32, torch.bfloat16)}
+    assert want_i.shape == (4, 96) and want_t.shape == (4, 96)
+    for want, f32, bf16 in ((want_i, *[got[d][0] for d in got]),
+                            (want_t, *[got[d][1] for d in got])):
+        scale = float(want.abs().max())
+        assert float((f32 - want).abs().max()) <= REL * scale
+        assert float((bf16 - want).abs().max()) > 100 * REL * scale
+
+
+def _eva02_family():
+    """``benchmark/families/eva02.py``, the eva02 family's plain float32
+    EVA02-CLIP, loaded by its path with ``benchmark/`` on ``sys.path`` for
+    its ``hbench`` imports: it imports nothing of the port."""
+    import importlib.util
+    import os
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "hbench_family_eva02", os.path.join(bench, "families", "eva02.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(bench)
+    return mod
+
+
+def _eva_reference_cfg(cfg):
+    """A port EVA ``CLIPConfig`` as the eva02 family's configuration."""
+    from hgr_tpu_torch.models.eva_vit import LN_EPS, ROPE_REF_GRID
+
+    d = _reference_cfg(cfg)
+    d["vision"].update(head_width=cfg.vision_width // cfg.vision_heads,
+                       mlp_width=cfg.vision_mlp_width, rope_grid=ROPE_REF_GRID, ln_eps=LN_EPS)
+    return d
+
+
+def _check_eva02_geometry():
+    """``get_config("EVA02-CLIP-L/14")`` is EVA-CLIP's json field by field
+    (``EVA02_CLIP_L14_JSON``); the port's ``CLIP`` of it, on the meta
+    device, has the names and shapes the eva02 family draws
+    (``param_spec``), 427,755,457 parameters (vision 304,105,152: per block
+    4 W² + 3 W 2,730 + 10 W + 4 x 2,730 = 12,602,024, 24 of them, the patch
+    conv 602,112 + 1,024, class token and positions 264,192, ``norm`` and
+    ``head`` 789,248; text 123,650,305), whose layout
+    ``sniff_config`` reads back as the config; and the port's rotary tables
+    are the family's, at grids 16 and 4, with the class token's row at cos 1
+    and sin 0 and ``rotate_half``'s sign in the sine."""
+    from hgr_tpu_torch.models.convert import sniff_config
+    from hgr_tpu_torch.models.eva_vit import LN_EPS, ROPE_REF_GRID, rope_tables
+
+    fam = _eva02_family()
+    cfg = tclip.get_config("EVA02-CLIP-L/14")
+    j = EVA02_CLIP_L14_JSON
+    v, t = j["vision_cfg"], j["text_cfg"]
+    assert (cfg.embed_dim, cfg.image_resolution, cfg.vision_layers, cfg.vision_width,
+            cfg.vision_width // cfg.vision_heads, cfg.vision_mlp_width, cfg.vision_patch_size,
+            ROPE_REF_GRID) == \
+        (j["embed_dim"], v["image_size"], (v["layers"],), v["width"], v["head_width"],
+         int(v["width"] * v["mlp_ratio"]), v["patch_size"], v["pt_hw_seq_len"])
+    assert v["rope"] and v["intp_freq"] and v["naiveswiglu"] and v["subln"]
+    assert cfg.vision_block == "eva02" and LN_EPS == 1e-6
+    assert (cfg.context_length, cfg.vocab_size, cfg.transformer_width, cfg.transformer_heads,
+            cfg.transformer_layers) == \
+        (t["context_length"], t["vocab_size"], t["width"], t["heads"], t["layers"])
+    assert "quick_gelu" not in j and cfg.text_activation == "gelu"
+    spec = fam.param_spec(_eva_reference_cfg(cfg))
+    sd = {k: torch.empty(shape, device="meta") for k, (shape, _, _) in spec.items()}
+    with torch.device("meta"):
+        port = tclip.CLIP(cfg).state_dict()
+    assert {k: tuple(v.shape) for k, v in port.items()} == \
+        {k: tuple(v.shape) for k, v in sd.items()}
+    assert sum(v.numel() for v in sd.values()) == 427_755_457
+    assert sum(v.numel() for k, v in sd.items() if k.startswith("visual.")) == \
+        24 * 12_602_024 + 602_112 + 1_024 + 264_192 + 789_248 == 304_105_152
+    assert sniff_config(sd) == cfg
+    for grid, patch in ((16, 14), (4, 8)):
+        rcfg = _eva_reference_cfg(cfg)
+        rcfg["vision"].update(image_resolution=grid * patch, patch_size=patch)
+        want_cos, want_sin = fam.rope_tables(rcfg, "cpu")
+        cos, sin = rope_tables(grid, 16, 64)
+        assert cos.dtype == sin.dtype == torch.float32 and cos.shape == (grid * grid + 1, 64)
+        assert torch.equal(cos[0], torch.ones(64)) and torch.equal(sin[0], torch.zeros(64))
+        assert torch.equal(cos[1:], want_cos)
+        assert torch.equal(sin[1:], want_sin * torch.tensor([-1.0, 1.0]).repeat(32))
+
+
+def _eva_clip_state_shapes(cfg):
+    """The names and shapes of the ``state_dict`` of EVA-CLIP's
+    ``CustomCLIP`` (``eva_clip/model.py``) for ``cfg``, written out from its
+    modules, not from the port's: ``EVAVisionTransformer``
+    (``eva_vit_model.py``, with rope, naiveswiglu and subln, whose
+    ``VisionRotaryEmbeddingFast`` buffers ``freqs_cos``/``freqs_sin`` are
+    [grid², head_width] and repeated in each block's ``attn.rope``) under
+    ``visual.``, ``TextTransformer`` (``transformer.py``: OpenAI's block
+    names, and its causal ``attn_mask``) under ``text.``, and
+    ``logit_scale``. Linear weights are [out, in]."""
+    W, H, E, p = cfg.vision_width, cfg.vision_mlp_width, cfg.embed_dim, cfg.vision_patch_size
+    grid = cfg.image_resolution // p
+    w, ctx = cfg.transformer_width, cfg.context_length
+    rope = {"freqs_cos": (grid * grid, 64), "freqs_sin": (grid * grid, 64)}
+    shapes = {"visual.patch_embed.proj.weight": (W, 3, p, p),
+              "visual.patch_embed.proj.bias": (W,), "visual.cls_token": (1, 1, W),
+              "visual.pos_embed": (1, grid * grid + 1, W),
+              **{f"visual.rope.{k}": v for k, v in rope.items()},
+              "visual.norm.weight": (W,), "visual.norm.bias": (W,),
+              "visual.head.weight": (E, W), "visual.head.bias": (E,),
+              "text.token_embedding.weight": (cfg.vocab_size, w),
+              "text.positional_embedding": (ctx, w), "text.attn_mask": (ctx, ctx),
+              "text.ln_final.weight": (w,), "text.ln_final.bias": (w,),
+              "text.text_projection": (w, E), "logit_scale": ()}
+    for i in range(cfg.vision_layers[0]):
+        b = f"visual.blocks.{i}"
+        shapes.update({f"{b}.attn.rope.{k}": v for k, v in rope.items()})
+        shapes.update({f"{b}.{n}": (W,) for n in (
+            "norm1.weight", "norm1.bias", "attn.q_bias", "attn.v_bias",
+            "attn.inner_attn_ln.weight", "attn.inner_attn_ln.bias", "attn.proj.bias",
+            "norm2.weight", "norm2.bias", "mlp.w3.bias")})
+        shapes.update({f"{b}.attn.{n}_proj.weight": (W, W) for n in "qkv"})
+        shapes.update({f"{b}.attn.proj.weight": (W, W), f"{b}.mlp.w3.weight": (W, H)})
+        for n in ("w1", "w2"):
+            shapes.update({f"{b}.mlp.{n}.weight": (H, W), f"{b}.mlp.{n}.bias": (H,)})
+        shapes.update({f"{b}.mlp.ffn_ln.weight": (H,), f"{b}.mlp.ffn_ln.bias": (H,)})
+    for i in range(cfg.transformer_layers):
+        b = f"text.transformer.resblocks.{i}"
+        shapes.update({f"{b}.{n}": (w,) for n in (
+            "ln_1.weight", "ln_1.bias", "attn.out_proj.bias", "ln_2.weight", "ln_2.bias",
+            "mlp.c_proj.bias")})
+        shapes.update({f"{b}.attn.in_proj_weight": (3 * w, w), f"{b}.attn.in_proj_bias": (3 * w,),
+                       f"{b}.attn.out_proj.weight": (w, w), f"{b}.mlp.c_fc.weight": (4 * w, w),
+                       f"{b}.mlp.c_fc.bias": (4 * w,), f"{b}.mlp.c_proj.weight": (w, 4 * w)})
+    return shapes
+
+
+def _check_eva02_checkpoint_layout():
+    """A seeded ``state_dict`` under EVA-CLIP's ``CustomCLIP`` names
+    (``_eva_clip_state_shapes``), saved as a ``.pt``, is read by
+    ``load_torch_checkpoint``: the config it sniffs is the one the file was
+    made for (EVA02-CLIP-L/14's geometry cut small: patch 14 at 56 px, width
+    128, SwiGLU 341, text 128 wide with 2 heads of 64, vocabulary 512), the
+    rotary tables and the causal mask are dropped, the text tower's
+    ``text.`` comes off, and the port's ``CLIP`` takes the rest strictly,
+    each tensor equal to the one saved under its EVA-CLIP name. No published
+    EVA-CLIP checkpoint is read."""
+    import os
+    import tempfile
+
+    from hgr_tpu_torch.models.convert import load_torch_checkpoint
+
+    cfg = dataclasses.replace(
+        tclip.get_config("EVA02-CLIP-L/14"), image_resolution=56, vision_width=128,
+        vision_layers=(2,), vision_mlp_width=341, transformer_width=128, transformer_heads=2,
+        transformer_layers=2, embed_dim=96, vocab_size=512)
+    g = torch.Generator().manual_seed(5)
+    saved = {k: torch.randn(shape, generator=g)
+             for k, shape in _eva_clip_state_shapes(cfg).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "eva02_clip.pt")
+        torch.save(saved, path)
+        got_cfg, sd = load_torch_checkpoint(path)
+    assert got_cfg == cfg
+    m = tclip.CLIP(cfg)
+    m.load_state_dict(sd)
+    dropped = {k for k in saved if k.endswith(("freqs_cos", "freqs_sin", "attn_mask"))}
+    assert len(dropped) == 2 * cfg.vision_layers[0] + 3
+    port = m.state_dict()
+    assert len(port) == len(saved) - len(dropped)
+    for k, v in saved.items():
+        if k not in dropped:
+            assert torch.equal(port[k[len("text."):] if k.startswith("text.") else k], v), k
+
+
+def _check_eva02_cut_reference():
+    """The port's CPU path (plain attention) in float32 against the eva02
+    family's reference at EVA02-CLIP-L/14's geometry cut small: patch 14 at
+    56 px (T = 17, grid 4, so the rotary's positions are scaled by 16 / 4),
+    vision width 128 (2 heads of 64), SwiGLU 341 wide, 2 layers; text width
+    128 with 2 heads, 2 layers; embedding 96. The weights are the family's
+    draw, loaded strictly into the port's ``CLIP``: every bias and
+    LayerNorm scale and shift off its zero or one.
+
+    Tolerance: that of ``_check_vit_l14_cut_reference``, the largest
+    absolute difference within 1e-5 of the largest absolute reference
+    feature (``REL``): both sides are float32 and differ only in summation
+    order, in how the uint8 pixels are normalised, and in the rotary's
+    arithmetic (the port's signed-sine pair swap against EVA's
+    ``rotate_half`` and class-token ``cat``); measured on three seeds:
+    7.2e-7 to 1.0e-6 of the largest image feature, 0 for the text features.
+    bf16 in the port's place reads 8.3e-3 to 1.5e-2, and has to miss by a
+    hundred times at least."""
+    fam = _eva02_family()
+    cfg = dataclasses.replace(
+        tclip.get_config("EVA02-CLIP-L/14"), image_resolution=56, vision_width=128,
+        vision_layers=(2,), vision_mlp_width=341, transformer_width=128, transformer_heads=2,
+        transformer_layers=2, embed_dim=96)
+    rcfg = _eva_reference_cfg(cfg)
+    sd = fam.draw_weights(rcfg, 23, "cpu")
+    m = tclip.CLIP(cfg)
+    m.load_state_dict(sd)
+    m.eval()
+    images = torch.from_numpy(_images(cfg, True, seed=3, batch=4))
+    tokens = torch.from_numpy(_tokens(cfg, [3, 9, 20, 5], 32)).long()
+    with torch.inference_mode():
+        want_i = fam.encode_image(sd, rcfg, images)
+        want_t = fam.encode_text(sd, rcfg, tokens)
         got = {dt: (tclip.encode_image(m, images, dtype=dt).float(),
                     tclip.encode_text(m, tokens, dtype=dt).float())
                for dt in (torch.float32, torch.bfloat16)}
@@ -468,3 +712,70 @@ def _check_fused_blocks(monkeypatch, dtype):
                 needs.requires_grad_(False)
                 needs.grad = None
             assert calls == {"add_layer_norm": n_ln, "quick_gelu": n_gelu}, (tower, calls)
+
+
+def _check_eva_fused_blocks(monkeypatch, dtype):
+    """TEST-EVA without autograd: the EVA-02 blocks run fused, K3's wrapper
+    taking ``norm1``, ``inner_attn_ln``, ``norm2`` and the last ``norm`` (on
+    the class token's rows), 3L + 1 calls an image encode, each residual
+    add in the LayerNorm after it, K1's ``attention`` the attention, no
+    QuickGELU; the GELU text tower 2L + 1 and no QuickGELU either. On the
+    CPU the wrappers are the plain twins, so the features equal the plain
+    blocks' (``autograd_records`` True) bit for bit; with a parameter deep
+    in the tower or the images requiring a gradient the plain blocks run,
+    K3 is not called, and the gradient reaches it. Traced, each block
+    records ``vit.attn`` holding ``eva.rope``, then ``vit.mlp`` holding
+    ``eva.glu``."""
+    from hgr_tpu_torch.ops import ln_act
+    from hgr_tpu_torch.utils.profiling import clear_spans, recorded_spans
+
+    m = tclip.clip_init(tclip.get_config("TEST-EVA"), torch.Generator().manual_seed(0)).eval()
+    cfg = m.cfg
+    calls = {"add_layer_norm": 0, "quick_gelu": 0}
+    for name in calls:
+        def counted(*a, _f=getattr(ln_act, name), _n=name):
+            calls[_n] += 1
+            return _f(*a)
+        monkeypatch.setattr(ln_act, name, counted)
+    images = torch.from_numpy(_images(cfg, False))
+    toks = torch.from_numpy(_tokens(cfg, [4, 9], 16)).long()
+    Li, Lt = cfg.vision_layers[0], cfg.transformer_layers
+    towers = {  # the encode, K3's add_layer_norm calls, the deep parameter, the input
+        "image": (lambda: tclip.encode_image(m, images, dtype=dtype), 3 * Li + 1,
+                  m.visual.blocks[-1].mlp.w1.weight, images),
+        "text": (lambda: tclip.encode_text(m, toks, dtype=dtype), 2 * Lt + 1,
+                 m.transformer.resblocks[-1].mlp.c_fc.weight, None),
+    }
+    for tower, (encode, n_ln, deep, given) in towers.items():
+        calls.update(add_layer_norm=0, quick_gelu=0)
+        with torch.inference_mode():
+            fused = encode()
+        assert calls == {"add_layer_norm": n_ln, "quick_gelu": 0}, (tower, calls)
+        with monkeypatch.context() as mp:
+            mp.setattr(ln_act, "autograd_records", lambda *a: True)
+            with torch.inference_mode():
+                plain = encode()
+        assert torch.equal(fused, plain), tower
+        for needs in (deep, given):
+            if needs is None:
+                continue
+            needs.requires_grad_(True)
+            try:
+                got = encode()
+                assert got.requires_grad and torch.equal(got.detach(), fused), tower
+                got.float().square().sum().backward()
+                assert needs.grad is not None and needs.grad.abs().sum() > 0, tower
+            finally:
+                needs.requires_grad_(False)
+                needs.grad = None
+        assert calls == {"add_layer_norm": n_ln, "quick_gelu": 0}, (tower, calls)
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.inference_mode():
+            tclip.encode_image(m, images, dtype=dtype)
+    spans = recorded_spans()
+    clear_spans()
+    names = [s.name for s in spans if s.name.startswith(("vit.", "eva."))]
+    assert names == ["vit.attn", "eva.rope", "vit.mlp", "eva.glu"] * Li
+    assert all(spans[s.parent].name == {"eva.rope": "vit.attn", "eva.glu": "vit.mlp"}[s.name]
+               for s in spans if s.name.startswith("eva."))

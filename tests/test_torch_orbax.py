@@ -104,7 +104,8 @@ def _weights(arch, seed=0, cfg=None):
     ``clip_init`` taken into the JAX layout by JAX's ``convert_state_dict``)."""
     cfg = cfg or tclip.get_config(arch)
     sd = tclip.clip_init(cfg, torch.Generator().manual_seed(seed)).state_dict()
-    jcfg = jclip.CLIPConfig(**dataclasses.asdict(cfg))
+    jcfg = jclip.CLIPConfig(**{f.name: getattr(cfg, f.name)
+                               for f in dataclasses.fields(jclip.CLIPConfig)})
     return j_convert_state_dict({k: v.numpy() for k, v in sd.items()}, jcfg), sd
 
 

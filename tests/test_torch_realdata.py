@@ -125,7 +125,10 @@ def _load_torch_matches_jax(tmp_path, arch, monkeypatch):
         path = str(tmp_path / name)
         cfg, sd = convert.load_torch_checkpoint(path)
         want_cfg, _ = jconvert.load_torch_checkpoint(path)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(want_cfg) == dataclasses.asdict(jcfg)
+        port = dataclasses.asdict(cfg)  # JAX's fields, then the port's beyond them at their defaults
+        assert {k: port.pop(k) for k in dataclasses.asdict(jcfg)} == \
+            dataclasses.asdict(want_cfg) == dataclasses.asdict(jcfg)
+        assert port == {k: getattr(tclip.CLIPConfig(), k) for k in port}
         assert not any("num_batches_tracked" in k for k in sd)
         tm = TreeModel.build(Config(arch=arch, dtype="float32"), hier, device="cpu")
         tm.load_torch(path)
@@ -151,8 +154,9 @@ def _load_torch_matches_jax(tmp_path, arch, monkeypatch):
         monkeypatch.setitem(zoo.OFFICIAL_SHA256, "RN50", digest)
         monkeypatch.setitem(jzoo.OFFICIAL_SHA256, "RN50", digest)
         assert zoo.verify_checkpoint(path, "RN50") is jzoo.verify_checkpoint(path, "RN50") is True
-    # the whole JAX zoo is ported; the port's one further name, ViT-L/14, has no digest
-    assert zoo.available_models() == jzoo.available_models() + ["ViT-L/14"]
+    # the whole JAX zoo is ported; the port's further names, ViT-L/14 and
+    # EVA02-CLIP-L/14, have no digest
+    assert zoo.available_models() == jzoo.available_models() + ["ViT-L/14", "EVA02-CLIP-L/14"]
     assert zoo.OFFICIAL_SHA256 == jzoo.OFFICIAL_SHA256
     rcfg, model = zoo.load(arch, seed=1, device="cpu")
     assert rcfg == tclip.get_config(arch) and not model.training

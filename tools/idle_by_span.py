@@ -169,8 +169,8 @@ def main(argv=None) -> int:
     cell = spec.load_cell(args.workload, root)
     dev = torch.device("cuda", 0)
     torch.zeros(1, device=dev)
-    rc = RunContext(cell=cell.name, cfg=cell.cfg, traffic=cell.traffic, seed=args.seed % 2**63,
-                    seconds=args.seconds, trace=True, device=dev,
+    rc = RunContext(cell=cell.name, cfg=cell.cfg, family=cell.family, traffic=cell.traffic,
+                    seed=args.seed % 2**63, seconds=args.seconds, trace=True, device=dev,
                     clock=SetupClock(time.perf_counter()))
     driver = importlib.import_module(f"hbench.drivers.{cell.traffic['driver']}")
     res = collect(rc, driver, reduce_events)
