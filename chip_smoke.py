@@ -52,8 +52,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    wrapper's host time a call. Every later phase that counts K1 on a bank
    build or a ViT image batch counts K3 beside it where this script asserts
    its count (``ln_act_launches``: 2L + 1 add_layer_norm and L quick_gelu
-   a text encode, 2L + 2 and L a ViT image encode; 0 inside OM, CoOp and
-   flat train steps, whose towers run under autograd); ViT-B/16's and
+   a text encode, 2L + 2 and L a ViT image encode, 3L + 1 and 0 an EVA-02
+   image encode with L glu_layer_norm, the gate, which is 0 on every other
+   path; 0 inside OM, CoOp and flat train steps, whose towers run under
+   autograd); ViT-B/16's and
    ViT-L/14's features through K3 are held to the plain blocks'
    (``phase_ln_features``);
 4. the ancestor chains of the smoke's hierarchy, held to the JAX package's
@@ -79,8 +81,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``run_test`` over one batch of 512 (432 + 24 launches at T = 257); one
    batch's features through K1 held to the plain attention's; then
    EVA02-CLIP-L/14 with seeded weights the same way (``phase_eva02_l14``:
-   432 + 24 K1 launches, K3 900 + 73 and no QuickGELU), its features
-   through K1 and through K3 held to the plain attention's and blocks';
+   432 + 24 K1 launches, K3 900 + 73 and no QuickGELU, K3's SwiGLU gate 24),
+   its features through K1 and through K3 held to the plain attention's and
+   blocks', an encode under autograd launching no K3; before it K3's gate
+   against its twin (``GLU_CASES``: bf16 within one ulp of max(|y|, |b|),
+   fp32 within ``TOL``, the pad columns +0.0; ``GLU_MAIN`` timed against its
+   bytes at 3.35 TB/s beside the twin);
 9. real inputs at RN50 width: the hierarchy as ``graph_edges_cls.json``,
    the splits, 18,278 word-like names, a BPE merges table learned from the
    prompts, an OpenAI-layout ``.pt`` and a decode cache of 2,048 seeded
@@ -959,21 +965,24 @@ def phase_bn_act(dev, cases=BN_ACT_CASES, encodes=BN_ACT_ENCODES):
 
 
 def ln_act_launches(clip_cfg, bank_chunks=0, image_batches=0):
-    """K3's launches, (add_layer_norm, quick_gelu): a text encode (a bank
-    chunk) 2L + 1 and L (block 0's ln_1, each block's ln_2, the next
-    block's ln_1 with the MLP's add, ln_final with the last one; no
-    QuickGELU in a GELU text tower), a ViT image encode 2L + 2 and L (ln_pre
-    and ln_post beside the blocks'; the last block's add is a plain one),
-    an EVA-02 image encode 3L + 1 and 0 (block 0's norm1, each block's
-    inner_attn_ln and norm2, the next block's norm1 with the MLP's add, the
-    final norm with the last one, on the class token's rows); nothing for a
-    ResNet's image tower."""
+    """K3's launches, (add_layer_norm, quick_gelu, glu_layer_norm): a text
+    encode (a bank chunk) 2L + 1, L and 0 (block 0's ln_1, each block's
+    ln_2, the next block's ln_1 with the MLP's add, ln_final with the last
+    one; no QuickGELU in a GELU text tower), a ViT image encode 2L + 2, L
+    and 0 (ln_pre and ln_post beside the blocks'; the last block's add is a
+    plain one), an EVA-02 image encode 3L + 1, 0 and L (block 0's norm1,
+    each block's inner_attn_ln and norm2, the next block's norm1 with the
+    MLP's add, the final norm with the last one, on the class token's rows;
+    each block's SwiGLU gate with its ffn_ln); nothing for a ResNet's image
+    tower."""
     lt = clip_cfg.transformer_layers
     gelu_t = 0 if clip_cfg.text_activation == "gelu" else lt
     li = clip_cfg.vision_layers[0] if clip_cfg.is_vit else 0
     images = image_batches if clip_cfg.is_vit else 0
-    ln_i, gelu_i = (3 * li + 1, 0) if clip_cfg.vision_block == "eva02" else (2 * li + 2, li)
-    return (bank_chunks * (2 * lt + 1) + images * ln_i, bank_chunks * gelu_t + images * gelu_i)
+    ln_i, gelu_i, glu_i = ((3 * li + 1, 0, li) if clip_cfg.vision_block == "eva02"
+                           else (2 * li + 2, li, 0))
+    return (bank_chunks * (2 * lt + 1) + images * ln_i, bank_chunks * gelu_t + images * gelu_i,
+            images * glu_i)
 
 
 def bank_chunks(tm) -> int:
@@ -982,15 +991,15 @@ def bank_chunks(tm) -> int:
 
 
 def k3_launches():
-    from hgr_tpu_torch.ops.ln_act import add_layer_norm, quick_gelu
+    from hgr_tpu_torch.ops.ln_act import add_layer_norm, glu_layer_norm, quick_gelu
 
-    return add_layer_norm.launches, quick_gelu.launches
+    return add_layer_norm.launches, quick_gelu.launches, glu_layer_norm.launches
 
 
 def k3_reset():
-    from hgr_tpu_torch.ops.ln_act import add_layer_norm, quick_gelu
+    from hgr_tpu_torch.ops.ln_act import add_layer_norm, glu_layer_norm, quick_gelu
 
-    add_layer_norm.launches = quick_gelu.launches = 0
+    add_layer_norm.launches = quick_gelu.launches = glu_layer_norm.launches = 0
 
 
 class SeededLN:
@@ -1214,7 +1223,7 @@ def phase_ln_features(tm, batch=512):
                 mock.patch.object(eva_vit, "attention_scores", attention):
             k3_reset()
             want = l2_normalize(encode()).float()
-            assert k3_launches() == (0, 0), k3_launches()
+            assert k3_launches() == (0, 0, 0), k3_launches()
             plain_ms = cuda_ms(encode, reps=3, warmup=1)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     err = float((got - want).abs().max())
@@ -1273,9 +1282,9 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
     bank_ms = (time.time() - t0) * 1e3
     n, k3 = attention.launches, k3_launches()
     cuda = dev.type == "cuda"
-    k3_bank = ln_act_launches(tm.clip_cfg, bank_chunks(tm)) if cuda else (0, 0)
+    k3_bank = ln_act_launches(tm.clip_cfg, bank_chunks(tm)) if cuda else (0, 0, 0)
     log(f"[slice] bank build {bank_ms:.1f} ms on {name}; K1 launches {n}; K3 (add_layer_norm, "
-        f"quick_gelu) {k3} (want {k3_bank})")
+        f"quick_gelu, glu_layer_norm) {k3} (want {k3_bank})")
     assert n == launches_expected, f"K1 launched {n} times in the bank build, not {launches_expected}"
     assert k3 == k3_bank, f"K3 launched {k3} times in the bank build, not {k3_bank}"
     assert bank.shape == (tm.n_pad, tm.clip_cfg.embed_dim), bank.shape
@@ -1288,7 +1297,7 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
     launches, k2, k3 = attention.launches, bn_act.launches, k3_launches()
     log(f"[slice] run_test: {json.dumps(summary)}")
     k2_want = batches * rn_epilogues(tm.clip_cfg) if cuda else 0
-    k3_want = ln_act_launches(tm.clip_cfg, bank_chunks(tm), batches) if cuda else (0, 0)
+    k3_want = ln_act_launches(tm.clip_cfg, bank_chunks(tm), batches) if cuda else (0, 0, 0)
     log(f"[slice] K1 launches during run_test: {launches}; K2 launches: {k2} (want {k2_want}); "
         f"K3: {k3} (want {k3_want})")
     want = launches_expected + image_launches * batches
@@ -1437,7 +1446,8 @@ def run_counting_launches(fn, *args):
     test after training: returns the result and ``{"train_steps": n,
     "test": m}``, K2's forward's as ``k2_train_steps`` and ``k2_test``, its
     backward's as ``k2b_train_steps`` and ``k2b_test``, and K3's
-    (add_layer_norm, quick_gelu) as ``k3_train_steps`` and ``k3_test``. A
+    (add_layer_norm, quick_gelu, glu_layer_norm) as ``k3_train_steps`` and
+    ``k3_test``. A
     spy on the path, not on what it computes."""
     from hgr_tpu_torch import driver
     from hgr_tpu_torch.ops.attention import attention
@@ -1474,9 +1484,10 @@ def check_k3_train(tag, dev, tm, seen, test_batches, frozen_encodes=0):
     context's gradient) and in the test after them (the bank's text encodes
     and the test batches' ViT encodes)."""
     cuda = dev.type == "cuda"
-    steps = ln_act_launches(tm.clip_cfg, image_batches=frozen_encodes) if cuda else (0, 0)
-    test = ln_act_launches(tm.clip_cfg, bank_chunks(tm), test_batches) if cuda else (0, 0)
-    log(f"[{tag}] K3 launches (add_layer_norm, quick_gelu): {seen['k3_train_steps']} inside "
+    steps = ln_act_launches(tm.clip_cfg, image_batches=frozen_encodes) if cuda else (0, 0, 0)
+    test = ln_act_launches(tm.clip_cfg, bank_chunks(tm), test_batches) if cuda else (0, 0, 0)
+    log(f"[{tag}] K3 launches (add_layer_norm, quick_gelu, glu_layer_norm): "
+        f"{seen['k3_train_steps']} inside "
         f"the train steps (want {steps}), {seen['k3_test']} in the test after them (want {test})")
     assert seen["k3_train_steps"] == steps, seen
     assert seen["k3_test"] == test, seen
@@ -1662,7 +1673,7 @@ def phase_train_accum(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=1024, acc
         assert state.opt_state.mini_step == 0 and state.opt_state.count == u + 1
     seen = (attention.launches, bn_act.launches, bn_act_backward.launches, k3_launches())
     k2 = updates * accum * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0
-    want = (0, k2, k2, (0, 0))
+    want = (0, k2, k2, (0, 0, 0))
     log(f"[train-accum] {arch} bf16 remat, batch {batch} as {accum} x {cfg.batch_size}, "
         f"{num_compare} negatives, {updates} updates: losses {losses}; parameters still after "
         f"each non-last microbatch, moved after the last; last update {update_ms:.1f} ms = "
@@ -2452,22 +2463,171 @@ def phase_vit_l14(dev, work):
     return launches, k3, k3_encode
 
 
+# the gate kernel's cases (rows, n, dtype): EVA02-CLIP-L/14's blocks (512 x
+# 257 tokens, 2,730 columns padded to 2,736) in bf16 and fp32, then odd
+# sizes: a single row, a persistent block's ragged tail at n = 10, no pad (n
+# = 2048), the widest np (3072, fp32 with 5 pad columns over two vectors)
+GLU_CASES = [(131584, 2730, torch.bfloat16), (131584, 2730, torch.float32),
+             (1, 2730, torch.bfloat16), (13, 10, torch.bfloat16), (13, 10, torch.float32),
+             (1001, 2048, torch.bfloat16), (77, 3072, torch.bfloat16), (77, 3067, torch.float32)]
+GLU_MAIN = (131584, 2730, torch.bfloat16)
+
+
+def glu_bytes(rows, n, dtype) -> int:
+    """The gate's bytes: the padded row of 2 np read, np written."""
+    return rows * 3 * (-(-n // 8) * 8) * dtype.itemsize
+
+
+def glu_float64_errors(x12, n, ln, got, want):
+    """The largest ``|y - y64|`` over the n real columns of the kernel's y
+    (``got``) and the twin's (``want``), and on how many values each lies
+    strictly closer to y64 than the other: y64 is ``ffn_ln`` in float64 of
+    the twin's g (SiLU and the product rounded to ``x12``'s dtype, as the
+    twin rounds them) with the weight and bias rounded to that dtype."""
+    np_, dt = x12.shape[-1] // 2, x12.dtype
+    g = torch.nn.functional.silu(x12[:, :n]) * x12[:, np_:np_ + n]
+    y64 = torch.nn.functional.layer_norm(g.double(), (n,), ln.weight.to(dt).double(),
+                                         ln.bias.to(dt).double(), ln.eps)
+    del g
+    e_got = (got[:, :n].double() - y64).abs()
+    e_want = (want[:, :n].double() - y64).abs()
+    return ((float(e_got.max()), float(e_want.max())),
+            (int((e_got < e_want).sum()), int((e_want < e_got).sum())))
+
+
+def check_glu_layer_norm(dev, cases=GLU_CASES):
+    """K3's SwiGLU gate and ``ffn_ln`` against its plain twin
+    (``models.layers.glu_layer_norm``) on the card, on the w1/w2 GEMM's
+    padded output (its pad columns zero, as the GEMM's zero rows give
+    them): bf16 within one ulp of the larger of the twin's ``|y|`` and the
+    bias (as ``add_layer_norm``), fp32 within ``TOL``, the pad columns +0.0;
+    ``GLU_MAIN`` timed by CUDA-graph replay against its bytes at 3.35 TB/s
+    beside the twin. At ``GLU_MAIN`` both are held to ``ffn_ln`` in float64
+    of the twin's g (``glu_float64_errors``): the kernel's largest error
+    may not exceed the twin's. First the gate's SiLU and product alone
+    (``hgr_silu_mul``) on every bf16 value, bit for bit PyTorch's: in bf16
+    the kernel's SiLU comes from approximations (``silu_bf16``), so this
+    covers every input it can see. Returns the kernel-table row of
+    ``GLU_MAIN``."""
+    from hgr_tpu_torch.models.layers import glu_layer_norm as twin
+    from hgr_tpu_torch.ops import ln_act
+    from hgr_tpu_torch.ops.ln_act import glu_layer_norm
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    every = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        a = every.to(dtype)
+        for name, b in (("1", torch.ones_like(a)),
+                        ("drawn", (torch.randn(a.shape, generator=g, device=dev) * 2).to(dtype))):
+            got = torch.empty_like(a)
+            ln_act._launch(ln_act._library().hgr_silu_mul, a.get_device(), ln_act._DTYPES[dtype],
+                           a.data_ptr(), b.data_ptr(), got.data_ptr(), a.numel())
+            want = torch.nn.functional.silu(a) * b
+            same = (got.view(bits) == want.view(bits)) | (got.isnan() & want.isnan())
+            assert bool(same.all()), (f"the gate's SiLU(a) * b differs from PyTorch's on "
+                                      f"{int((~same).sum())} bf16 values of a in {dtype}, b {name}")
+        log(f"[k3] glu_layer_norm's SiLU(a) * b {str(dtype).split('.')[-1]} on all {a.numel()} "
+            f"bf16 values of a, b 1 and drawn: bit-identical to PyTorch's")
+    out = None
+    for case in cases:
+        rows, n, dtype = case
+        np_ = -(-n // 8) * 8
+        x12 = torch.randn((rows, 2 * np_), generator=g, device=dev) * 2.0
+        x12[:, n:np_] = 0.0
+        x12[:, np_ + n:] = 0.0
+        x12 = x12.to(dtype)
+        ln = SeededLN(n, g, dev)
+        ln.eps = 1e-6
+        got, want = glu_layer_norm(x12, ln), twin(x12, ln.weight, ln.bias, ln.eps)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        pad = got[:, n:].contiguous().view(bits)
+        assert got.shape == want.shape == (rows, np_) and bool((pad == 0).all()), \
+            f"the gate's pad columns are not +0.0 at {case}"
+        u = ulps_apart(got[:, :n], want[:, :n])
+        diff = (got.float() - want.float()).abs()
+        name = str(dtype).split(".")[-1]
+        if dtype == torch.bfloat16:
+            scale = torch.maximum(want.float().abs(),
+                                  torch.nn.functional.pad(ln.bias.to(dtype).float().abs(),
+                                                          (0, np_ - n)))
+            ok, tol = bool((diff <= bf16_ulp(scale)).all()), "1 ulp of max(|y|, |b|)"
+        else:
+            atol, rtol = TOL[dtype]
+            ok, tol = bool((diff <= atol + rtol * want.float().abs()).all()), \
+                f"{atol:g} + {rtol:g}|p|"
+        line = (f"[k3] glu_layer_norm [{rows}, {2 * np_}] n = {n} {name}: y max {int(u.max())} "
+                f"ulps ({int((u > 1).sum())} over 1), {int((u > 0).sum())} of {u.numel()} "
+                f"differ, max |diff| {float(diff.max()):.3e} (tol {tol}); pad columns +0.0")
+        assert ok, line
+        if case == GLU_MAIN:
+            (k_err, t_err), (k_closer, t_closer) = glu_float64_errors(x12, n, ln, got, want)
+            f64 = (f"[k3] glu_layer_norm {name} against float64 ffn_ln of the twin's g: "
+                   f"max |err| kernel {k_err:.6e}, twin {t_err:.6e}; kernel strictly closer "
+                   f"on {k_closer}, twin on {t_closer} of {rows * n} values")
+            log(f64)
+            assert k_err <= t_err, f64
+            nbytes = glu_bytes(rows, n, dtype)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            out = dict(ms=graph_ms(lambda: glu_layer_norm(x12, ln)),
+                       plain_ms=graph_ms(lambda: twin(x12, ln.weight, ln.bias, ln.eps)),
+                       bound_ms=bound, bound_by="bytes", max_abs_err=float(diff.max()),
+                       max_ulps=int(u.max()), f64_err=k_err, plain_f64_err=t_err)
+            out["library_ms"] = out["plain_ms"]
+            line += (f" | kernel {out['ms']:.4f} ms, plain sequence {out['plain_ms']:.4f} ms, "
+                     f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB) | "
+                     f"{bound / out['ms']:.1%} of 3.35 TB/s | {smi_clock_power()}")
+        log(line)
+        del x12, got, want, diff, u
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_eva_autograd(tm, batch=8):
+    """An EVA-02 image encode with a weight of its last SwiGLU requiring a
+    gradient: the plain blocks run, K3 (its gate among it) launches
+    nothing, and the gradient reaches the weight."""
+    from hgr_tpu_torch.models.clip import encode_image
+
+    res = tm.clip_cfg.image_resolution
+    gen = torch.Generator(device=tm.device).manual_seed(5)
+    images = torch.randn((batch, res, res, 3), generator=gen, device=tm.device)
+    w = tm.model.visual.blocks[-1].mlp.w1.weight
+    k3_reset()
+    w.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            encode_image(tm.model, images, dtype=tm.dtype).float().square().sum().backward()
+        reached = w.grad is not None and bool(w.grad.abs().sum() > 0)
+    finally:
+        w.requires_grad_(False)
+        w.grad = None
+    log(f"[eva02] {batch} images under autograd: K3 launches {k3_launches()} (want (0, 0, 0)); "
+        f"gradient reached the last block's w1: {reached}")
+    assert k3_launches() == (0, 0, 0) and reached
+
+
 def phase_eva02_l14(dev):
     """EVA02-CLIP-L/14 eval at full width (the zoo's ``"EVA02-CLIP-L/14"``:
     EVA-02's block, vision 1024 wide, 24 layers of 16 heads, 2-D rotary,
     SwiGLU 2,730 wide, patch 14, so T = 257; the GELU text tower 768 wide,
-    12 heads) with seeded weights, through ``run_test`` over one batch of 512
+    12 heads) with seeded weights: K3's gate against its twin
+    (``check_glu_layer_norm``), then ``run_test`` over one batch of 512
     against the 18,432-row bank (K1: 432 launches in the bank, 24 in the
-    image tower; K3 as ``ln_act_launches`` counts, no QuickGELU), then one
-    batch's features through K1 held to the plain attention's, and through
-    K3 to the plain blocks'. Returns K1's and K3's launches in ``run_test``
-    and K3's in that one encode."""
+    image tower; K3 as ``ln_act_launches`` counts: no QuickGELU, the gate 0
+    in the bank and 24 an image encode), then one batch's features through
+    K1 held to the plain attention's, and through K3 to the plain blocks',
+    and an encode under autograd (no K3). Returns K1's and K3's launches in
+    ``run_test``, K3's in that one encode, and the gate's kernel-table row."""
+    glu_row = check_glu_layer_norm(dev)
     tm, _, _, launches, _, k3 = phase_slice(dev, arch="EVA02-CLIP-L/14", batches=1,
                                             image_launches=24,
                                             folder="runs/chip_smoke_eva02_l14")
     phase_vit_features(tm)
     k3_encode = phase_ln_features(tm)
-    return launches, k3, k3_encode
+    check_eva_autograd(tm)
+    return launches, k3, k3_encode, glu_row
 
 
 def seeded_jpegs(root, classes, per_class, seed=0):
@@ -2819,12 +2979,13 @@ def phase_guard(dev):
         assert bn_act(x, None, relu=True).grad_fn is None
     assert (bn_act.launches, bn_act_backward.launches) == (n + 2, nb + 1)
 
-    from hgr_tpu_torch.ops.ln_act import add_layer_norm, quick_gelu
+    from hgr_tpu_torch.ops.ln_act import add_layer_norm, glu_layer_norm, quick_gelu
 
     x = torch.randn(2, 8, 64, device=dev, requires_grad=True)
     ln = SeededLN(64, torch.Generator(device=dev).manual_seed(0), dev)
     n = k3_launches()
-    for call in (lambda: add_layer_norm(x, x.detach(), ln), lambda: quick_gelu(x)):
+    for call in (lambda: add_layer_norm(x, x.detach(), ln), lambda: quick_gelu(x),
+                 lambda: glu_layer_norm(torch.cat((x, x), -1), ln)):
         try:
             call()
         except RuntimeError as e:
@@ -2835,7 +2996,8 @@ def phase_guard(dev):
     with torch.no_grad():
         add_layer_norm(x, x, ln)
         quick_gelu(x)
-    assert k3_launches() == (n[0] + 1, n[1] + 1)
+        glu_layer_norm(torch.cat((x, x), -1), ln)
+    assert k3_launches() == (n[0] + 1, n[1] + 1, n[2] + 1)
 
 
 # ---- slice 7: the mesh over torch.distributed, and the offline builders ----
@@ -3744,7 +3906,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="hgr_real_inputs_")
     try:
         vit_l14, k3_vit_l14, k3_vit_l14_encode = phase_vit_l14(dev, work)
-        eva02, k3_eva02, k3_eva02_encode = phase_eva02_l14(dev)
+        eva02, k3_eva02, k3_eva02_encode, glu_row = phase_eva02_l14(dev)
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
         mesh_eval = phase_mesh_eval(real)
@@ -3808,7 +3970,7 @@ def main() -> int:
                    "rn50_train_steps": train["k2b_train_steps"],
                    "rn50_accum_train_steps": accum[2],
                    "rn50_flat_train_steps": flat["k2b_train_steps"]}
-    # K3's (add_layer_norm, quick_gelu) launches as each phase counted them
+    # K3's (add_layer_norm, quick_gelu, glu_layer_norm) launches as each phase counted them
     k3_by_path = {"rn50_eval": k3_rn50, "vit_b32_eval": k3_vit, "vit_b16_eval": k3_vit16,
                   "vit_b16_encode": k3_vit16_encode, "rn50x4_eval": k3_rn50x4,
                   "vit_l14_eval": k3_vit_l14, "vit_l14_encode": k3_vit_l14_encode,
@@ -3853,7 +4015,8 @@ def main() -> int:
         launches=sum(n[i] for n in k3_by_path.values()),
         launches_by_path={path: n[i] for path, n in k3_by_path.items()},
         **row,
-    ) for i, (name, row) in enumerate((("add_layer_norm", ln_row), ("quick_gelu", gelu_row)))]
+    ) for i, (name, row) in enumerate((("add_layer_norm", ln_row), ("quick_gelu", gelu_row),
+                                       ("glu_layer_norm", glu_row)))]
     log(json.dumps({"kernels": kernels}))
     log(smi_name_power())
     print(json.dumps({"ok": True, "device": {

@@ -45,10 +45,13 @@ not, the same ops run in a fused order: the attention is K1
 (``ops.attention.attention``), ``norm1``, ``norm2``, ``inner_attn_ln`` and
 ``norm`` go through K3 (``ops.ln_act.add_layer_norm``) with each residual
 add in the LayerNorm after it (the last block's only on the class token's
-row, all ``norm`` reads). Both orders share the q/k/v product (one GEMM
-over the three weights, k's bias zero), the rotary, and the SwiGLU with
-its 2,730-wide ``ffn_ln`` as PyTorch ops in the activation dtype (its
-GEMMs over the width padded to 2,736, ``SwiGLU.forward``). Each
+row, all ``norm`` reads), and the SwiGLU's gate with its 2,730-wide
+``ffn_ln`` and the pad through K3's gate (``ops.ln_act.glu_layer_norm``;
+on the plain path its twin ``layers.glu_layer_norm``, the same PyTorch
+ops in the activation dtype). Both orders share the q/k/v product (one
+GEMM over the three weights, k's bias zero), the rotary as PyTorch ops,
+and the SwiGLU's GEMMs over the width padded to 2,736
+(``SwiGLU.forward``). Each
 block records ``vit.attn`` and ``vit.mlp``, as OpenAI's ViT blocks do, and
 inside them ``eva.rope`` (the rotary of q and k) and ``eva.glu`` (the gate
 and ``ffn_ln``).
@@ -66,7 +69,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import ln_act
 from ..ops.attention import attention
 from ..utils.profiling import annotate
-from .layers import Conv2d, LayerNorm, Linear, _param, attention_scores, linear, normal_
+from .layers import (Conv2d, LayerNorm, Linear, _param, attention_scores, glu_layer_norm, linear,
+                     normal_)
 
 ROPE_THETA = 10000.0
 ROPE_REF_GRID = 16  # pt_hw_seq_len: 16 in every EVA02-CLIP config
@@ -140,9 +144,11 @@ class SwiGLU(nn.Module):
         self.ffn_ln = LayerNorm(hidden, eps)
         self.w3 = Linear(hidden, width)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        """``w3(ffn_ln(SiLU(w1 h) * w2 h))``: w1 and w2 as one GEMM;
-        ``ffn_ln`` straight on the activation dtype, its parameters cast.
+    def forward(self, h: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        """``w3(ffn_ln(SiLU(w1 h) * w2 h))``: w1 and w2 as one GEMM; the
+        gate and ``ffn_ln`` (straight on the activation dtype, its
+        parameters cast) in ``layers.glu_layer_norm``, or with ``fused`` in
+        ``ops.ln_act.glu_layer_norm`` (K3's gate kernel on CUDA).
         The GEMMs see the width n padded with zeros to a multiple of 8
         (2,730 -> 2,736): rows of 2,730 bf16 values are not 16-byte
         aligned, and cuBLAS then leaves its Hopper kernels (on an H100 80GB
@@ -154,9 +160,8 @@ class SwiGLU(nn.Module):
         x12 = linear(h, torch.cat((self.w1.weight, zw, self.w2.weight, zw)),
                      torch.cat((self.w1.bias, zb, self.w2.bias, zb)))
         with annotate("eva.glu"):
-            g = F.silu(x12[..., :n]) * x12[..., n + pad: 2 * n + pad]
-            g = F.layer_norm(g, (n,), ln.weight.to(g.dtype), ln.bias.to(g.dtype), ln.eps)
-            g = F.pad(g, (0, pad))
+            g = (ln_act.glu_layer_norm(x12, ln) if fused
+                 else glu_layer_norm(x12, ln.weight, ln.bias, ln.eps))
         return linear(g, F.pad(self.w3.weight, (0, pad)), self.w3.bias)
 
 
@@ -196,7 +201,7 @@ class Block(nn.Module):
             o = add_ln(_merge(attention(*a.qkv(h, cos, sin))), None, a.inner_attn_ln)[1]
             x, h = add_ln(x, a.proj(o), self.norm2)
         with annotate("vit.mlp"):
-            out = self.mlp(h)
+            out = self.mlp(h, fused=True)
             if cls_only:
                 x, out = x[:, :1], out[:, :1]
             return add_ln(x, out, ln_next)

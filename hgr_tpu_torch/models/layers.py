@@ -50,6 +50,21 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def glu_layer_norm(
+    x12: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float
+) -> torch.Tensor:
+    """EVA-02's SwiGLU gate and ``ffn_ln`` on its w1/w2 GEMM's output padded
+    to np columns a half (n = ``w``'s width rounded up to a multiple of 8):
+    x1 is ``x12``'s columns [0, n), x2 its [np, np + n). Returns
+    ``LayerNorm(SiLU(x1) * x2)`` over the n columns, straight on the
+    activation dtype with ``w`` and ``b`` cast to it, then np - n zero
+    columns: ``[..., np]``, the padded input of ``w3``."""
+    n, np_ = w.shape[0], x12.shape[-1] // 2
+    g = F.silu(x12[..., :n]) * x12[..., np_: np_ + n]
+    g = F.layer_norm(g, (n,), w.to(g.dtype), b.to(g.dtype), eps)
+    return F.pad(g, (0, np_ - n))
+
+
 def conv2d(
     x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
     b: Optional[torch.Tensor] = None,

@@ -7,8 +7,9 @@ interpret mode and to the XLA ``attention_scores`` in fp32, within the
 twin on the card by ``chip_smoke.py``. The argument checks and the
 import-time behaviour of K2 (``ops/bn_act.py``, the ResNet's fused
 BatchNorm epilogue) and K3 (``ops/ln_act.py``, the transformer block's
-add + LayerNorm and QuickGELU) are held here beside K1's, and K3's
-wrappers on CPU tensors to their plain twins; so is the one rule
+add + LayerNorm, QuickGELU and EVA-02's SwiGLU gate with its LayerNorm)
+are held here beside K1's, and K3's wrappers on CPU tensors to their plain
+twins; so is the one rule
 (``ops.ln_act.autograd_records``) by which every tower picks the kernels
 or their twins.
 """
@@ -29,7 +30,7 @@ from hgr_tpu.models.layers import attention_scores as jax_attention_scores  # no
 from hgr_tpu.models.layers import causal_mask as jax_causal_mask  # noqa: E402
 from hgr_tpu.ops.attention import pallas_attention  # noqa: E402
 from hgr_tpu_torch.models.layers import (  # noqa: E402
-    attention_scores, causal_mask, layer_norm, mha, quick_gelu)
+    attention_scores, causal_mask, glu_layer_norm, layer_norm, mha, quick_gelu)
 from hgr_tpu_torch.ops import attention as k1  # noqa: E402
 from hgr_tpu_torch.ops import bn_act as k2  # noqa: E402
 from hgr_tpu_torch.ops import build  # noqa: E402
@@ -182,7 +183,7 @@ def test_kernel_argument_checks():
     """What the kernel does not take is refused before any launch, each
     case with its own message: arguments, devices other than the CPU and
     CUDA, and calls that autograd would record; K2's and K3's twins, K2's
-    backward among them."""
+    backward and K3's SwiGLU gate among them."""
     _cuda_route_refuses_other_devices()
     _kernel_refuses_autograd()
     for bad, match in BAD_ARGUMENTS:
@@ -205,6 +206,10 @@ def test_kernel_argument_checks():
         for with_delta in (False, True):
             for strided in (False, True):
                 _check_ln_act_twins(dtype, with_delta, strided)
+        for n in (10, 2730):
+            _check_glu_layer_norm_twin(dtype, n)
+    for case in GLU_REFUSALS:
+        _check_glu_layer_norm_refuses(case)
 
 
 def _check_head_dim_padding():
@@ -484,6 +489,93 @@ def _check_ln_act_twins(dtype, with_delta, strided):
     assert torch.equal(y, layer_norm(want_s, ln.weight, ln.bias))
     assert torch.equal(k3.quick_gelu(y), quick_gelu(y))
     assert (k3.add_layer_norm.launches, k3.quick_gelu.launches) == launches
+
+
+def _swiglu_sequence(x12, n, ln):
+    """The four PyTorch ops ``SwiGLU.forward`` ran between its GEMMs before
+    K3 had a gate kernel: SiLU, the product, ``ffn_ln`` with its parameters
+    cast, the pad."""
+    pad = -n % 8
+    g = torch.nn.functional.silu(x12[..., :n]) * x12[..., n + pad: 2 * n + pad]
+    g = torch.nn.functional.layer_norm(g, (n,), ln.weight.to(g.dtype), ln.bias.to(g.dtype),
+                                       ln.eps)
+    return torch.nn.functional.pad(g, (0, pad))
+
+
+def _check_glu_layer_norm_twin(dtype, n):
+    """On CPU tensors K3's gate wrapper is the sequence ``SwiGLU.forward``
+    ran before it, bit for bit, over a few rows of the padded GEMM output
+    (EVA-02's eps; garbage in the input's pad columns, which it ignores),
+    with np - n zero columns; nothing is launched."""
+    np_ = -(-n // 8) * 8
+    g = torch.Generator().manual_seed(n)
+    x12 = (torch.randn(2, 3, 2 * np_, generator=g) * 3 + 0.3).to(dtype)
+    x12[..., n:np_] = 5.0
+    x12[..., np_ + n:] = -7.0
+    ln = _LN(n, seed=n + 1)
+    ln.eps = 1e-6
+    launches = k3.glu_layer_norm.launches
+    got = k3.glu_layer_norm(x12, ln)
+    want = _swiglu_sequence(x12, n, ln)
+    assert got.dtype == dtype and got.shape == (2, 3, np_)
+    assert torch.equal(got, want)
+    assert torch.equal(got[..., n:], torch.zeros(2, 3, np_ - n, dtype=dtype))
+    assert torch.equal(glu_layer_norm(x12, ln.weight, ln.bias, ln.eps), want)
+    assert k3.glu_layer_norm.launches == launches
+
+
+def _glu_case(name):
+    """(call, error, message) of one refusal of K3's gate wrapper: each of
+    ``_check_glu``'s, the devices it does not run on, and autograd."""
+    n, np_ = 2730, 2736
+    x12 = torch.zeros(4, 2 * np_, dtype=torch.bfloat16)
+    ln = _LN(n)
+    check = k3._check_glu
+    cases = {
+        "dtype": (lambda: check(x12.half(), ln.weight, ln.bias), "bfloat16 or float32"),
+        "unpadded": (lambda: check(x12[:, :2 * n].contiguous(), ln.weight, ln.bias),
+                     "rounded up to a multiple of 8"),
+        "overpadded": (lambda: check(torch.zeros(4, 2 * np_ + 16, dtype=torch.bfloat16),
+                                     ln.weight, ln.bias), "rounded up to a multiple of 8"),
+        "over_limit": (lambda: check(torch.zeros(2, 2 * 3080), *vars(_LN(3080)).values()),
+                       "np up to 3072"),
+        "strided": (lambda: check(torch.zeros(2 * np_, 4).t(), ln.weight, ln.bias),
+                    "contiguous"),
+        "misaligned": (lambda: check(torch.zeros(4 * 2 * np_ + 1)[1:].view(4, -1), ln.weight,
+                                     ln.bias), "16-byte aligned"),
+        "parameters": (lambda: check(x12, ln.weight.bfloat16(), ln.bias), "float32"),
+        "widths": (lambda: check(x12, ln.weight, ln.bias[:-1]), "of one width"),
+        "device": (lambda: k3.glu_layer_norm(x12.to("meta"), ln), "cpu or cuda"),
+        "cuda_entry": (lambda: k3.glu_layer_norm_cuda(x12, ln), "CUDA tensors"),
+    }
+    if name == "autograd":
+        w = ln.weight.clone().requires_grad_(True)
+        return lambda: k3.refuse_autograd(x12, w, ln.bias), RuntimeError, "no backward"
+    return (*cases[name][:1], ValueError, cases[name][1])
+
+
+GLU_REFUSALS = ("dtype", "unpadded", "overpadded", "over_limit", "strided", "misaligned",
+                "parameters", "widths", "device", "cuda_entry", "autograd")
+
+
+def _check_glu_layer_norm_refuses(case):
+    """K3's gate refuses, before any launch and each with its own message,
+    what its kernel does not take: a dtype other than bf16 or fp32, a row
+    other than 2 np (np the LayerNorm's width rounded up to a multiple of
+    8), np over 3072, a strided or misaligned input, LayerNorm parameters
+    that are not float32 [n] of one width, devices other than the CPU and
+    CUDA, and a call that autograd would record; it takes EVA02-CLIP-L/14's
+    [rows, 2 x 2736] bf16 and fp32 and the widest np."""
+    ln = _LN(2730)
+    k3._check_glu(torch.zeros(4, 2 * 2736, dtype=torch.bfloat16), ln.weight, ln.bias)
+    k3._check_glu(torch.zeros(2, 3, 2 * 2736), ln.weight, ln.bias)
+    k3._check_glu(torch.zeros(1, 2 * 3072), *vars(_LN(3067)).values())
+    call, error, match = _glu_case(case)
+    with pytest.raises(error, match=match):
+        call()
+    if case == "autograd":
+        with torch.no_grad():
+            call()
 
 
 def _cuda_route_refuses_other_devices():
