@@ -242,7 +242,11 @@ LEVEL_SIZES = [10, 800, 4000, 5000, 4000, 2500, 1000, 500, 250, 120, 60, 30, 8]
 # its 24 layers), which read K1's share of those steps; and the edges of
 # the tiled bf16 kernel (T >= 97): its first T, the 64-row tile edges 128,
 # 129, 192, 193, 320 and 321, a single head (one block, no neighbours) and a
-# band mask, whose 64-key blocks are dead or mixed
+# band mask, whose 64-key blocks are dead or mixed; and bf16 at head dim 72
+# (SigLIP So400m's, the tiled kernel at every T, no mask): short T and the
+# tile edges, and a slice of each tower's launch (64 images at T =
+# 729; a bank chunk's 512 prompts at T = 64), which phase_siglip_so400m
+# times at full size
 KERNEL_CASES = [
     ((512, 8, 32, 64), (True, False)),
     ((512, 8, 77, 64), (True, False)),
@@ -264,6 +268,11 @@ KERNEL_CASES = [
     *(((8, 8, t, 64), (True, False), (torch.bfloat16,)) for t in (97, 128, 129, 192, 193, 320, 321)),
     ((1, 1, 257, 64), (True, False), (torch.bfloat16,)),
     ((8, 8, 300, 64), ("band",), (torch.bfloat16,)),
+    *(((8, 8, t, 72), (False,), (torch.bfloat16,))
+      for t in (1, 20, 32, 63, 64, 65, 97, 128, 129, 257, 321)),
+    ((1, 1, 729, 72), (False,), (torch.bfloat16,)),
+    ((64, 16, 729, 72), (False,), (torch.bfloat16,)),
+    ((512, 16, 64, 72), (False,), (torch.bfloat16,)),
 ]
 # the band mask's half-width and its seed: -inf outside |row - key| <= 80,
 # seeded values in [-2, 2) inside
@@ -973,14 +982,17 @@ def ln_act_launches(clip_cfg, bank_chunks=0, image_batches=0):
     plain one), an EVA-02 image encode 3L + 1, 0 and L (block 0's norm1,
     each block's inner_attn_ln and norm2, the next block's norm1 with the
     MLP's add, the final norm with the last one, on the class token's rows;
-    each block's SwiGLU gate with its ffn_ln); nothing for a ResNet's image
-    tower."""
+    each block's SwiGLU gate with its ffn_ln), a SigLIP image encode 2L + 1,
+    0 and 0 (the blocks' as a text encode's, the last add in
+    post_layernorm over all rows; the MAP head's LayerNorm is PyTorch's);
+    nothing for a ResNet's image tower."""
     lt = clip_cfg.transformer_layers
-    gelu_t = 0 if clip_cfg.text_activation == "gelu" else lt
+    gelu_t = lt if clip_cfg.text_activation == "quick_gelu" else 0
     li = clip_cfg.vision_layers[0] if clip_cfg.is_vit else 0
     images = image_batches if clip_cfg.is_vit else 0
-    ln_i, gelu_i, glu_i = ((3 * li + 1, 0, li) if clip_cfg.vision_block == "eva02"
-                           else (2 * li + 2, li, 0))
+    ln_i, gelu_i, glu_i = {"eva02": (3 * li + 1, 0, li),
+                           "siglip": (2 * li + 1, 0, 0)}.get(clip_cfg.vision_block,
+                                                             (2 * li + 2, li, 0))
     return (bank_chunks * (2 * lt + 1) + images * ln_i, bank_chunks * gelu_t + images * gelu_i,
             images * glu_i)
 
@@ -1016,10 +1028,12 @@ class SeededLN:
 # with a stride): ViT-L/14's blocks and ln_pre (512 x 257 tokens) and its
 # ln_post (the class token's rows of [512, 257, 1024]), ViT-B/16's blocks
 # (512 x 197), a bank chunk at T = 32 (RN50's and ViT-B's text width 512,
-# RN50x4's 640) and ViT-L/14's text tower at 512 x 77; then every width class
-# (one to four 16-byte vectors a lane in bf16, up to eight in fp32, and a
-# row of a single vector) at a single row and at 13 (a partial block), with
-# and without a delta, contiguous and strided
+# RN50x4's 640) and ViT-L/14's text tower at 512 x 77, SigLIP So400m's
+# blocks at 1,152 (512 x 729 tokens) and its bank chunk (512 x 64); then
+# every width class (one to five 16-byte vectors a lane in bf16, up to ten
+# in fp32, 1,152's ragged fifth, and a row of a single vector) at a single
+# row and at 13 (a partial block), with and without a delta, contiguous and
+# strided
 LN_ACT_CASES = [
     (131584, 1024, True, False),
     (131584, 1024, False, False),
@@ -1028,11 +1042,14 @@ LN_ACT_CASES = [
     (16384, 512, True, False),
     (16384, 640, True, False),
     (39424, 768, True, False),
-    *((rows, width, delta, strided) for rows in (1, 13) for width in (8, 32, 64, 136, 1000, 1024)
+    (373248, 1152, True, False),
+    (32768, 1152, True, False),
+    *((rows, width, delta, strided) for rows in (1, 13)
+      for width in (8, 32, 64, 136, 1000, 1024, 1152, 1280)
       for delta in (False, True) for strided in (False, True)),
 ]
 TIMED_LN = {(131584, 1024, True, False), (131584, 1024, False, False),
-            (100864, 768, True, False), (16384, 512, True, False)}
+            (100864, 768, True, False), (16384, 512, True, False), (373248, 1152, True, False)}
 LN_MAIN = (131584, 1024, True, False)
 # QuickGELU on the c_fc output [tokens, 4 x width]: ViT-L/14's, ViT-B/16's, a
 # bank chunk's; odd sizes (one vector, a ragged grid-stride tail)
@@ -2630,6 +2647,84 @@ def phase_eva02_l14(dev):
     return launches, k3, k3_encode, glu_row
 
 
+# SigLIP So400m's two K1 launches at full size: an image batch's (512
+# images, 16 heads, T = 729) and a bank chunk's (512 prompts, T = 64), both
+# at head dim 72 without a mask
+SIGLIP_K1_SHAPES = ((512, 16, 729, 72), (512, 16, 64, 72))
+SIGLIP_K1_MAIN = SIGLIP_K1_SHAPES[0]
+
+
+def chunked(fn, rows=64):
+    """``fn`` over q, k, v (and a mask) in slices of ``rows`` prompts: the
+    plain attention at T = 729 holds [rows, 16, 729, 729] fp32 scores."""
+    def run(q, k, v, mask=None):
+        return torch.cat([fn(q[i:i + rows], k[i:i + rows], v[i:i + rows], mask)
+                          for i in range(0, q.shape[0], rows)])
+    return run
+
+
+def check_siglip_attention(dev):
+    """K1 at head dim 72, bf16, at ``SIGLIP_K1_SHAPES``: held to the plain
+    attention (in slices of 64 prompts) within ``TOL``, then timed by
+    CUDA-graph replay beside SDPA and its bound; the plain version by CUDA
+    events. Returns the image launch's kernel-table row."""
+    import torch.nn.functional as F
+
+    from hgr_tpu_torch.models.layers import attention_scores
+    from hgr_tpu_torch.ops.attention import attention
+
+    g = torch.Generator(device=dev).manual_seed(72)
+    rows = {}
+    for shape in SIGLIP_K1_SHAPES:
+        q, k, v = qkv_views(shape, torch.bfloat16, "packed", g, dev)
+        got, want = attention(q, k, v), chunked(attention_scores)(q, k, v)
+        torch.cuda.synchronize()
+        atol, rtol = TOL[torch.bfloat16]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        assert bool((diff <= atol + rtol * want.float().abs()).all()), \
+            f"K1 at head dim 72 disagrees with the plain attention at {shape}: {err}"
+        del got, want, diff
+        bound, by = attention_bound_ms(shape, torch.bfloat16, None)
+        row = dict(ms=graph_ms(lambda: attention(q, k, v)),
+                   plain_ms=cuda_ms(lambda: chunked(attention_scores)(q, k, v), reps=2, warmup=1),
+                   library_ms=graph_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   bound_ms=bound, bound_by=by, max_abs_err=err)
+        log(f"[siglip] attention {shape} bf16 packed: max_abs_err {err:.3e} (tol {atol:g} + "
+            f"{rtol:g}|p|) ok | kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+            f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}) | "
+            f"{bound / row['ms']:.1%} of bound | {smi_clock_power()}")
+        rows[shape] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows[SIGLIP_K1_MAIN]
+
+
+def phase_siglip_so400m(dev):
+    """SigLIP So400m/14 at 384 px eval at full width (the zoo's
+    ``"SigLIP-SO400M/14@384"``: both towers 1,152 wide, 27 layers of 16
+    heads of 72, MLP 4,304 with GELU's tanh form, T = 729 with no class
+    token, the MAP head; a bidirectional text tower over 64 positions) with
+    seeded weights: K1 at head dim 72 against its plain version and timed
+    (``check_siglip_attention``), then ``run_test`` over one batch of 512
+    against the 18,432-row bank (K1: 27 a bank chunk, 972 in the bank, and
+    27 in the image tower; K3 as ``ln_act_launches`` counts: 2L + 1 a text
+    encode and 2L + 1 an image encode, no QuickGELU), then the bank through
+    the plain attention, and 128 images' features through K1 held to the
+    plain attention's and through K3 to the plain blocks'. K3 at 1,152 is
+    phase 3c's (``LN_ACT_CASES``). Returns K1's and K3's launches in
+    ``run_test``, K3's in that one encode, and K1's row at T = 729."""
+    k1_row = check_siglip_attention(dev)
+    tm, bank, _, launches, _, k3 = phase_slice(dev, arch="SigLIP-SO400M/14@384", batches=1,
+                                               launches_expected=27 * 36, image_launches=27,
+                                               folder="runs/chip_smoke_siglip")
+    assert tm.node_tokens.shape[1] == 64, "the bidirectional tower's bank was cut"
+    phase_plain_bank(tm, bank)
+    phase_vit_features(tm, batch=128)
+    k3_encode = phase_ln_features(tm, batch=128)
+    return launches, k3, k3_encode, k1_row
+
+
 def seeded_jpegs(root, classes, per_class, seed=0):
     """``per_class`` JPEGs a class at ImageNet's usual size (500 x 375 or
     375 x 500, quality 90) under ``root/<wnid>/``, made by PIL from a seed:
@@ -3907,6 +4002,7 @@ def main() -> int:
     try:
         vit_l14, k3_vit_l14, k3_vit_l14_encode = phase_vit_l14(dev, work)
         eva02, k3_eva02, k3_eva02_encode, glu_row = phase_eva02_l14(dev)
+        siglip, k3_siglip, k3_siglip_encode, _ = phase_siglip_so400m(dev)
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
         mesh_eval = phase_mesh_eval(real)
@@ -3939,6 +4035,7 @@ def main() -> int:
                "rn50x4_eval": rn50x4,
                "vit_l14_eval": vit_l14,
                "eva02_l14_eval": eva02,
+               "siglip_so400m_eval": siglip,
                "rn50_real_inputs_eval": real_launches,
                "rn50_orbax_load_eval": orbax_load[0],
                "rn50_files_num_proc_workers_eval": decoded["launches"],
@@ -3975,6 +4072,7 @@ def main() -> int:
                   "vit_b16_encode": k3_vit16_encode, "rn50x4_eval": k3_rn50x4,
                   "vit_l14_eval": k3_vit_l14, "vit_l14_encode": k3_vit_l14_encode,
                   "eva02_l14_eval": k3_eva02, "eva02_l14_encode": k3_eva02_encode,
+                  "siglip_so400m_eval": k3_siglip, "siglip_so400m_encode": k3_siglip_encode,
                   "rn50_train_steps": train["k3_train_steps"],
                   "rn50_test_after_train": train["k3_test"],
                   "rn50_accum_train_steps": accum[3],

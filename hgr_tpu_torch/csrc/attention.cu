@@ -6,7 +6,9 @@
 // fp32 scores q.k^T plus an optional additive fp32 [T, T] mask, an fp32
 // max-subtracted softmax, probabilities normalised in fp32 and rounded to
 // v's dtype, then P.V with fp32 accumulators, rounded to the output dtype.
-// Head dim 64 (fp32 also 16), any T >= 1, bf16 or fp32, q/k/v/o through strides (the
+// Head dim 64 (fp32 also 16, bf16 also 72: there the fp32 scores are
+// scaled by 72^-0.5, which is no power of two, so not bit for bit the
+// pre-scaled q's), any T >= 1, bf16 or fp32, q/k/v/o through strides (the
 // caller passes views of the packed [B, T, 3D] projection and gets a view of
 // a [B, T, H, Dh] buffer back, so no head transpose is copied). The TPU
 // kernel's padding of T to 8 and Dh to 128 was a layout artefact; here the
@@ -125,6 +127,23 @@
 //   Without a mask nothing is read, there is no pre-pass, and the kernel is
 //   compiled without the mask's code (its instantiation kMask = false).
 // - The output goes through the (finished) Q tile to 16-byte stores.
+// - Head dim 72 (SigLIP So400m's 16 heads of 1,152), at every T: 72 is no
+//   multiple of 16, the k16 steps of q.k^T need dims 64..79 with 72..79
+//   zero, and a 144-byte row is wider than the 128-byte swizzle. So each
+//   K or V tile comes in two TMA boxes on one mbarrier: dims 0..63 as
+//   above, and a [64][16] tail in the 32-byte swizzle whose dims 72..79
+//   TMA fills with zeros itself (they lie past the tensor map's 72), so no
+//   copy pads q, k or v. q.k^T takes a fifth k16 step on the tail, q's A
+//   fragment for it read from q directly (two words a lane, its dims 72..79
+//   zero); P.V adds an m64n16k16 product a k16 step into eight more
+//   accumulators, of which dims 64..71 are stored straight from registers.
+//   No configuration masks a head of 72, so it takes no mask. A slot is
+//   10 KB. Past T = 64 without a mask a block is two warpgroups
+//   on a 128-row query tile, sharing each K and V tile (68 KB, two blocks
+//   an SM): at T = 729 every query tile reads every key block in both
+//   passes, and halving those reads from the L2 took SigLIP's launch from
+//   9.46 to 5.8-6.2 ms on an H100, where a fourth 64-row block an SM
+//   gained nothing.
 
 // fp32 design (attention_fwd_f32_one for T <= 64, attention_fwd_f32_multi
 // past it; head dim 64 or 16, unpadded). fp32 is the parity mode, so its
@@ -651,10 +670,18 @@ constexpr int kTile = 64;                          // query rows a block; keys a
 constexpr int kTileBytes = kTile * kRowBytes;      // one [64][64] bf16 tile: 8 KB
 constexpr int kSlots = 5;                          // ring slots, each a K or a V tile
 constexpr int kTiledThreads = 128;                 // one warpgroup
+constexpr int kWideDh = 72;                        // the head dim with a tail (SigLIP So400m)
+constexpr int kTailDims = 16;                      // dims 64..79 of a wide head, 72.. zero
+constexpr int kTailBytes = kTile * kTailDims * 2;  // a [64][16] tail tile: 2 KB
+// one ring slot: a [64][64] tile, and at head dim 72 its [64][16] tail
+template <int kHd>
+constexpr int kRingSlotBytes = kHd == kDh ? kTileBytes : kTileBytes + kTailBytes;
 // the aligned Q tile, the ring, an mbarrier a slot and Q's, and room to
 // align the dynamic base to 1,024 bytes (the 128-byte swizzle's period):
-// 50 KB, four blocks an SM
-constexpr int kTiledSmemBytes = 1024 + kTileBytes + kSlots * kTileBytes + (kSlots + 1) * 8;
+// 50 KB at head dim 64 (four blocks an SM), 60 KB at 72 (three)
+template <int kHd, int kWg = 1>
+constexpr int kTiledSmemBytes =
+    1024 + kWg * kTileBytes + kSlots * kRingSlotBytes<kHd> + (kSlots + 1) * 8;
 constexpr int kTensorMapRefused = -2;              // hgr_attention_fwd's code for it
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -679,14 +706,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// one 64 x 64 box (rows t.., all 64 dims of head h, prompt b) of a tensor
-// map over (Dh, H, T, B) into swizzled shared memory; rows past T are zeros
+// one box (rows t.., the map's box of dims from d, head h, prompt b) of a
+// tensor map over (Dh, H, T, B) into swizzled shared memory; rows past T
+// and dims past Dh are zeros
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int h, int t, int b) {
+                                         int h, int t, int b, int d = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(t), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(t), "r"(b)
       : "memory");
 }
 
@@ -696,6 +724,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 // bytes (+2) along K's rows, +2,048 (+128) down V's keys.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// The same for a tail tile of 32-byte rows in the 32-byte swizzle (16-byte
+// chunk c of row r at c ^ ((r >> 2) & 1)): 8-row groups 256 bytes apart. It
+// reads K's dims 64..79 (K-major: one k16 step) and, with the transpose bit,
+// V's (N = 16); one k16 step is +512 bytes (+32) down V's keys.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (16ull << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -737,6 +773,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
 }
 
+// m64n16k16, as wgmma_rs: the products into a wide head's output dims 64..79
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs16(float (&d)[2][4], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+}
+
 // What each 64 x 64 block of the mask holds for the real rows of query tile
 // blockIdx.y against the real keys of key block blockIdx.x: all -inf
 // (kDead), all 0 (kZero) or anything else (kGlobal); one byte a block in
@@ -761,10 +810,13 @@ attention_mask_codes(const float* __restrict__ mask, int T_len, uint8_t* __restr
 // What the warpgroup's steps share. Ring position pos (the count of tiles
 // loaded so far) is slot pos % kSlots, in its (pos / kSlots)th use. A block
 // takes one position in the first pass (K) and two in the second (K, V).
-// This lane's query rows are row and row + 8.
+// This lane's query rows are row and row + 8. At head dim 72 a slot holds a
+// tile's dims 0..63 and, kTileBytes on, its tail: dims 64..79, which TMA
+// fills with zeros past 72 (kt_map, vt_map: boxes of 16 dims).
+template <int kHd>
 struct Tiled {
   uint32_t ring, full;
-  const CUtensorMap *k_map, *v_map;
+  const CUtensorMap *k_map, *v_map, *kt_map, *vt_map;
   const float* mask;
   const uint8_t* codes;  // this query tile's codes a key block, or null
   float scale;
@@ -773,7 +825,7 @@ struct Tiled {
   bool load_v;                       // ... and whether it is V's tile
 
   __device__ __forceinline__ uint32_t slot(int pos) const {
-    return ring + (pos % kSlots) * kTileBytes;
+    return ring + (pos % kSlots) * kRingSlotBytes<kHd>;
   }
   __device__ __forceinline__ uint8_t code(int kb) const {
     return codes != nullptr ? codes[kb] : kZero;
@@ -797,8 +849,11 @@ struct Tiled {
     if (load_pass > 1) return;
     if (threadIdx.x == 0) {
       const uint32_t bar = full + 8 * (load_pos % kSlots);
-      mbar_expect_tx(bar, kTileBytes);
+      mbar_expect_tx(bar, kRingSlotBytes<kHd>);
       tma_load(slot(load_pos), load_v ? v_map : k_map, bar, hd, load_kb * kTile, b);
+      if constexpr (kHd != kDh)
+        tma_load(slot(load_pos) + kTileBytes, load_v ? vt_map : kt_map, bar, hd,
+                 load_kb * kTile, b, kDh);
     }
     ++load_pos;
     load_v = load_pass == 1 && !load_v;
@@ -820,19 +875,23 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// S = q.K^T for the 64 keys of the K tile at b_desc, q's A fragments qf
-// from registers; issued, not waited
+// S = q.K^T for the 64 keys of the K tile at k_s, q's A fragments qf (and
+// at head dim 72 qt, dims 64..79) from registers; issued, not waited
+template <int kHd>
 __device__ __forceinline__ void issue_s(float (&S)[8][4], const uint32_t (&qf)[4][4],
-                                        uint64_t b_desc) {
+                                        const uint32_t (&qt)[4], uint32_t k_s) {
   wgmma_fence();
+  const uint64_t b_desc = sw128_desc(k_s);
 #pragma unroll
   for (int kk = 0; kk < kDh / 16; ++kk) wgmma_rs<0>(S, qf[kk], b_desc + 2 * kk, kk);
+  if constexpr (kHd != kDh) wgmma_rs<0>(S, qt, sw32_desc(k_s + kTileBytes), 1);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 // the scores of mixed key block kb (the first key kb * 64): scaled (a power
 // of two: exact), plus the mask read through the L2, -inf past T
-__device__ __forceinline__ void prep(float (&S)[8][4], const Tiled& t, int kb) {
+template <int kHd>
+__device__ __forceinline__ void prep(float (&S)[8][4], const Tiled<kHd>& t, int kb) {
   const int c2 = 2 * (t.lane & 3);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -874,11 +933,13 @@ __device__ __forceinline__ void fold(const float (&S)[NG][4], float mul, float (
 
 // the second pass: O += P.V for the V at ring position pos, P = exp(s - mref) * inv
 // rounded to bf16 in A fragments of 16 keys (groups 2j and 2j + 1; a group
-// past the block's 8 NG keys is zero); issued, not waited
-template <int NG>
-__device__ __forceinline__ void issue_pv(float (&O)[8][4], const float (&S)[NG][4], float mul,
+// past the block's 8 NG keys is zero), and at head dim 72 Ot += P.V's dims
+// 64..79 from the slot's tail; issued, not waited
+template <int kHd, int NG>
+__device__ __forceinline__ void issue_pv(float (&O)[8][4], float (&Ot)[2][4],
+                                         const float (&S)[NG][4], float mul,
                                          const float (&mref)[2], const float (&inv)[2],
-                                         const Tiled& t, int pos) {
+                                         const Tiled<kHd>& t, int pos) {
   constexpr float kLog2e = 1.4426950408889634f;
   const float k = mul * kLog2e;
   constexpr int KS = (NG + 1) / 2;
@@ -901,6 +962,11 @@ __device__ __forceinline__ void issue_pv(float (&O)[8][4], const float (&S)[NG][
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < KS; ++j) wgmma_rs<1>(O, P[j], sw128_desc(v_s + j * 16 * kRowBytes), 1);
+  if constexpr (kHd != kDh) {
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      wgmma_rs16<1>(Ot, P[j], sw32_desc(v_s + kTileBytes + j * 16 * kTailDims * 2), 1);
+  }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
@@ -914,17 +980,21 @@ __device__ __forceinline__ void issue_pv(float (&O)[8][4], const float (&S)[NG][
 // every wgmma of the kernel when a branch that differs between the warps of
 // the warpgroup touches a product's registers, or when the products in
 // flight would need more registers than the launch bound leaves.
-template <int pass, int NG, bool kMask>
-__device__ __forceinline__ void tiled_block(const uint32_t (&qf)[4][4], int kb, int pos,
-                                            bool v_free, Tiled& t, float (&m)[2],
-                                            float (&l)[2], const float (&mref)[2],
-                                            const float (&inv)[2], float (&O)[8][4]) {
+template <int pass, int NG, bool kMask, int kHd>
+__device__ __forceinline__ void tiled_block(const uint32_t (&qf)[4][4], const uint32_t (&qt)[4],
+                                            int kb, int pos, bool v_free, Tiled<kHd>& t,
+                                            float (&m)[2], float (&l)[2], const float (&mref)[2],
+                                            const float (&inv)[2], float (&O)[8][4],
+                                            float (&Ot)[2][4]) {
   float S[8][4];
   t.wait_full(pos);
-  issue_s(S, qf, sw128_desc(t.slot(pos)));
+  issue_s<kHd>(S, qf, qt, t.slot(pos));
   wgmma_wait0();
   keep(S);
-  if constexpr (pass == 1) keep(O);
+  if constexpr (pass == 1) {
+    keep(O);
+    if constexpr (kHd != kDh) keep(Ot);
+  }
   t.refill(v_free ? 2 : 1);
   float(&live)[NG][4] = reinterpret_cast<float(&)[NG][4]>(S);
   float mul = t.scale;  // the scores are mul * S
@@ -942,26 +1012,28 @@ __device__ __forceinline__ void tiled_block(const uint32_t (&qf)[4][4], int kb, 
   if constexpr (pass == 0) {
     fold(live, mul, m, l);
   } else {
-    issue_pv(O, live, mul, mref, inv, t, pos);
+    issue_pv<kHd>(O, Ot, live, mul, mref, inv, t, pos);
     wgmma_wait0();
     keep(O);
+    if constexpr (kHd != kDh) keep(Ot);
   }
 }
 
 // One pass over the tile's live key blocks in order, from ring position pos
 // on. pass 0 folds each row's max and sum into m and l, pass 1 adds P.V into
 // O. tail_ng: groups of 8 keys of the last block below T.
-template <int pass, bool kMask>
-__device__ __forceinline__ void tiled_pass(const uint32_t (&qf)[4][4], int& pos, int tail_ng,
-                                           Tiled& t, float (&m)[2], float (&l)[2],
-                                           const float (&mref)[2], const float (&inv)[2],
-                                           float (&O)[8][4]) {
+template <int pass, bool kMask, int kHd>
+__device__ __forceinline__ void tiled_pass(const uint32_t (&qf)[4][4], const uint32_t (&qt)[4],
+                                           int& pos, int tail_ng, Tiled<kHd>& t, float (&m)[2],
+                                           float (&l)[2], const float (&mref)[2],
+                                           const float (&inv)[2], float (&O)[8][4],
+                                           float (&Ot)[2][4]) {
   bool v_free = false;  // the previous block's V slot waits to be refilled
-  for (int kb = t.next_live<kMask>(-1); kb < t.n_kb;
-       kb = t.next_live<kMask>(kb), pos += 1 + pass) {
+  for (int kb = t.template next_live<kMask>(-1); kb < t.n_kb;
+       kb = t.template next_live<kMask>(kb), pos += 1 + pass) {
     const int ng = kb == t.n_kb - 1 ? tail_ng : 8;
 #define HGR_TILED_BLOCK(NG, MASK) \
-  tiled_block<pass, NG, MASK>(qf, kb, pos, v_free, t, m, l, mref, inv, O)
+  tiled_block<pass, NG, MASK, kHd>(qf, qt, kb, pos, v_free, t, m, l, mref, inv, O, Ot)
     if (kMask && t.code(kb) == kGlobal) {
       HGR_TILED_BLOCK(8, kMask);
     } else if (ng == 8) {
@@ -979,26 +1051,38 @@ __device__ __forceinline__ void tiled_pass(const uint32_t (&qf)[4][4], int& pos,
   if (v_free) t.refill(1);
 }
 
-// One block, one warpgroup: query tile qt (64 rows) of one (prompt, head);
-// blockIdx.x = (prompt * H + head) * n_qt + qt. codes (the pre-pass's,
-// with a mask) says which key blocks are dead; kMask: there is a mask (its
-// code is compiled only then).
-template <bool kMask>
-__global__ void __launch_bounds__(kTiledThreads, kMask ? 3 : 4)
+// One block, kWg warpgroups: query tile qt (64 kWg rows, 64 a warpgroup) of
+// one (prompt, head); blockIdx.x = (prompt * H + head) * n_qt + qt. The
+// warpgroups share each K and V tile of the ring (kWg 2: head dim 72
+// without a mask past T = 64). codes (the pre-pass's, with a mask; kWg 1)
+// says which key blocks are dead; kMask: there is a mask (its code is
+// compiled only then). kHd: the head dim, 64 or 72; at 72 q's dims 64..71
+// come from q itself (their A fragment is two words a lane, dims 72..79
+// zero), K's and V's through the tail maps, and the output's dims 64..71 go
+// from their accumulators straight to o.
+template <bool kMask, int kHd, int kWg>
+__global__ void __launch_bounds__(kTiledThreads * kWg,
+                                  kWg == 2 ? 2 : kMask || kHd != kDh ? 3 : 4)
 attention_fwd_bf16_tiled(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap kt_map,
+                         const __grid_constant__ CUtensorMap vt_map,
+                         const bf16* __restrict__ q, Strides qs,
                          const float* __restrict__ mask, const uint8_t* __restrict__ codes,
                          bf16* __restrict__ o, int H, int T_len, float scale, Strides os) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t q_s = (raw + 1023) & ~1023u;  // the Q tile, then the ring
+  const int wg = kWg == 1 ? 0 : threadIdx.x >> 7;  // this thread's warpgroup: its 64 rows
+  const uint32_t q_base = (raw + 1023) & ~1023u;  // the Q tiles, then the ring
+  const uint32_t q_s = q_base + wg * kTileBytes;
   uint8_t* smem = smem_raw + (q_s - raw);
-  const uint32_t ring = q_s + kTileBytes;
-  const uint32_t full = ring + kSlots * kTileBytes, q_bar = full + 8 * kSlots;
-  const int n_kb = (T_len + kTile - 1) / kTile;
-  const int qt = blockIdx.x % n_kb, bh = blockIdx.x / n_kb, b = bh / H, hd = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t ring = q_base + kWg * kTileBytes;
+  const uint32_t full = ring + kSlots * kRingSlotBytes<kHd>, q_bar = full + 8 * kSlots;
+  const int n_kb = (T_len + kTile - 1) / kTile, n_qt = (T_len + kWg * kTile - 1) / (kWg * kTile);
+  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt, b = bh / H, hd = bh % H;
+  const int warp = kWg == 1 ? threadIdx.x >> 5 : (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int row0 = (qt * kWg + wg) * kTile;  // this warpgroup's first query row
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kSlots; ++s) mbar_init(full + 8 * s, 1);  // thread 0's expect_tx
@@ -1006,14 +1090,16 @@ attention_fwd_bf16_tiled(const __grid_constant__ CUtensorMap q_map,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  Tiled t{ring, full, &k_map, &v_map, mask,
-          codes != nullptr ? codes + qt * n_kb : nullptr, scale, T_len, n_kb, hd, b,
-          qt * kTile + warp * 16 + (lane >> 2), lane, 0, 0, 0, false};
+  Tiled<kHd> t{ring, full, &k_map, &v_map, &kt_map, &vt_map, mask,
+               codes != nullptr ? codes + qt * n_kb : nullptr, scale, T_len, n_kb, hd, b,
+               row0 + warp * 16 + (lane >> 2), lane, 0, 0, 0, false};
   t.load_kb = t.next_live(-1);
   t.load_pass = t.load_kb < n_kb ? 0 : 2;  // 2: nothing to load
   if (threadIdx.x == 0) {
-    mbar_expect_tx(q_bar, kTileBytes);
-    tma_load(q_s, &q_map, q_bar, hd, qt * kTile, b);
+    mbar_expect_tx(q_bar, kWg * kTileBytes);
+#pragma unroll
+    for (int w = 0; w < kWg; ++w)
+      tma_load(q_base + w * kTileBytes, &q_map, q_bar, hd, (qt * kWg + w) * kTile, b);
   }
   for (int s = 0; s < kSlots; ++s) t.load_next();
 
@@ -1021,7 +1107,18 @@ attention_fwd_bf16_tiled(const __grid_constant__ CUtensorMap q_map,
   const int tail_ng = tail <= 8 ? 1 : tail <= 16 ? 2 : tail <= 32 ? 4 : 8;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mref[2] = {0.f, 0.f},
         inv[2] = {0.f, 0.f};
-  float O[8][4];  // the output's fp32 accumulators, from the second pass on
+  float O[8][4];   // the output's fp32 accumulators, from the second pass on
+  float Ot[2][4];  // at head dim 72: its dims 64..79
+  uint32_t qtf[4] = {0u, 0u, 0u, 0u};  // at head dim 72: q's dims 64..79 (72.. zero)
+  if constexpr (kHd != kDh) {
+    const bf16* qh = q + b * qs.b + hd * qs.h + kDh + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = t.row + 8 * h;
+      const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(qh + min(r, T_len - 1) * qs.t));
+      qtf[h] = r < T_len ? w : 0u;
+    }
+  }
   mbar_wait(q_bar, 0);
   uint32_t qf[4][4];  // this warp's 16 q rows as A fragments, dims 16 kk..+15
   {
@@ -1030,7 +1127,7 @@ attention_fwd_bf16_tiled(const __grid_constant__ CUtensorMap q_map,
     for (int kk = 0; kk < kDh / 16; ++kk) ldsm_x4(qa ^ (kk << 5), qf[kk]);
   }
   int pos = 0;
-  tiled_pass<0, kMask>(qf, pos, tail_ng, t, m, l, mref, inv, O);
+  tiled_pass<0, kMask>(qf, qtf, pos, tail_ng, t, m, l, mref, inv, O, Ot);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mref[h] = m[h] == -INFINITY ? 0.f : m[h];
@@ -1040,11 +1137,15 @@ attention_fwd_bf16_tiled(const __grid_constant__ CUtensorMap q_map,
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
-  tiled_pass<1, kMask>(qf, pos, tail_ng, t, m, l, mref, inv, O);
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) Ot[n][e] = 0.f;
+  tiled_pass<1, kMask>(qf, qtf, pos, tail_ng, t, m, l, mref, inv, O, Ot);
 
   // the output through the Q tile, once every warp is done with it
   __syncthreads();
-  if (qt * kTile + warp * 16 >= T_len) return;  // this warp's rows all lie past T
+  if (row0 + warp * 16 >= T_len) return;  // this warp's rows all lie past T
   const int r0 = warp * 16 + (lane >> 2), c2 = 2 * (lane & 3);
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -1056,10 +1157,19 @@ attention_fwd_bf16_tiled(const __grid_constant__ CUtensorMap q_map,
   bf16* oh = o + b * os.b + hd * os.h;
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = warp * 16 + i / kChunks, c = i % kChunks, gr = qt * kTile + r;
+    const int r = warp * 16 + i / kChunks, c = i % kChunks, gr = row0 + r;
     if (gr < T_len)
       *reinterpret_cast<uint4*>(oh + gr * os.t + c * 8) =
           *reinterpret_cast<const uint4*>(smem + swz(r, c));
+  }
+  if constexpr (kHd != kDh) {  // dims 64..71: a quad's four words are a row's 16 bytes
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = row0 + r0 + 8 * h;
+      if (gr < T_len)
+        *reinterpret_cast<uint32_t*>(oh + gr * os.t + kDh + c2) =
+            pack_bf16(Ot[0][2 * h], Ot[0][2 * h + 1]);
+    }
   }
 }
 
@@ -1087,43 +1197,66 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
 }
 
 // the tensor map of q, k or v: dims (Dh, H, T, B) with the caller's strides,
-// 64 x 64 boxes in the 128-byte swizzle, zeros out of bounds
-bool tile_map(EncodeTiled encode, CUtensorMap* map, const bf16* p, int B, int H, int T_len,
-              Strides s) {
-  const cuuint64_t dims[4] = {kDh, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
+// boxes of 64 rows x 64 dims in the 128-byte swizzle (tail: of 16 dims in the
+// 32-byte swizzle), zeros out of bounds
+bool tile_map(EncodeTiled encode, CUtensorMap* map, const bf16* p, int Dh, int B, int H,
+              int T_len, Strides s, bool tail = false) {
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2, (cuuint64_t)s.b * 2};
-  const cuuint32_t box[4] = {kDh, 1, kTile, 1}, unit[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(tail ? kTailDims : kDh), 1, kTile, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(p), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                tail ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// codes: (T / 64 rounded up)^2 bytes of device memory, given with a mask
+// codes: (T / 64 rounded up)^2 bytes of device memory, given with a mask;
+// Dh 64, or 72 without a mask
 int launch_bf16_tiled(const bf16* q, const bf16* k, const bf16* v, const float* mask,
-                      uint8_t* codes, bf16* o, int B, int H, int T_len, float scale, Strides qs,
-                      Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+                      uint8_t* codes, bf16* o, int B, int H, int T_len, int Dh, float scale,
+                      Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   const int n_kb = (T_len + kTile - 1) / kTile;
-  const long long n_blocks = (long long)B * H * n_kb;
-  if (n_blocks > 0x7fffffffLL || (mask != nullptr && codes == nullptr)) return -1;
+  // two warpgroups a block share each K and V tile at head dim 72 without a
+  // mask past T = 64: 128-row query tiles
+  const int wgs = Dh == kWideDh && mask == nullptr && T_len > kTile ? 2 : 1;
+  const int n_qt = (T_len + wgs * kTile - 1) / (wgs * kTile);
+  const long long n_blocks = (long long)B * H * n_qt;
+  if (n_blocks > 0x7fffffffLL || (mask != nullptr && codes == nullptr) ||
+      (Dh != kDh && (Dh != kWideDh || mask != nullptr)))
+    return -1;
   EncodeTiled encode;
   cudaError_t e = encode_tiled(&encode);
   if (e != cudaSuccess) return (int)e;
-  CUtensorMap maps[3];
-  if (!tile_map(encode, &maps[0], q, B, H, T_len, qs) ||
-      !tile_map(encode, &maps[1], k, B, H, T_len, ks) ||
-      !tile_map(encode, &maps[2], v, B, H, T_len, vs))
+  CUtensorMap maps[5];
+  if (!tile_map(encode, &maps[0], q, Dh, B, H, T_len, qs) ||
+      !tile_map(encode, &maps[1], k, Dh, B, H, T_len, ks) ||
+      !tile_map(encode, &maps[2], v, Dh, B, H, T_len, vs))
     return kTensorMapRefused;
-  auto kernel = mask != nullptr ? attention_fwd_bf16_tiled<true> : attention_fwd_bf16_tiled<false>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTiledSmemBytes);
+  if (Dh == kDh) {  // no tail: the maps are passed and never read
+    maps[3] = maps[1];
+    maps[4] = maps[2];
+  } else if (!tile_map(encode, &maps[3], k, Dh, B, H, T_len, ks, true) ||
+             !tile_map(encode, &maps[4], v, Dh, B, H, T_len, vs, true)) {
+    return kTensorMapRefused;
+  }
+  auto kernel = Dh == kDh ? (mask != nullptr ? attention_fwd_bf16_tiled<true, kDh, 1>
+                                             : attention_fwd_bf16_tiled<false, kDh, 1>)
+                : wgs == 2 ? attention_fwd_bf16_tiled<false, kWideDh, 2>
+                           : attention_fwd_bf16_tiled<false, kWideDh, 1>;
+  const int smem = Dh == kDh ? kTiledSmemBytes<kDh>
+                   : wgs == 2 ? kTiledSmemBytes<kWideDh, 2> : kTiledSmemBytes<kWideDh>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   if (mask != nullptr) {
     attention_mask_codes<<<dim3(n_kb, n_kb), 256, 0, stream>>>(mask, T_len, codes);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<(int)n_blocks, kTiledThreads, kTiledSmemBytes, stream>>>(
-      maps[0], maps[1], maps[2], mask, mask != nullptr ? codes : nullptr, o, H, T_len, scale, os);
+  kernel<<<(int)n_blocks, kTiledThreads * wgs, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], q, qs, mask,
+      mask != nullptr ? codes : nullptr, o, H, T_len, scale, os);
   return (int)cudaGetLastError();
 }
 
@@ -1644,13 +1777,14 @@ int hgr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
       return launch_f32<16>(qf, kf, vf, mask, cf, of, B, H, T_len, scale, qs, ks, vs, os, st);
     return -1;
   }
-  if (dtype != 1 || Dh != kDh) return -1;
+  if (dtype != 1 || (Dh != kDh && (Dh != kWideDh || mask != nullptr))) return -1;
   const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
-  if (T_len > kShortMaxT)
+  // head dim 72 takes the tiled kernel at every T (SigLIP's text tower at 64)
+  if (T_len > kShortMaxT || Dh == kWideDh)
     return launch_bf16_tiled(qb, kb, vb, mask, static_cast<uint8_t*>(codes), ob, B, H, T_len,
-                             scale, qs, ks, vs, os, st);
+                             Dh, scale, qs, ks, vs, os, st);
   // One pass while a warp's scores (8 x RT fp32 registers) fit its register
   // budget without spilling (-Xptxas -v), T <= 96. Block size and resident
   // blocks per SM set that budget: 65536 / (warps per SM rounded up to 4 per

@@ -50,13 +50,16 @@
 // flight:
 // - add_layer_norm gives each row to one warp (eight rows a block, a grid
 //   over rows). A lane loads its 16-byte vectors of x and delta (V of them,
-//   V = D / 256 for bf16 rounded up: 1 to 4 up to D = 1024; 1 to 8 in fp32)
+//   V = D / 256 for bf16 rounded up: 1 to 5 up to D = 1280; 1 to 10 in fp32)
 //   before it computes, stores s, and keeps the row in registers between
 //   the mean, the variance and the output, so that each byte is read once
 //   and both reductions are warp shuffles, with no shared memory and no
 //   block barrier. V is a template argument, so the row lives in registers;
-//   lanes past the row's last vector only add zeros to the sums. x and
-//   delta may come with a row stride (ln_post's class-token rows). The
+//   lanes past the row's last vector only add zeros to the sums. A width
+//   that is not a multiple of 256 leaves the last vectors ragged: SigLIP
+//   So400m's 1,152 is 144 vectors, five on lanes 0-15 and four on the
+//   rest. x and delta may come with a row stride (ln_post's class-token
+//   rows). The
 //   fp32 weight and bias are read through the L1 as each lane's 16-byte
 //   slices; no fold, cache or per-call preparation.
 // - quick_gelu is a grid-stride pass over 16-byte vectors, four loads a
@@ -89,7 +92,7 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kLnWarps = 8;        // rows a block of add_layer_norm, a warp a row
-constexpr int kMaxWidth = 1024;    // the widest row a warp keeps in registers
+constexpr int kMaxWidth = 1280;    // the widest row a warp keeps in registers (bf16: V = 5)
 constexpr int kGeluThreads = 256;
 constexpr int kGeluBlocksPerSm = 4;
 constexpr int kGeluUnroll = 4;     // 16-byte vectors a thread loads before it computes
@@ -593,7 +596,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. x (and delta, when not null) are `rows`
 // rows of `width` elements, row i at element i * x_ld (d_ld); s (with delta)
 // and y are written as contiguous [rows, width]. w and b are fp32 [width].
-// width is a multiple of 8 from 8 to 1024; every pointer is 16-byte aligned
+// width is a multiple of 8 from 8 to 1280; every pointer is 16-byte aligned
 // and every row stride a multiple of 16 bytes and at least the width. With
 // delta, s = x + delta and y = LayerNorm(s); without, y = LayerNorm(x) and s
 // is not written. Returns 0, a cudaError_t from the launch, or -1 for

@@ -5,18 +5,22 @@
 one to one. ``clip_init`` draws every parameter from an explicit
 ``torch.Generator`` with the distributions of the JAX ``*_init`` functions
 (not their bits). ``encode_image`` takes NHWC images, raw uint8 or float,
-as the JAX function does. The image tower is the modified ResNet or, when
-``vision_patch_size > 0``, the ViT: OpenAI's block, or EVA-02's where
-``vision_block`` is ``"eva02"`` (``models/eva_vit.py``, EVA02-CLIP); only a
-ViT takes ``remat``, as in JAX. Neither encode takes an attention: each
-tower picks the hand kernels or their plain twins itself, from whether
-autograd would record (``ops.ln_act.autograd_records``).
+as the JAX function does, normalised with the configuration's
+``image_mean`` and ``image_std``. The image tower is the modified ResNet
+or, when ``vision_patch_size > 0``, the ViT: OpenAI's block, EVA-02's where
+``vision_block`` is ``"eva02"`` (``models/eva_vit.py``, EVA02-CLIP), or
+SigLIP's where it is ``"siglip"`` (``models/siglip.py``: no class token,
+the MAP head; its text tower bidirectional, pooled at its last position
+through a ``head`` with a bias, and a ``logit_bias`` beside
+``logit_scale``); only a ViT takes ``remat``, as in JAX. Neither encode
+takes an attention: each tower picks the hand kernels or their plain twins
+itself, from whether autograd would record (``ops.ln_act.autograd_records``).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -26,9 +30,16 @@ from ..utils.profiling import annotate
 from .eva_vit import EVAVisionTransformer
 from .layers import Embedding, LayerNorm, _param, l2_normalize, normal_
 from .resnet import ModifiedResNet
+from .siglip import SigLIPVisionTransformer
 from .text_encoder import text_encoder_apply
 from .transformer import Transformer
 from .vit import VisionTransformer
+
+
+# CLIP preprocessing constants (reference clip/clip.py:76-77); the default of
+# the on-device normalisation of raw-uint8 batches
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 @dataclass(frozen=True)
@@ -45,10 +56,21 @@ class CLIPConfig:
     transformer_width: int = 512
     transformer_heads: int = 8
     transformer_layers: int = 12
-    # beyond OpenAI's CLIP (EVA02-CLIP); the defaults are OpenAI's
-    vision_block: str = "openai"     # the ViT's block: "openai" or "eva02"
-    vision_mlp_width: int = 0        # eva02: the SwiGLU's width
-    text_activation: str = "quick_gelu"  # the text MLP's: "quick_gelu" or "gelu"
+    # beyond OpenAI's CLIP (EVA02-CLIP, SigLIP); the defaults are OpenAI's
+    vision_block: str = "openai"     # the ViT's block: "openai", "eva02" or "siglip"
+    vision_mlp_width: int = 0        # eva02: the SwiGLU's width; siglip: the MLP's
+    vision_head_width: int = 64      # a ViT's head width (both towers' in siglip)
+    text_activation: str = "quick_gelu"  # the text MLP's: "quick_gelu", "gelu", "gelu_tanh"
+    text_mlp_width: int = 0          # 0: 4 x transformer_width
+    text_ln_eps: float = 1e-5        # the text tower's LayerNorms'
+    text_causal: bool = True         # False: every position attends to every other
+    text_pool: str = "eot"           # the text feature's row: "eot" (argmax id) or "last"
+    text_head_bias: bool = False     # a bias after text_projection
+    text_tokenizer: str = "bpe"      # the ids' tokenizer: "bpe" (OpenAI's, text/) or
+                                     # "sentencepiece" (SigLIP's spiece.model, not in the port)
+    logit_bias: bool = False         # a logit_bias beside logit_scale (SigLIP's sigmoid loss)
+    image_mean: Tuple[float, float, float] = CLIP_MEAN
+    image_std: Tuple[float, float, float] = CLIP_STD
 
     @property
     def is_vit(self) -> bool:
@@ -57,9 +79,44 @@ class CLIPConfig:
     @property
     def vision_heads(self) -> int:
         if self.is_vit:
-            return self.vision_width // 64
+            return self.vision_width // self.vision_head_width
         return self.vision_width * 32 // 64
 
+
+# SigLIP So400m/14 at 384 px (Zhai et al. 2023, arXiv:2303.15343; the
+# SoViT-400m shape of Alabdulmohsin et al. 2023, arXiv:2305.13035;
+# huggingface.co/google/siglip-so400m-patch14-384, config.json, built by
+# transformers' models/siglip/modeling_siglip.py): both towers 1,152 wide,
+# 27 layers of 16 heads of 72, MLP 4,304 with gelu_pytorch_tanh,
+# LayerNorm eps 1e-6; a 27 x 27 grid (T = 729, no class token), the MAP
+# head; text 64 positions over 32,000 SentencePiece ids, no mask, pooled
+# at the last position through a 1,152 x 1,152 head with a bias; image
+# mean and std 0.5
+SIGLIP_SO400M = CLIPConfig(
+    embed_dim=1152,
+    image_resolution=384,
+    vision_layers=(27,),
+    vision_width=1152,
+    vision_patch_size=14,
+    context_length=64,
+    vocab_size=32000,
+    transformer_width=1152,
+    transformer_heads=16,
+    transformer_layers=27,
+    vision_block="siglip",
+    vision_mlp_width=4304,
+    vision_head_width=72,
+    text_activation="gelu_tanh",
+    text_mlp_width=4304,
+    text_ln_eps=1e-6,
+    text_causal=False,
+    text_pool="last",
+    text_head_bias=True,
+    text_tokenizer="sentencepiece",
+    logit_bias=True,
+    image_mean=(0.5, 0.5, 0.5),
+    image_std=(0.5, 0.5, 0.5),
+)
 
 # The zoo (hyperparameters of the public OpenAI checkpoints: the JAX
 # package's, hgr_tpu/models/clip.py:55-115, and ViT-L/14) and the tiny
@@ -124,6 +181,7 @@ CONFIGS: Dict[str, CLIPConfig] = {
         vision_mlp_width=2730,
         text_activation="gelu",
     ),
+    "SigLIP-SO400M/14@384": SIGLIP_SO400M,
     "TEST-RN": CLIPConfig(
         embed_dim=64,
         image_resolution=32,
@@ -163,6 +221,22 @@ CONFIGS: Dict[str, CLIPConfig] = {
                                # the rotary's positions are scaled by 16 / 4
         text_activation="gelu",
     ),
+    # SigLIP's block at head width 72, 2 layers, no class token (T = 16)
+    "TEST-SIGLIP": replace(
+        SIGLIP_SO400M,
+        embed_dim=144,
+        image_resolution=32,
+        vision_layers=(2,),
+        vision_width=144,
+        vision_patch_size=8,
+        context_length=16,
+        vocab_size=512,
+        transformer_width=144,
+        transformer_heads=2,
+        transformer_layers=2,
+        vision_mlp_width=538,
+        text_mlp_width=538,
+    ),
 }
 
 
@@ -177,11 +251,19 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.vision_block not in ("openai", "eva02") or cfg.text_activation not in (
-                "quick_gelu", "gelu"):
-            raise ValueError(f"unknown vision_block {cfg.vision_block!r} or text_activation "
-                             f"{cfg.text_activation!r}")
-        if cfg.vision_block == "eva02":
+        if (cfg.vision_block not in ("openai", "eva02", "siglip")
+                or cfg.text_activation not in ("quick_gelu", "gelu", "gelu_tanh")
+                or cfg.text_pool not in ("eot", "last")
+                or cfg.text_tokenizer not in ("bpe", "sentencepiece")):
+            raise ValueError(f"unknown vision_block {cfg.vision_block!r}, text_activation "
+                             f"{cfg.text_activation!r}, text_pool {cfg.text_pool!r} or "
+                             f"text_tokenizer {cfg.text_tokenizer!r}")
+        if cfg.vision_block == "siglip":
+            self.visual = SigLIPVisionTransformer(
+                cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
+                cfg.vision_layers[0], cfg.vision_heads, cfg.vision_mlp_width,
+            )
+        elif cfg.vision_block == "eva02":
             self.visual = EVAVisionTransformer(
                 cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
                 cfg.vision_layers[0], cfg.vision_heads, cfg.vision_mlp_width, cfg.embed_dim,
@@ -198,12 +280,18 @@ class CLIP(nn.Module):
             )
         w = cfg.transformer_width
         self.transformer = Transformer(w, cfg.transformer_layers, cfg.transformer_heads,
-                                       exact_gelu=cfg.text_activation == "gelu")
+                                       activation=cfg.text_activation,
+                                       mlp_width=cfg.text_mlp_width or 4 * w,
+                                       eps=cfg.text_ln_eps)
         self.token_embedding = Embedding(cfg.vocab_size, w)
         self.positional_embedding = _param(cfg.context_length, w)
-        self.ln_final = LayerNorm(w)
+        self.ln_final = LayerNorm(w, cfg.text_ln_eps)
         self.text_projection = _param(w, cfg.embed_dim)
+        # SigLIP's text head is a Linear with a bias: OpenAI's projection
+        # ([in, out]) and this bias; and its sigmoid loss's logit bias
+        self.text_projection_bias = _param(cfg.embed_dim) if cfg.text_head_bias else None
         self.logit_scale = _param(())
+        self.logit_bias = _param(()) if cfg.logit_bias else None
 
 
 def clip_init(
@@ -220,13 +308,13 @@ def clip_init(
     normal_(m.text_projection, cfg.transformer_width ** -0.5, generator)
     with torch.no_grad():
         m.logit_scale.fill_(math.log(1.0 / 0.07))  # clip/model.py:291
+        if m.text_projection_bias is not None:
+            m.text_projection_bias.zero_()
+        if m.logit_bias is not None:
+            # SigLIP's initialisation: t' = log 10, b = -10 (arXiv:2303.15343 sec. 3.2)
+            m.logit_scale.fill_(math.log(10.0))
+            m.logit_bias.fill_(-10.0)
     return m.to(device) if device is not None else m
-
-
-# CLIP preprocessing constants (reference clip/clip.py:76-77); used by the
-# on-device normalisation of raw-uint8 batches.
-CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
-CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 def encode_image(
@@ -239,8 +327,8 @@ def encode_image(
         if images.dtype == torch.uint8:
             # raw uint8 edge: normalise on the device in fp32, then cast
             with annotate("clip.normalize"):
-                mean = torch.tensor(CLIP_MEAN, device=images.device) * 255.0
-                scale = 1.0 / (torch.tensor(CLIP_STD, device=images.device) * 255.0)
+                mean = torch.tensor(m.cfg.image_mean, device=images.device) * 255.0
+                scale = 1.0 / (torch.tensor(m.cfg.image_std, device=images.device) * 255.0)
                 images = (images.float() - mean) * scale
         x = images.to(dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
         if m.cfg.is_vit:

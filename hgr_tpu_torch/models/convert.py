@@ -8,15 +8,20 @@ architecture from the shapes (``hgr_tpu/models/convert.py:103-157``, the
 reference's ``build_model``, ``clip/model.py:395-432``), and EVA-CLIP's
 ``CustomCLIP`` layout too (``visual.patch_embed``, ``visual.blocks``:
 ``models/eva_vit.py``; the text tower under ``text.``, which the loader
-takes off, since the port keeps OpenAI's top-level names).
-The port's modules carry the checkpoints' key names, so loading is
+takes off, since the port keeps OpenAI's top-level names), and
+``transformers``' ``SiglipModel`` layout (``vision_model.*``,
+``text_model.*``, ``logit_bias``; ``_siglip_names`` maps it onto the
+port's names, fusing each attention's q, k and v into ``in_proj``; of
+SigLIP the sniffer takes So400m/14 at 384 px only, since the file holds
+neither the head width nor the image size). ``read_state_dict`` is the
+reading without the sniffing. The port's modules carry the checkpoints' key names, so loading is
 near-identity: tensors become fp32, and BatchNorm's ``num_batches_tracked``
 counters, the archive's ``input_resolution``/``context_length``/
 ``vocab_size`` entries, and what the port derives, EVA's rotary tables
 (``visual.rope.freqs_cos`` and ``_sin``, repeated in each block's
-``attn.rope``) and a text tower's causal ``attn_mask``, are dropped. No
-published EVA-CLIP checkpoint has been read: the layout is held to
-EVA-CLIP's key names in the tests.
+``attn.rope``), a text tower's causal ``attn_mask`` and SigLIP's
+``position_ids``, are dropped. No published EVA-CLIP or SigLIP checkpoint
+has been read: the layouts are held to their key names in the tests.
 
 ``from_jax_params`` is the inverse of ``hgr_tpu/models/convert.py:
 convert_state_dict`` (``:160-205``): it takes the JAX pytree with numpy (or
@@ -34,7 +39,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from .clip import CLIPConfig
+from .clip import SIGLIP_SO400M, CLIPConfig
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -150,7 +155,8 @@ _NOT_WEIGHTS = ("input_resolution", "context_length", "vocab_size")
 
 
 def _is_weight(key: str) -> bool:
-    return (key not in _NOT_WEIGHTS and not key.endswith(("num_batches_tracked", "attn_mask"))
+    return (key not in _NOT_WEIGHTS
+            and not key.endswith(("num_batches_tracked", "attn_mask", "position_ids"))
             and not (key.startswith("visual.") and key.endswith((".freqs_cos", ".freqs_sin"))))
 
 
@@ -161,9 +167,76 @@ def _openai_name(key: str) -> str:
     return key[len("text."):] if key.startswith("text.") else key
 
 
+# SiglipModel's names (transformers, models/siglip/modeling_siglip.py) -> the
+# port's: whole keys, then a block's (or the MAP head's) part after its
+# prefix; q, k and v are fused apart (_siglip_names)
+_SIGLIP_TOP = {
+    "text_model.embeddings.token_embedding.weight": "token_embedding.weight",
+    "text_model.embeddings.position_embedding.weight": "positional_embedding",
+    "text_model.final_layer_norm.weight": "ln_final.weight",
+    "text_model.final_layer_norm.bias": "ln_final.bias",
+    "text_model.head.bias": "text_projection_bias",
+    "vision_model.embeddings.patch_embedding.weight": "visual.conv1.weight",
+    "vision_model.embeddings.patch_embedding.bias": "visual.conv1.bias",
+    "vision_model.embeddings.position_embedding.weight": "visual.positional_embedding",
+    "vision_model.post_layernorm.weight": "visual.post_layernorm.weight",
+    "vision_model.post_layernorm.bias": "visual.post_layernorm.bias",
+}
+_SIGLIP_PREFIX = {"text_model.encoder.layers.": "transformer.resblocks.",
+                  "vision_model.encoder.layers.": "visual.transformer.resblocks.",
+                  "vision_model.head.": "visual.attn_pool."}
+_SIGLIP_PART = {"layer_norm1": "ln_1", "layer_norm2": "ln_2", "mlp.fc1": "mlp.c_fc",
+                "mlp.fc2": "mlp.c_proj", "self_attn.out_proj": "attn.out_proj",
+                "attention": "attn"}
+
+
+def _siglip_part(rest: str) -> str:
+    for a, b in _SIGLIP_PART.items():
+        if rest.startswith(a + "."):
+            return b + rest[len(a):]
+    return rest
+
+
+def _siglip_names(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """A ``SiglipModel`` state dict under the port's names: each block's
+    ``self_attn.{q,k,v}_proj`` concatenated into ``attn.in_proj_weight`` and
+    ``_bias`` (``nn.MultiheadAttention``'s packing, which the MAP head's
+    ``attention`` already has), the text ``head`` Linear's weight transposed
+    into ``text_projection`` ([in, out], as OpenAI's), ``logit_scale`` and
+    ``logit_bias`` ([1] in the file) as scalars."""
+    out: StateDict = {}
+    for k, v in sd.items():
+        if k in _SIGLIP_TOP:
+            out[_SIGLIP_TOP[k]] = v
+        elif k == "text_model.head.weight":
+            out["text_projection"] = v.t().contiguous()
+        elif k in ("logit_scale", "logit_bias"):
+            out[k] = v.reshape(())
+        elif ".self_attn." in k and k.split(".")[-2] in ("q_proj", "k_proj", "v_proj"):
+            block, kind = k[: k.index(".self_attn.")], k.split(".")[-1]
+            pre = next(p for p in _SIGLIP_PREFIX if block.startswith(p))
+            name = f"{_SIGLIP_PREFIX[pre]}{block[len(pre):]}.attn.in_proj_{kind}"
+            if name not in out:
+                a = f"{block}.self_attn."
+                out[name] = torch.cat([sd[f"{a}{n}_proj.{kind}"] for n in "qkv"])
+        else:
+            pre = next((p for p in _SIGLIP_PREFIX if k.startswith(p)), None)
+            if pre is None:
+                raise KeyError(f"no port name for SigLIP's {k}")
+            rest = k[len(pre):]
+            if pre.endswith("layers."):
+                i, rest = rest.split(".", 1)
+                rest = f"{i}.{_siglip_part(rest)}"
+            out[_SIGLIP_PREFIX[pre] + _siglip_part(rest)] = v
+    return out
+
+
 def sniff_config(sd: Mapping[str, Any]) -> CLIPConfig:
-    """The architecture of an OpenAI- or EVA02-CLIP-layout ``state_dict``,
+    """The architecture of an OpenAI-, EVA02-CLIP- or SigLIP-layout
+    ``state_dict`` (SigLIP's under the port's names, ``_siglip_names``),
     from its shapes (``hgr_tpu/models/convert.py:103-157``)."""
+    if "visual.attn_pool.probe" in sd:
+        return _sniff_siglip(sd)
     is_vit = "visual.proj" in sd
     embed_dim = sd["text_projection"].shape[1]
     context_length = sd["positional_embedding"].shape[0]
@@ -199,15 +272,62 @@ def sniff_config(sd: Mapping[str, Any]) -> CLIPConfig:
                       vision_width=sd["visual.layer1.0.conv1.weight"].shape[0], **text)
 
 
-def load_torch_checkpoint(path: str) -> Tuple[CLIPConfig, StateDict]:
-    """An OpenAI CLIP ``.pt``, or an EVA02-CLIP ``state_dict`` in
-    ``CustomCLIP``'s layout, -> (config, fp32 ``state_dict`` on the CPU that
-    ``CLIP(config).load_state_dict`` takes). A TorchScript archive is tried
-    first, then a pickled ``state_dict`` (or a module holding one)."""
+def _siglip_shapes(sd: Mapping[str, Any]) -> Dict[str, int]:
+    """A SigLIP state dict's geometry, under the port's names."""
+    def layers(prefix):
+        n = prefix.count(".")
+        return len({k.split(".")[n] for k in sd if k.startswith(prefix)})
+
+    conv = sd["visual.conv1.weight"]
+    return dict(
+        width=conv.shape[0], patch=conv.shape[-1],
+        positions=sd["visual.positional_embedding"].shape[0],
+        layers=layers("visual.transformer.resblocks."),
+        mlp=sd["visual.transformer.resblocks.0.mlp.c_fc.weight"].shape[0],
+        text_width=sd["ln_final.weight"].shape[0], text_layers=layers("transformer.resblocks."),
+        text_mlp=sd["transformer.resblocks.0.mlp.c_fc.weight"].shape[0],
+        context=sd["positional_embedding"].shape[0], vocab=sd["token_embedding.weight"].shape[0],
+        embed=sd["text_projection"].shape[1])
+
+
+def _sniff_siglip(sd: Mapping[str, Any]) -> CLIPConfig:
+    """SigLIP So400m/14 at 384 px (``clip.SIGLIP_SO400M``), the one SigLIP
+    tower the port reads. A SigLIP state dict holds neither its head width
+    nor its image size (a stride of 14 leaves 6 of 384 px unread), so any
+    other shapes are refused, named, rather than guessed."""
+    c = SIGLIP_SO400M
+    want = dict(width=c.vision_width, patch=c.vision_patch_size,
+                positions=(c.image_resolution // c.vision_patch_size) ** 2,
+                layers=c.vision_layers[0], mlp=c.vision_mlp_width,
+                text_width=c.transformer_width, text_layers=c.transformer_layers,
+                text_mlp=c.text_mlp_width, context=c.context_length, vocab=c.vocab_size,
+                embed=c.embed_dim)
+    found = _siglip_shapes(sd)
+    if found != want:
+        raise ValueError(f"the port reads SigLIP So400m/14 at 384 px only ({want}); "
+                         f"this state dict has {found}")
+    return c
+
+
+def read_state_dict(path: str) -> StateDict:
+    """An OpenAI CLIP ``.pt``, an EVA02-CLIP ``state_dict`` in
+    ``CustomCLIP``'s layout, or a SigLIP one in ``SiglipModel``'s, as an
+    fp32 ``state_dict`` on the CPU under the port's names. A TorchScript
+    archive is tried first, then a pickled ``state_dict`` (or a module
+    holding one)."""
     try:
         sd = torch.jit.load(path, map_location="cpu").state_dict()
     except Exception:
         obj = torch.load(path, map_location="cpu", weights_only=False)
         sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
-    sd = {_openai_name(k): v.detach().float() for k, v in sd.items() if _is_weight(k)}
+    sd = {k: v.detach().float() for k, v in sd.items() if _is_weight(k)}
+    if "vision_model.embeddings.patch_embedding.weight" in sd:
+        sd = _siglip_names(sd)
+    return {_openai_name(k): v for k, v in sd.items()}
+
+
+def load_torch_checkpoint(path: str) -> Tuple[CLIPConfig, StateDict]:
+    """``read_state_dict`` and its config (``sniff_config``): what
+    ``CLIP(config).load_state_dict`` takes."""
+    sd = read_state_dict(path)
     return sniff_config(sd), sd

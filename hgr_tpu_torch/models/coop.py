@@ -29,6 +29,7 @@ import torch
 
 from ..ops import ln_act
 from .layers import causal_mask, l2_normalize
+from .text_encoder import pool_text
 
 N_CTX_DEFAULT = 16
 POSITIONS = ("end", "middle", "front")
@@ -110,11 +111,12 @@ def coop_encode_text(
     emb = torch.where((ctx_map >= 0)[..., None], ctx_rows, emb)
     x = emb + m.positional_embedding[:T].to(dtype)
     records = ln_act.autograd_records(x, m.transformer, m.ln_final)
+    if not m.cfg.text_causal:
+        raise ValueError("CoOp's prompts are cut after their EOT, which only a causal text "
+                         "tower allows")
     x = m.transformer(x, causal_mask(T, device=x.device), records, remat,
                       ln_final=m.ln_final)
-    eot = tokenized.argmax(dim=-1)  # first maximal index, as jnp.argmax
-    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
-    return pooled @ m.text_projection.to(dtype)
+    return pool_text(m, x, tokenized, dtype)
 
 
 def make_coop_text_fn(

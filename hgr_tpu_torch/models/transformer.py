@@ -4,9 +4,12 @@
 Behaviour of the reference's ``Transformer`` / ``ResidualAttentionBlock``
 (``clip/model.py:153-199``): QuickGELU MLP, packed-QKV attention, optional
 causal mask, and the reference's init scheme (``clip/model.py:302-315``).
-With ``exact_gelu`` the MLP's activation is ``torch.nn.functional.gelu``
-instead: EVA-CLIP's text tower (``eva_clip/model.py`` builds ``nn.GELU``
-where the model config has no ``quick_gelu`` key).
+The MLP's ``activation`` may instead be ``"gelu"``, exact GELU: EVA-CLIP's
+text tower (``eva_clip/model.py`` builds ``nn.GELU`` where the model config
+has no ``quick_gelu`` key), or ``"gelu_tanh"``, GELU's tanh form in one
+PyTorch op (SigLIP's ``gelu_pytorch_tanh``, both towers); its width
+``mlp_width`` (4 x width by default, SigLIP's 4,304) and the LayerNorms'
+``eps`` (SigLIP's 1e-6) are the architecture's.
 The JAX package stacks the blocks for ``lax.scan``; here they are a
 ``ModuleList`` run by a Python loop, under the OpenAI names
 ``resblocks.{i}.attn.in_proj_weight`` and so on.
@@ -22,7 +25,8 @@ fused order: the attention is ``ops.attention.attention`` (K1), each
 residual add goes into the LayerNorm that follows it
 (``ops.ln_act.add_layer_norm``: the attention half's into ``ln_2``, the MLP
 half's into the next block's ``ln_1`` or into ``ln_final``), and QuickGELU
-is ``ops.ln_act.quick_gelu`` (K3). On CUDA those are the kernels; on the
+is ``ops.ln_act.quick_gelu`` (K3); the GELUs are PyTorch's op on both
+paths. On CUDA those are the kernels; on the
 CPU, the plain twins, which give the plain block's result bit for bit. A
 check that holds the kernels' path to the plain attention substitutes
 ``attention_scores`` for this module's name ``attention``.
@@ -55,10 +59,24 @@ class MultiheadAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, width: int):
+    def __init__(self, width: int, hidden: int = 0):
         super().__init__()
-        self.c_fc = Linear(width, 4 * width)
-        self.c_proj = Linear(4 * width, width)
+        hidden = hidden or 4 * width
+        self.c_fc = Linear(width, hidden)
+        self.c_proj = Linear(hidden, width)
+
+
+ACTIVATIONS = ("quick_gelu", "gelu", "gelu_tanh")
+
+
+def activate(h: torch.Tensor, activation: str, fused: bool = False) -> torch.Tensor:
+    """The MLP's activation: QuickGELU (K3's ``quick_gelu`` where ``fused``,
+    its twin otherwise), exact GELU or GELU's tanh form."""
+    if activation == "gelu":
+        return F.gelu(h)
+    if activation == "gelu_tanh":
+        return F.gelu(h, approximate="tanh")
+    return ln_act.quick_gelu(h) if fused else quick_gelu(h)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -66,19 +84,21 @@ class ResidualAttentionBlock(nn.Module):
     and the MLP half ``{span}.mlp`` (``utils/profiling.annotate``); in
     ``forward_fused`` the attention half's span holds its add (in ``ln_2``)
     and the MLP half's span holds the MLP's add (in the next LayerNorm).
-    ``exact_gelu`` takes GELU for QuickGELU (K3's ``quick_gelu`` in the
-    fused order)."""
+    ``activation`` is one of ``ACTIVATIONS`` (QuickGELU is K3's
+    ``quick_gelu`` in the fused order)."""
 
     def __init__(self, width: int, heads: int, span: Optional[str] = None,
-                 exact_gelu: bool = False):
+                 activation: str = "quick_gelu", mlp_width: int = 0, eps: float = 1e-5):
         super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
         self.heads = heads
-        self.exact_gelu = exact_gelu
+        self.activation = activation
         self.spans = (f"{span}.attn", f"{span}.mlp") if span else None
         self.attn = MultiheadAttention(width)
-        self.ln_1 = LayerNorm(width)
-        self.mlp = MLP(width)
-        self.ln_2 = LayerNorm(width)
+        self.ln_1 = LayerNorm(width, eps)
+        self.mlp = MLP(width, mlp_width)
+        self.ln_2 = LayerNorm(width, eps)
 
     def init(self, g: torch.Generator, layers: int) -> None:
         """``block_init``: attention std ``w^-0.5``, projections
@@ -105,7 +125,7 @@ class ResidualAttentionBlock(nn.Module):
             )
         with self._span(1):
             h = self.mlp.c_fc(self.ln_2(x))
-            return x + self.mlp.c_proj(F.gelu(h) if self.exact_gelu else quick_gelu(h))
+            return x + self.mlp.c_proj(activate(h, self.activation))
 
     def forward_fused(
         self,
@@ -126,8 +146,7 @@ class ResidualAttentionBlock(nn.Module):
                        a.out_proj.bias, self.heads, mask, attention)
             x, h = add_ln(x, attn, self.ln_2)
         with self._span(1):
-            h = self.mlp.c_fc(h)
-            out = self.mlp.c_proj(F.gelu(h) if self.exact_gelu else ln_act.quick_gelu(h))
+            out = self.mlp.c_proj(activate(self.mlp.c_fc(h), self.activation, fused=True))
             if ln_next is None:
                 return x + out, None
             return add_ln(x, out, ln_next)
@@ -135,13 +154,15 @@ class ResidualAttentionBlock(nn.Module):
 
 class Transformer(nn.Module):
     """``span`` names the spans each block records (``ResidualAttentionBlock``);
-    None records none. ``exact_gelu``: every block's MLP takes GELU."""
+    None records none. ``activation``, ``mlp_width`` and ``eps``: every
+    block's."""
 
     def __init__(self, width: int, layers: int, heads: int, span: Optional[str] = None,
-                 exact_gelu: bool = False):
+                 activation: str = "quick_gelu", mlp_width: int = 0, eps: float = 1e-5):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, span, exact_gelu) for _ in range(layers)
+            ResidualAttentionBlock(width, heads, span, activation, mlp_width, eps)
+            for _ in range(layers)
         )
 
     def init(self, g: torch.Generator) -> None:

@@ -30,7 +30,9 @@ from . import build
 
 HEAD_DIM = 64
 # the head dims each dtype's device kernel takes; pad_head_dim pads the rest
-KERNEL_HEAD_DIMS = {torch.float32: (16, 64), torch.bfloat16: (64,)}
+# below the largest (bf16's 72 is SigLIP So400m's, whose zero columns 72..79
+# the tiled kernel's own loads supply)
+KERNEL_HEAD_DIMS = {torch.float32: (16, 64), torch.bfloat16: (64, 72)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_int, _c_ll, _c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -69,8 +71,8 @@ def _check(q, k, v, mask) -> None:
         raise ValueError(f"attention kernel takes bfloat16 or float32, not {q.dtype}")
     if Dh not in KERNEL_HEAD_DIMS[q.dtype] or T < 1:
         raise ValueError(
-            f"attention kernel takes Dh == {HEAD_DIM} (float32 also 16) and T >= 1; "
-            f"got Dh={Dh} ({q.dtype}), T={T}"
+            f"attention kernel takes Dh in {KERNEL_HEAD_DIMS[q.dtype]} in {q.dtype} and "
+            f"T >= 1; got Dh={Dh}, T={T}"
         )
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -89,6 +91,8 @@ def _check(q, k, v, mask) -> None:
             )
         if not mask.is_contiguous():
             raise ValueError("mask must be contiguous")
+        if q.dtype == torch.bfloat16 and Dh != HEAD_DIM:
+            raise ValueError(f"attention kernel takes no mask at head dim {Dh}")
 
 
 def refuse_autograd(q, k, v) -> None:
@@ -103,16 +107,19 @@ def refuse_autograd(q, k, v) -> None:
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """q, k, v with their head dim zero-padded to the next one the kernel
-    takes in their dtype (``KERNEL_HEAD_DIMS``: bf16 64; fp32 16 or 64, so
-    the TEST configurations' fp32 16 goes unpadded), as the Pallas wrapper
-    pads its head dim to 128 (``hgr_tpu/ops/attention.py:89-99``): zero
-    columns add nothing to q.k^T and give zero output columns, which the
-    caller cuts off. Returns the three and the true head dim, whose
-    ``Dh ** -0.5`` stays the softmax scale."""
+    takes in their dtype (``KERNEL_HEAD_DIMS``: bf16 64 or 72; fp32 16 or
+    64, so the TEST configurations' fp32 16 goes unpadded), as the Pallas
+    wrapper pads its head dim to 128 (``hgr_tpu/ops/attention.py:89-99``):
+    zero columns add nothing to q.k^T and give zero output columns, which
+    the caller cuts off. Returns the three and the true head dim, whose
+    ``Dh ** -0.5`` stays the softmax scale. A head dim past the dtype's
+    largest is refused: fp32 has no kernel at 72 (SigLIP So400m's towers
+    run it in bf16; in fp32 they run on the CPU's plain twin)."""
     dh = q.shape[-1]
-    if dh > HEAD_DIM:
-        raise ValueError(f"attention kernel takes Dh <= {HEAD_DIM}; got Dh={dh}")
-    to = min(d for d in KERNEL_HEAD_DIMS.get(q.dtype, (HEAD_DIM,)) if d >= dh)
+    dims = KERNEL_HEAD_DIMS.get(q.dtype, (HEAD_DIM,))
+    if dh > max(dims):
+        raise ValueError(f"attention kernel takes Dh <= {max(dims)} in {q.dtype}; got Dh={dh}")
+    to = min(d for d in dims if d >= dh)
     if dh < to:
         q, k, v = (torch.nn.functional.pad(t, (0, to - dh)) for t in (q, k, v))
     return q, k, v, dh
@@ -123,8 +130,9 @@ def attention_cuda(
 ) -> torch.Tensor:
     """Launch K1 on CUDA tensors; returns ``[B, H, T, Dh]`` (a view of a
     ``[B, T, H, Dh]`` buffer, so merging the heads back costs no copy).
-    fp32 runs at head dim 16 (the TEST configurations') or 64 as it is; any
-    other head dim under 64, and bf16's 16, is padded (``pad_head_dim``)."""
+    fp32 runs at head dim 16 (the TEST configurations') or 64 as it is,
+    bf16 at 64 or 72; any other head dim under the dtype's largest, and
+    bf16's 16, is padded (``pad_head_dim``)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention_cuda takes CUDA tensors, got {q.device}")
     refuse_autograd(q, k, v)

@@ -22,8 +22,8 @@ The kernels take bf16 or fp32 activations and fp32 LayerNorm parameters
 with the LayerNorm's own ``eps`` (``models.layers.LayerNorm.eps``), and
 return contiguous tensors with no ``grad_fn``: a CUDA call that autograd
 would record raises. ``add_layer_norm`` takes widths in multiples of 8 from
-8 to 1024 (every CLIP tower's, and EVA-02's 1,024-wide norms) and rows
-given with a row stride; ``glu_layer_norm`` the w1/w2 GEMM's contiguous
+8 to 1280 (every CLIP tower's, EVA-02's 1,024-wide norms and SigLIP
+So400m's 1,152) and rows given with a row stride; ``glu_layer_norm`` the w1/w2 GEMM's contiguous
 output [..., 2 np], np the LayerNorm's width n rounded up to a multiple of
 8 and at most 3072 (EVA02-CLIP-L/14's 2,730 -> 2,736).
 """
@@ -39,7 +39,7 @@ from ..models.layers import glu_layer_norm as glu_layer_norm_twin, layer_norm
 from ..models.layers import quick_gelu as quick_gelu_twin
 from . import build
 
-MAX_WIDTH = 1024
+MAX_WIDTH = 1280
 GLU_MAX_WIDTH = 3072
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_int, _c_ll, _c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p

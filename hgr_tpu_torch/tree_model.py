@@ -19,8 +19,9 @@ so the port, train it.
 
 Node prompts are a class name in the first template of ``--template``'s
 bank, BPE-tokenised (``node_prompts``, ``text/``), or, without a tokenizer,
-the synthetic ones (``synthetic_tokens``). Either way the token bank is cut
-after the longest prompt's EOT, to a multiple of 16.
+the synthetic ones (``synthetic_tokens``). Either way the token bank of a
+causal text tower is cut after the longest prompt's EOT, to a multiple of
+16; a bidirectional one's (SigLIP's) keeps its context length.
 """
 
 from __future__ import annotations
@@ -119,6 +120,11 @@ class TreeModel:
         clip_cfg = get_config(config.arch)
         n = hier.num_nodes
         n_pad = pad_to(n, pad_multiple)
+        if tokenizer is not None and clip_cfg.text_tokenizer != "bpe":
+            raise ValueError(
+                f"{config.arch} reads prompts through a {clip_cfg.text_tokenizer} tokenizer "
+                f"(SigLIP's spiece.model, 32,000 pieces), which the port does not have; "
+                f"it runs the synthetic prompts only")
         if tokenizer is not None:
             tokens = tokenizer.tokenize(node_prompts(hier, config.template, names),
                                         clip_cfg.context_length)
@@ -130,12 +136,15 @@ class TreeModel:
             name_token_ids = [list(map(int, tokens[i, 1: int(tokens[i].argmax())]))
                               for i in range(n)]
         tokens = pad_tokens(tokens, n_pad)
-        # exact token-bank truncation: with a causal mask and EOT pooling,
-        # positions past a prompt's EOT never reach its feature; cut the
-        # all-padding tail to a multiple of 16 (tree_model.py:136-147)
-        t_need = int(tokens.argmax(axis=1).max()) + 1
-        t_trunc = min(clip_cfg.context_length, max(16, ((t_need + 15) // 16) * 16))
-        tokens = np.ascontiguousarray(tokens[:, :t_trunc])
+        if clip_cfg.text_causal:
+            # exact token-bank truncation: with a causal mask and EOT pooling,
+            # positions past a prompt's EOT never reach its feature; cut the
+            # all-padding tail to a multiple of 16 (tree_model.py:136-147).
+            # Without the mask every pad position reaches every feature, so
+            # the bank keeps the tower's context length.
+            t_need = int(tokens.argmax(axis=1).max()) + 1
+            t_trunc = min(clip_cfg.context_length, max(16, ((t_need + 15) // 16) * 16))
+            tokens = np.ascontiguousarray(tokens[:, :t_trunc])
 
         depth = np.full(n_pad, PAD, np.int32)
         depth[:n] = hier.depth

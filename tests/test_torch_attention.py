@@ -169,8 +169,11 @@ def test_mha_strided_heads_match_contiguous():
 
 
 BAD_ARGUMENTS = [
-    (dict(Dh=32), "Dh == 64"),
-    (dict(Dh=16, dtype=torch.bfloat16), "Dh == 64"),
+    (dict(Dh=32), r"Dh in \(16, 64\)"),
+    (dict(Dh=72), r"Dh in \(16, 64\)"),
+    (dict(Dh=16, dtype=torch.bfloat16), r"Dh in \(64, 72\)"),
+    (dict(Dh=80, dtype=torch.bfloat16), r"Dh in \(64, 72\)"),
+    (dict(Dh=72, dtype=torch.bfloat16), "no mask at head dim 72"),
     (dict(T=0), "T >= 1"),
     (dict(dtype=torch.float16), "bfloat16 or float32"),
     (dict(mask_dtype=torch.float64), "mask must be float32"),
@@ -213,15 +216,18 @@ def test_kernel_argument_checks():
 
 
 def _check_head_dim_padding():
-    """fp32 at head dim 16 (TEST-RN's) goes to the kernel as it is, which
-    the argument checks accept; bf16 at 16, and fp32 at 32, are
-    zero-padded to 64 before the kernel, which is then given the true
-    scale dh^-0.5: that arithmetic, on the CPU, equals the plain attention
-    of the unpadded heads; over 64 raises."""
-    q, k, v = map(torch.from_numpy, _qkv(20, seed=4, Dh=16))
-    qp, kp, vp, dh = k1.pad_head_dim(q, k, v)
-    assert dh == 16 and qp is q and kp is k and vp is v
-    k1._check(q, k, v, causal_mask(20))
+    """fp32 at head dim 16 (TEST-RN's) and bf16 at 72 (SigLIP So400m's,
+    whose zero columns the kernel's own loads supply; it takes no mask) go
+    to the kernel as they are, which the argument checks accept; bf16 at 16,
+    and fp32 at 32, are zero-padded to 64 before the kernel, which is then
+    given the true scale dh^-0.5: that arithmetic, on the CPU, equals the
+    plain attention of the unpadded heads; fp32 over 64 and bf16 over 72
+    raise."""
+    for dtype, width in ((torch.float32, 16), (torch.bfloat16, 72)):
+        q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(20, seed=4, Dh=width))
+        qp, kp, vp, dh = k1.pad_head_dim(q, k, v)
+        assert dh == width and qp is q and kp is k and vp is v
+        k1._check(q, k, v, causal_mask(20) if width == 16 else None)
     for dtype, width in ((torch.bfloat16, 16), (torch.float32, 32)):
         q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(20, seed=4, Dh=width))
         qp, kp, vp, dh = k1.pad_head_dim(q, k, v)
@@ -235,7 +241,10 @@ def _check_head_dim_padding():
             np.testing.assert_allclose(got.numpy(), attention_scores(q, k, v, mask).numpy(),
                                        atol=ATOL)
     with pytest.raises(ValueError, match="Dh <= 64"):
-        k1.pad_head_dim(*map(torch.from_numpy, _qkv(4, seed=5, Dh=80)))
+        k1.pad_head_dim(*map(torch.from_numpy, _qkv(4, seed=5, Dh=72)))
+    with pytest.raises(ValueError, match="Dh <= 72"):
+        k1.pad_head_dim(*(torch.from_numpy(x).to(torch.bfloat16)
+                          for x in _qkv(4, seed=5, Dh=80)))
 
 
 class _BN:
@@ -411,22 +420,24 @@ class _LN:
 def _ln_act_refuses_bad_arguments():
     """K3 refuses, before any launch and each with its own message, what its
     kernels do not take (dtype, a width that is not a multiple of 8 or is
-    over 1024, a delta of another shape, dtype or device, LayerNorm
+    over 1280, a delta of another shape, dtype or device, LayerNorm
     parameters that are not float32 [D], rows without one row stride or
     off 16 bytes, QuickGELU on a strided or ragged tensor), devices other
     than the CPU and CUDA, and a call that autograd would record; the row
     strides of the calls it takes (``ln_post``'s class-token rows, rows
-    narrower than their stride)."""
+    narrower than their stride, SigLIP So400m's width 1,152)."""
     x = torch.zeros(4, 5, 64, dtype=torch.bfloat16)
     assert k3._check(x, x, *vars(_LN(64)).values()) == (64, 64)
     assert k3._check(x[:, :1], None, *vars(_LN(64)).values()) == (5 * 64, 0)
     assert k3._check(x[:, 2], x[:, 3], *vars(_LN(64)).values()) == (5 * 64, 5 * 64)
     assert k3._check(x[:1, 1:2], None, *vars(_LN(64)).values()) == (64, 0)
     assert k3._check(x[..., :56], None, *vars(_LN(56)).values()) == (64, 0)
+    wide = torch.zeros(3, 1152, dtype=torch.bfloat16)
+    assert k3._check(wide, wide, *vars(_LN(1152)).values()) == (1152, 1152)
     cases = [
         ((x.half(), None, _LN(64)), "bfloat16 or float32"),
         ((torch.zeros(3, 12), None, _LN(12)), "multiples of 8"),
-        ((torch.zeros(3, 1032), None, _LN(1032)), "up to 1024"),
+        ((torch.zeros(3, 1288), None, _LN(1288)), "up to 1280"),
         ((x, x[:, :2], _LN(64)), "delta must match"),
         ((x, x.float(), _LN(64)), "delta must match"),
         ((x, torch.zeros(4, 5, 64, dtype=torch.bfloat16, device="meta"), _LN(64)),

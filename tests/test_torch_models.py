@@ -193,14 +193,15 @@ def test_vit_image_tower_matches_jax(monkeypatch):
     """ViT features in fp32 against JAX, rtol 1e-4 + atol 1e-5, from raw
     uint8 and float images, for each configuration of ``VIT``; the ViT
     blocks' spans (``_check_vit_block_spans``); and the transformer's fused
-    blocks against its plain ones (``_check_fused_blocks``), EVA-02's too
-    (``_check_eva_fused_blocks``)."""
+    blocks against its plain ones (``_check_fused_blocks``), EVA-02's and
+    SigLIP's too (``_check_eva_fused_blocks``, ``_check_siglip_fused_blocks``)."""
     for name in VIT:
         _vit_matches_jax(*VIT[name])
     _check_vit_block_spans()
     for dtype in (torch.float32, torch.bfloat16):
         _check_fused_blocks(monkeypatch, dtype)
         _check_eva_fused_blocks(monkeypatch, dtype)
+        _check_siglip_fused_blocks(monkeypatch, dtype)
 
 
 def _vit_matches_jax(arch, over):
@@ -251,17 +252,24 @@ def test_rn_configs_match_jax():
     layout (``_check_eva02_geometry``), read from a file under EVA-CLIP's
     ``CustomCLIP`` names (``_check_eva02_checkpoint_layout``) and, cut
     small, held to the eva02 family's reference
-    (``_check_eva02_cut_reference``).
+    (``_check_eva02_cut_reference``); and SigLIP-SO400M/14@384 with its
+    TEST-SIGLIP, held to the published config.json
+    (``_check_siglip_geometry``), read from a file under ``SiglipModel``'s
+    names (``_check_siglip_checkpoint_layout``), its token bank kept whole
+    (``_check_siglip_bank``) and TEST-SIGLIP held to the siglip family's
+    reference (``_check_siglip_reference``).
     RN50x4's image tower at 64 px (its attention pool: 2,560 channels, 40
     heads of 64, 5 tokens) matches JAX's with weights drawn by the port and
     carried to JAX by its ``convert_state_dict`` and back by
     ``from_jax_params``."""
-    assert set(tclip.CONFIGS) - set(jclip.CONFIGS) == {"ViT-L/14", "EVA02-CLIP-L/14", "TEST-EVA"}
+    assert set(tclip.CONFIGS) - set(jclip.CONFIGS) == {
+        "ViT-L/14", "EVA02-CLIP-L/14", "TEST-EVA", "SigLIP-SO400M/14@384", "TEST-SIGLIP"}
     for name, cfg in jclip.CONFIGS.items():
         assert dataclasses.asdict(tclip.get_config(name)) == \
             dict(dataclasses.asdict(cfg), **PORT_DEFAULTS), name
     assert zoo.OFFICIAL_SHA256 == jzoo.OFFICIAL_SHA256
-    assert zoo.available_models() == jzoo.available_models() + ["ViT-L/14", "EVA02-CLIP-L/14"]
+    assert zoo.available_models() == jzoo.available_models() + [
+        "ViT-L/14", "EVA02-CLIP-L/14", "SigLIP-SO400M/14@384"]
     cfg = dataclasses.replace(tclip.get_config("RN50x4"), image_resolution=64)
     assert cfg.vision_heads == 40 and cfg.transformer_heads == 10
     m = tclip.clip_init(cfg, torch.Generator().manual_seed(0)).eval()
@@ -276,11 +284,19 @@ def test_rn_configs_match_jax():
     _check_eva02_geometry()
     _check_eva02_checkpoint_layout()
     _check_eva02_cut_reference()
+    _check_siglip_geometry()
+    _check_siglip_checkpoint_layout()
+    _check_siglip_bank()
+    _check_siglip_reference()
 
 
-# the port's CLIPConfig fields beyond the JAX package's (for EVA02-CLIP), at
-# the values that keep OpenAI's architectures
-PORT_DEFAULTS = dict(vision_block="openai", vision_mlp_width=0, text_activation="quick_gelu")
+# the port's CLIPConfig fields beyond the JAX package's (for EVA02-CLIP and
+# SigLIP), at the values that keep OpenAI's architectures
+PORT_DEFAULTS = dict(vision_block="openai", vision_mlp_width=0, vision_head_width=64,
+                     text_activation="quick_gelu", text_mlp_width=0, text_ln_eps=1e-5,
+                     text_causal=True, text_pool="eot", text_head_bias=False,
+                     text_tokenizer="bpe", logit_bias=False,
+                     image_mean=tclip.CLIP_MEAN, image_std=tclip.CLIP_STD)
 
 # OpenAI's ViT-L/14 (clip/clip.py's "ViT-L/14" entry of _MODELS, whose
 # checkpoint clip/model.py build_model reads these from): vision 1024 wide,
@@ -779,3 +795,335 @@ def _check_eva_fused_blocks(monkeypatch, dtype):
     assert names == ["vit.attn", "eva.rope", "vit.mlp", "eva.glu"] * Li
     assert all(spans[s.parent].name == {"eva.rope": "vit.attn", "eva.glu": "vit.mlp"}[s.name]
                for s in spans if s.name.startswith("eva."))
+
+
+# google/siglip-so400m-patch14-384's config.json (huggingface.co), the fields
+# that set its geometry, as transformers' SiglipConfig reads them; the
+# processor normalises with mean and std 0.5
+SIGLIP_SO400M_JSON = {
+    "text_config": {"hidden_size": 1152, "intermediate_size": 4304, "num_attention_heads": 16,
+                    "num_hidden_layers": 27, "max_position_embeddings": 64,
+                    "vocab_size": 32000, "hidden_act": "gelu_pytorch_tanh",
+                    "layer_norm_eps": 1e-6},
+    "vision_config": {"hidden_size": 1152, "intermediate_size": 4304, "num_attention_heads": 16,
+                      "num_hidden_layers": 27, "patch_size": 14, "image_size": 384,
+                      "hidden_act": "gelu_pytorch_tanh", "layer_norm_eps": 1e-6},
+}
+
+
+def _siglip_family():
+    """``benchmark/families/siglip.py``, loaded by its path as
+    ``_eva02_family`` loads EVA's: it imports nothing of the port."""
+    import importlib.util
+    import os
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "hbench_family_siglip", os.path.join(bench, "families", "siglip.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(bench)
+    return mod
+
+
+def _siglip_reference_cfg(cfg):
+    """A port SigLIP ``CLIPConfig`` as the siglip family's configuration."""
+    from hgr_tpu_torch.models.siglip import LN_EPS
+
+    d = _reference_cfg(cfg)
+    d["vision"].update(head_width=cfg.vision_head_width, mlp_width=cfg.vision_mlp_width,
+                       ln_eps=LN_EPS)
+    d["text"].update(head_width=cfg.transformer_width // cfg.transformer_heads,
+                     mlp_width=cfg.text_mlp_width, ln_eps=cfg.text_ln_eps)
+    return d
+
+
+def _check_siglip_geometry():
+    """``get_config("SigLIP-SO400M/14@384")`` is the published config.json
+    field by field (``SIGLIP_SO400M_JSON``): heads of 72 in both towers, T
+    = 729 with no class token, a bidirectional text tower pooled at its
+    last position through a head with a bias; the port's ``CLIP`` of it, on
+    the meta device, has the names and shapes the siglip family draws,
+    877,960,498 parameters (vision 428,225,600), whose layout
+    ``sniff_config`` reads back as the config. TEST-SIGLIP keeps the head
+    width and the tower's kind."""
+    from hgr_tpu_torch.models.convert import sniff_config
+
+    fam = _siglip_family()
+    cfg = tclip.get_config("SigLIP-SO400M/14@384")
+    v, t = SIGLIP_SO400M_JSON["vision_config"], SIGLIP_SO400M_JSON["text_config"]
+    assert (cfg.vision_width, cfg.vision_mlp_width, cfg.vision_heads, cfg.vision_layers,
+            cfg.vision_patch_size, cfg.image_resolution) == \
+        (v["hidden_size"], v["intermediate_size"], v["num_attention_heads"],
+         (v["num_hidden_layers"],), v["patch_size"], v["image_size"])
+    assert (cfg.transformer_width, cfg.text_mlp_width, cfg.transformer_heads,
+            cfg.transformer_layers, cfg.context_length, cfg.vocab_size, cfg.text_ln_eps) == \
+        (t["hidden_size"], t["intermediate_size"], t["num_attention_heads"],
+         t["num_hidden_layers"], t["max_position_embeddings"], t["vocab_size"],
+         t["layer_norm_eps"])
+    assert cfg.vision_head_width == 72 == cfg.transformer_width // cfg.transformer_heads
+    assert cfg.embed_dim == cfg.vision_width and cfg.text_activation == "gelu_tanh"
+    assert not cfg.text_causal and cfg.text_pool == "last" and cfg.text_head_bias
+    assert cfg.image_mean == cfg.image_std == (0.5, 0.5, 0.5)
+    spec = fam.param_spec(_siglip_reference_cfg(cfg))
+    sd = {k: torch.empty(shape, device="meta") for k, (shape, _, _) in spec.items()}
+    with torch.device("meta"):
+        port = tclip.CLIP(cfg).state_dict()
+    assert {k: tuple(v.shape) for k, v in port.items()} == \
+        {k: tuple(v.shape) for k, v in sd.items()}
+    assert sum(v.numel() for v in sd.values()) == 877_960_498
+    assert sum(v.numel() for k, v in sd.items() if k.startswith("visual.")) == 428_225_600
+    assert sniff_config(sd) == cfg
+    tiny = tclip.get_config("TEST-SIGLIP")
+    assert tiny.vision_head_width == 72 and tiny.vision_heads == 2
+    assert dataclasses.replace(tiny, **{f: getattr(cfg, f) for f in (
+        "embed_dim", "image_resolution", "vision_layers", "vision_width", "vision_patch_size",
+        "context_length", "vocab_size", "transformer_width", "transformer_heads",
+        "transformer_layers", "vision_mlp_width", "text_mlp_width")}) == cfg
+
+
+def _siglip_model_state_shapes(cfg):
+    """The names and shapes of ``transformers``' ``SiglipModel`` state dict
+    for ``cfg``, written out from ``modeling_siglip.py``'s modules, not from
+    the port's: ``text_model`` (embeddings, ``encoder.layers.{i}`` with
+    separate ``self_attn.{q,k,v}_proj``, ``final_layer_norm``, ``head``),
+    ``vision_model`` (the patch conv with a bias, positions without a class
+    token, the encoder, ``post_layernorm``, the MAP ``head`` with its
+    ``probe``, packed ``attention``, ``layernorm`` and ``mlp``), the
+    ``position_ids`` buffers of older files, and the two [1] logit
+    parameters. Linear weights are [out, in]."""
+    W, Hv, p = cfg.vision_width, cfg.vision_mlp_width, cfg.vision_patch_size
+    w, Ht = cfg.transformer_width, cfg.text_mlp_width
+    grid = cfg.image_resolution // p
+
+    def layers(prefix, n, width, hidden):
+        out = {}
+        for i in range(n):
+            b = f"{prefix}.encoder.layers.{i}"
+            for x in "qkv":
+                out.update({f"{b}.self_attn.{x}_proj.weight": (width, width),
+                            f"{b}.self_attn.{x}_proj.bias": (width,)})
+            out.update({f"{b}.self_attn.out_proj.weight": (width, width),
+                        f"{b}.self_attn.out_proj.bias": (width,),
+                        f"{b}.mlp.fc1.weight": (hidden, width), f"{b}.mlp.fc1.bias": (hidden,),
+                        f"{b}.mlp.fc2.weight": (width, hidden), f"{b}.mlp.fc2.bias": (width,)})
+            out.update({f"{b}.layer_norm{j}.{k}": (width,) for j in (1, 2)
+                        for k in ("weight", "bias")})
+        return out
+
+    shapes = {"logit_scale": (1,), "logit_bias": (1,),
+              "text_model.embeddings.token_embedding.weight": (cfg.vocab_size, w),
+              "text_model.embeddings.position_embedding.weight": (cfg.context_length, w),
+              "text_model.embeddings.position_ids": (1, cfg.context_length),
+              "text_model.final_layer_norm.weight": (w,), "text_model.final_layer_norm.bias": (w,),
+              "text_model.head.weight": (cfg.embed_dim, w), "text_model.head.bias": (cfg.embed_dim,),
+              "vision_model.embeddings.patch_embedding.weight": (W, 3, p, p),
+              "vision_model.embeddings.patch_embedding.bias": (W,),
+              "vision_model.embeddings.position_embedding.weight": (grid * grid, W),
+              "vision_model.embeddings.position_ids": (1, grid * grid),
+              "vision_model.post_layernorm.weight": (W,), "vision_model.post_layernorm.bias": (W,),
+              "vision_model.head.probe": (1, 1, W),
+              "vision_model.head.attention.in_proj_weight": (3 * W, W),
+              "vision_model.head.attention.in_proj_bias": (3 * W,),
+              "vision_model.head.attention.out_proj.weight": (W, W),
+              "vision_model.head.attention.out_proj.bias": (W,),
+              "vision_model.head.layernorm.weight": (W,), "vision_model.head.layernorm.bias": (W,),
+              "vision_model.head.mlp.fc1.weight": (Hv, W), "vision_model.head.mlp.fc1.bias": (Hv,),
+              "vision_model.head.mlp.fc2.weight": (W, Hv), "vision_model.head.mlp.fc2.bias": (W,)}
+    shapes.update(layers("text_model", cfg.transformer_layers, w, Ht))
+    shapes.update(layers("vision_model", cfg.vision_layers[0], W, Hv))
+    return shapes
+
+
+def _check_siglip_checkpoint_layout():
+    """A seeded state dict under ``SiglipModel``'s names
+    (``_siglip_model_state_shapes``), saved as a ``.pt``, is read by
+    ``read_state_dict``: the ``position_ids`` are dropped, and the port's
+    ``CLIP`` takes the rest strictly: each block's ``in_proj`` is its q, k
+    and v stacked, each other tensor equal to the one saved under its
+    SigLIP name (the text head's weight transposed into
+    ``text_projection``, the logit parameters as scalars). Its shapes are
+    not So400m's, so ``load_torch_checkpoint`` refuses it, naming them;
+    So400m's shapes (as meta tensors) sniff as the zoo's entry. No
+    published SigLIP checkpoint is read."""
+    import os
+    import tempfile
+
+    from hgr_tpu_torch.models import convert
+
+    cfg = tclip.get_config("TEST-SIGLIP")
+    g = torch.Generator().manual_seed(6)
+    saved = {k: torch.randn(shape, generator=g)
+             for k, shape in _siglip_model_state_shapes(cfg).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "siglip.pt")
+        torch.save(saved, path)
+        sd = convert.read_state_dict(path)
+        with pytest.raises(ValueError, match=r"So400m/14 at 384 px only .*has \{'width': 144"):
+            convert.load_torch_checkpoint(path)
+    so400m = tclip.get_config("SigLIP-SO400M/14@384")
+    meta = {k: torch.empty(shape, device="meta")
+            for k, shape in _siglip_model_state_shapes(so400m).items() if convert._is_weight(k)}
+    assert convert.sniff_config(convert._siglip_names(meta)) == so400m
+    m = tclip.CLIP(cfg)
+    m.load_state_dict(sd)
+    port = m.state_dict()
+    blocks = cfg.transformer_layers + cfg.vision_layers[0]  # six q/k/v tensors -> two each
+    assert len(port) == len(saved) - 2 - 6 * blocks + 2 * blocks
+    for tower, prefix, n in (("text_model", "transformer", cfg.transformer_layers),
+                             ("vision_model", "visual.transformer", cfg.vision_layers[0])):
+        for i in range(n):
+            for kind in ("weight", "bias"):
+                want = torch.cat([saved[f"{tower}.encoder.layers.{i}.self_attn.{x}_proj.{kind}"]
+                                  for x in "qkv"])
+                assert torch.equal(port[f"{prefix}.resblocks.{i}.attn.in_proj_{kind}"], want)
+            assert torch.equal(port[f"{prefix}.resblocks.{i}.mlp.c_fc.weight"],
+                               saved[f"{tower}.encoder.layers.{i}.mlp.fc1.weight"])
+            assert torch.equal(port[f"{prefix}.resblocks.{i}.ln_2.bias"],
+                               saved[f"{tower}.encoder.layers.{i}.layer_norm2.bias"])
+    pairs = {"text_projection_bias": "text_model.head.bias",
+             "positional_embedding": "text_model.embeddings.position_embedding.weight",
+             "visual.conv1.bias": "vision_model.embeddings.patch_embedding.bias",
+             "visual.attn_pool.probe": "vision_model.head.probe",
+             "visual.attn_pool.attn.in_proj_weight": "vision_model.head.attention.in_proj_weight",
+             "visual.attn_pool.attn.out_proj.bias": "vision_model.head.attention.out_proj.bias",
+             "visual.attn_pool.mlp.c_proj.weight": "vision_model.head.mlp.fc2.weight",
+             "visual.attn_pool.layernorm.weight": "vision_model.head.layernorm.weight",
+             "visual.post_layernorm.bias": "vision_model.post_layernorm.bias"}
+    for ours, theirs in pairs.items():
+        assert torch.equal(port[ours], saved[theirs]), ours
+    assert torch.equal(port["text_projection"], saved["text_model.head.weight"].t())
+    assert port["logit_bias"].shape == () and float(port["logit_bias"]) == \
+        float(saved["logit_bias"])
+
+
+def _check_siglip_bank():
+    """The bank of a bidirectional text tower keeps every position of its
+    context (16 at TEST-SIGLIP; a pad position reaches every feature),
+    where a causal tower's is cut after the longest EOT (TEST-ViT: 77 ->
+    32); names through a tokenizer raise for SigLIP, whose SentencePiece
+    tokenizer the port does not have."""
+    from hgr_tpu_torch.config import Config
+    from hgr_tpu_torch.hierarchy import profiled_hierarchy
+    from hgr_tpu_torch.tree_model import TreeModel
+
+    hier = profiled_hierarchy([3, 12, 30], seed=0)
+    for arch, T in (("TEST-SIGLIP", 16), ("TEST-ViT", 32)):
+        tm = TreeModel.build(Config(arch=arch), hier, pad_multiple=8, device="cpu")
+        assert tm.node_tokens.shape[1] == T, arch
+    with pytest.raises(ValueError, match="spiece.model"):
+        TreeModel.build(Config(arch="TEST-SIGLIP"), hier, tokenizer=object(), device="cpu")
+
+
+def _check_siglip_reference():
+    """TEST-SIGLIP (heads of 72, 2 layers, T = 16 with no class token) on
+    the CPU path in float32 against the siglip family's reference, on the
+    family's seeded weights loaded strictly: image features, and text
+    features of prompts the family gets cut at their longest EOT (it pads
+    them back, as the port's bank holds them). Tolerance ``REL`` (both
+    float32, differing in summation order and the pixels' normalisation);
+    bf16 in the port's place has to miss by a hundred times at least."""
+    fam = _siglip_family()
+    cfg = tclip.get_config("TEST-SIGLIP")
+    rcfg = _siglip_reference_cfg(cfg)
+    sd = fam.draw_weights(rcfg, 25, "cpu")
+    m = tclip.CLIP(cfg)
+    m.load_state_dict(sd)
+    m.eval()
+    images = torch.from_numpy(_images(cfg, True, seed=3, batch=4))
+    tokens = torch.from_numpy(_tokens(cfg, [3, 9, 12, 5], cfg.context_length)).long()
+    cut = int(tokens.argmax(dim=1).max()) + 1
+    with torch.inference_mode():
+        want_i = fam.encode_image(sd, rcfg, images)
+        want_t = fam.encode_text(sd, rcfg, tokens[:, :cut])
+        got = {dt: (tclip.encode_image(m, images, dtype=dt).float(),
+                    tclip.encode_text(m, tokens, dtype=dt).float())
+               for dt in (torch.float32, torch.bfloat16)}
+    assert want_i.shape == (4, 144) and want_t.shape == (4, 144) and cut < cfg.context_length
+    for want, f32, bf16 in ((want_i, *[got[d][0] for d in got]),
+                            (want_t, *[got[d][1] for d in got])):
+        scale = float(want.abs().max())
+        assert float((f32 - want).abs().max()) <= REL * scale
+        assert float((bf16 - want).abs().max()) > 100 * REL * scale
+
+
+def _check_siglip_fused_blocks(monkeypatch, dtype):
+    """TEST-SIGLIP without autograd: both towers' blocks run fused, K3's
+    wrapper called 2L + 1 times an encode (the image tower's last add in
+    ``post_layernorm`` over all rows, the text tower's in ``ln_final``), no
+    QuickGELU, K1's ``attention`` at head dim 72; the features equal the
+    plain blocks' bit for bit, and with a parameter or the images requiring
+    a gradient the plain blocks run and the gradient reaches it. Traced,
+    each image block records ``vit.attn`` then ``vit.mlp``, then the MAP
+    head ``siglip.map_head``."""
+    from hgr_tpu_torch.models import transformer
+    from hgr_tpu_torch.ops import ln_act
+
+    m = tclip.clip_init(tclip.get_config("TEST-SIGLIP"),
+                        torch.Generator().manual_seed(0)).eval()
+    with monkeypatch.context() as patched:
+        calls = {"add_layer_norm": 0, "quick_gelu": 0, "attention": 0}
+        for mod, name in ((ln_act, "add_layer_norm"), (ln_act, "quick_gelu"),
+                          (transformer, "attention")):
+            def counted(*a, _f=getattr(mod, name), _n=name):
+                if _n == "attention":
+                    assert a[0].shape[-1] == 72
+                calls[_n] += 1
+                return _f(*a)
+            patched.setattr(mod, name, counted)
+        _siglip_fused_towers(monkeypatch, m, dtype, calls)
+
+
+def _siglip_fused_towers(monkeypatch, m, dtype, calls):
+    """``_check_siglip_fused_blocks``' towers, with K3's and K1's calls
+    counted in ``calls``."""
+    from hgr_tpu_torch.ops import ln_act
+    from hgr_tpu_torch.utils.profiling import clear_spans, recorded_spans
+
+    cfg = m.cfg
+    images = torch.from_numpy(_images(cfg, False))
+    toks = torch.from_numpy(_tokens(cfg, [4, 9], cfg.context_length)).long()
+    Li, Lt = cfg.vision_layers[0], cfg.transformer_layers
+    towers = {  # the encode, K3's and K1's calls, the deep parameter, the input
+        "image": (lambda: tclip.encode_image(m, images, dtype=dtype), 2 * Li + 1, Li,
+                  m.visual.transformer.resblocks[-1].mlp.c_fc.weight, images),
+        "text": (lambda: tclip.encode_text(m, toks, dtype=dtype), 2 * Lt + 1, Lt,
+                 m.transformer.resblocks[-1].mlp.c_fc.weight, None),
+    }
+    for tower, (encode, n_ln, n_k1, deep, given) in towers.items():
+        calls.update(add_layer_norm=0, quick_gelu=0, attention=0)
+        with torch.inference_mode():
+            fused = encode()
+        want = {"add_layer_norm": n_ln, "quick_gelu": 0, "attention": n_k1}
+        assert calls == want, (tower, calls)
+        with monkeypatch.context() as mp:
+            mp.setattr(ln_act, "autograd_records", lambda *a: True)
+            with torch.inference_mode():
+                plain = encode()
+        assert torch.equal(fused, plain), tower
+        for needs in (deep, given):
+            if needs is None:
+                continue
+            needs.requires_grad_(True)
+            try:
+                got = encode()
+                assert got.requires_grad and torch.equal(got.detach(), fused), tower
+                got.float().square().sum().backward()
+                assert needs.grad is not None and needs.grad.abs().sum() > 0, tower
+            finally:
+                needs.requires_grad_(False)
+                needs.grad = None
+        assert calls == want, (tower, calls)
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.inference_mode():
+            tclip.encode_image(m, images, dtype=dtype)
+    spans = recorded_spans()
+    clear_spans()
+    names = [s.name for s in spans if s.name.startswith(("vit.", "siglip."))]
+    assert names == ["vit.attn", "vit.mlp"] * Li + ["siglip.map_head"]

@@ -154,9 +154,10 @@ def _load_torch_matches_jax(tmp_path, arch, monkeypatch):
         monkeypatch.setitem(zoo.OFFICIAL_SHA256, "RN50", digest)
         monkeypatch.setitem(jzoo.OFFICIAL_SHA256, "RN50", digest)
         assert zoo.verify_checkpoint(path, "RN50") is jzoo.verify_checkpoint(path, "RN50") is True
-    # the whole JAX zoo is ported; the port's further names, ViT-L/14 and
-    # EVA02-CLIP-L/14, have no digest
-    assert zoo.available_models() == jzoo.available_models() + ["ViT-L/14", "EVA02-CLIP-L/14"]
+    # the whole JAX zoo is ported; the port's further names, ViT-L/14,
+    # EVA02-CLIP-L/14 and SigLIP-SO400M/14@384, have no digest
+    assert zoo.available_models() == jzoo.available_models() + [
+        "ViT-L/14", "EVA02-CLIP-L/14", "SigLIP-SO400M/14@384"]
     assert zoo.OFFICIAL_SHA256 == jzoo.OFFICIAL_SHA256
     rcfg, model = zoo.load(arch, seed=1, device="cpu")
     assert rcfg == tclip.get_config(arch) and not model.training
