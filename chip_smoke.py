@@ -81,12 +81,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``run_test`` over one batch of 512 (432 + 24 launches at T = 257); one
    batch's features through K1 held to the plain attention's; then
    EVA02-CLIP-L/14 with seeded weights the same way (``phase_eva02_l14``:
-   432 + 24 K1 launches, K3 900 + 73 and no QuickGELU, K3's SwiGLU gate 24),
-   its features through K1 and through K3 held to the plain attention's and
-   blocks', an encode under autograd launching no K3; before it K3's gate
-   against its twin (``GLU_CASES``: bf16 within one ulp of max(|y|, |b|),
-   fp32 within ``TOL``, the pad columns +0.0; ``GLU_MAIN`` timed against its
-   bytes at 3.35 TB/s beside the twin);
+   432 + 24 K1 launches, K3 900 + 73 and no QuickGELU, K3's SwiGLU gate 24,
+   the rotary 24), its features through K1 and through K3 held to the plain
+   attention's and blocks', an encode under autograd launching neither K3
+   nor the rotary; before it K3's gate against its twin (``GLU_CASES``:
+   bf16 within one ulp of max(|y|, |b|), fp32 within ``TOL``, the pad
+   columns +0.0; ``GLU_MAIN`` timed against its bytes at 3.35 TB/s beside
+   the twin) and the rotary against its twin (``ROTARY_CASES``: within one
+   ulp; ``ROTARY_MAIN`` held to the float64 turn and timed against its bytes
+   beside the twin and the three-pass sequence it replaced);
 9. real inputs at RN50 width: the hierarchy as ``graph_edges_cls.json``,
    the splits, 18,278 word-like names, a BPE merges table learned from the
    prompts, an OpenAI-layout ``.pt`` and a decode cache of 2,048 seeded
@@ -974,7 +977,8 @@ def phase_bn_act(dev, cases=BN_ACT_CASES, encodes=BN_ACT_ENCODES):
 
 
 def ln_act_launches(clip_cfg, bank_chunks=0, image_batches=0):
-    """K3's launches, (add_layer_norm, quick_gelu, glu_layer_norm): a text
+    """The transformer kernels' launches, K3's and the rotary's, in the order
+    of ``K3_NAMES`` (add_layer_norm, quick_gelu, glu_layer_norm, rotary): a text
     encode (a bank chunk) 2L + 1, L and 0 (block 0's ln_1, each block's
     ln_2, the next block's ln_1 with the MLP's add, ln_final with the last
     one; no QuickGELU in a GELU text tower), a ViT image encode 2L + 2, L
@@ -982,19 +986,20 @@ def ln_act_launches(clip_cfg, bank_chunks=0, image_batches=0):
     plain one), an EVA-02 image encode 3L + 1, 0 and L (block 0's norm1,
     each block's inner_attn_ln and norm2, the next block's norm1 with the
     MLP's add, the final norm with the last one, on the class token's rows;
-    each block's SwiGLU gate with its ffn_ln), a SigLIP image encode 2L + 1,
-    0 and 0 (the blocks' as a text encode's, the last add in
-    post_layernorm over all rows; the MAP head's LayerNorm is PyTorch's);
-    nothing for a ResNet's image tower."""
+    each block's SwiGLU gate with its ffn_ln) and L rotaries (each block's
+    q and k), a SigLIP image encode 2L + 1, 0 and 0 (the blocks' as a text
+    encode's, the last add in post_layernorm over all rows; the MAP head's
+    LayerNorm is PyTorch's); nothing for a ResNet's image tower. The rotary
+    is 0 on every path but an EVA-02 image encode."""
     lt = clip_cfg.transformer_layers
     gelu_t = lt if clip_cfg.text_activation == "quick_gelu" else 0
     li = clip_cfg.vision_layers[0] if clip_cfg.is_vit else 0
     images = image_batches if clip_cfg.is_vit else 0
-    ln_i, gelu_i, glu_i = {"eva02": (3 * li + 1, 0, li),
-                           "siglip": (2 * li + 1, 0, 0)}.get(clip_cfg.vision_block,
-                                                             (2 * li + 2, li, 0))
+    ln_i, gelu_i, glu_i, rot_i = {"eva02": (3 * li + 1, 0, li, li),
+                                  "siglip": (2 * li + 1, 0, 0, 0)}.get(clip_cfg.vision_block,
+                                                                       (2 * li + 2, li, 0, 0))
     return (bank_chunks * (2 * lt + 1) + images * ln_i, bank_chunks * gelu_t + images * gelu_i,
-            images * glu_i)
+            images * glu_i, images * rot_i)
 
 
 def bank_chunks(tm) -> int:
@@ -1002,16 +1007,25 @@ def bank_chunks(tm) -> int:
     return tm.n_pad // min(512, tm.n_pad)
 
 
+# the transformer kernels whose launches the phases count together: K3's
+# three and EVA-02's rotary (``ln_act_launches``, ``k3_launches``)
+K3_NAMES = ("add_layer_norm", "quick_gelu", "glu_layer_norm", "rotary")
+K3_NONE = (0,) * len(K3_NAMES)
+
+
 def k3_launches():
     from hgr_tpu_torch.ops.ln_act import add_layer_norm, glu_layer_norm, quick_gelu
+    from hgr_tpu_torch.ops.rope import rotary
 
-    return add_layer_norm.launches, quick_gelu.launches, glu_layer_norm.launches
+    return add_layer_norm.launches, quick_gelu.launches, glu_layer_norm.launches, rotary.launches
 
 
 def k3_reset():
     from hgr_tpu_torch.ops.ln_act import add_layer_norm, glu_layer_norm, quick_gelu
+    from hgr_tpu_torch.ops.rope import rotary
 
     add_layer_norm.launches = quick_gelu.launches = glu_layer_norm.launches = 0
+    rotary.launches = 0
 
 
 class SeededLN:
@@ -1240,7 +1254,7 @@ def phase_ln_features(tm, batch=512):
                 mock.patch.object(eva_vit, "attention_scores", attention):
             k3_reset()
             want = l2_normalize(encode()).float()
-            assert k3_launches() == (0, 0, 0), k3_launches()
+            assert k3_launches() == K3_NONE, k3_launches()
             plain_ms = cuda_ms(encode, reps=3, warmup=1)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     err = float((got - want).abs().max())
@@ -1258,8 +1272,8 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
                 launches_expected=432, image_launches=0, folder="runs/chip_smoke",
                 checkpoint=None):
     """The zero-shot eval path at full width; returns (tm, bank, summary,
-    K1 launches during run_test, K2 launches during run_test, K3's
-    (add_layer_norm, quick_gelu) launches during run_test).
+    K1 launches during run_test, K2 launches during run_test, K3's and the
+    rotary's launches during run_test, as ``K3_NAMES`` orders them).
     ``launches_expected`` is K1's count in one bank build, ``image_launches``
     its count in one image batch; K2's is ``rn_epilogues`` a batch, K3's
     ``ln_act_launches`` of the bank's chunks and the batches. With
@@ -1299,9 +1313,9 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
     bank_ms = (time.time() - t0) * 1e3
     n, k3 = attention.launches, k3_launches()
     cuda = dev.type == "cuda"
-    k3_bank = ln_act_launches(tm.clip_cfg, bank_chunks(tm)) if cuda else (0, 0, 0)
-    log(f"[slice] bank build {bank_ms:.1f} ms on {name}; K1 launches {n}; K3 (add_layer_norm, "
-        f"quick_gelu, glu_layer_norm) {k3} (want {k3_bank})")
+    k3_bank = ln_act_launches(tm.clip_cfg, bank_chunks(tm)) if cuda else K3_NONE
+    log(f"[slice] bank build {bank_ms:.1f} ms on {name}; K1 launches {n}; K3 and rotary "
+        f"({', '.join(K3_NAMES)}) {k3} (want {k3_bank})")
     assert n == launches_expected, f"K1 launched {n} times in the bank build, not {launches_expected}"
     assert k3 == k3_bank, f"K3 launched {k3} times in the bank build, not {k3_bank}"
     assert bank.shape == (tm.n_pad, tm.clip_cfg.embed_dim), bank.shape
@@ -1314,7 +1328,7 @@ def phase_slice(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=512, batches=4,
     launches, k2, k3 = attention.launches, bn_act.launches, k3_launches()
     log(f"[slice] run_test: {json.dumps(summary)}")
     k2_want = batches * rn_epilogues(tm.clip_cfg) if cuda else 0
-    k3_want = ln_act_launches(tm.clip_cfg, bank_chunks(tm), batches) if cuda else (0, 0, 0)
+    k3_want = ln_act_launches(tm.clip_cfg, bank_chunks(tm), batches) if cuda else K3_NONE
     log(f"[slice] K1 launches during run_test: {launches}; K2 launches: {k2} (want {k2_want}); "
         f"K3: {k3} (want {k3_want})")
     want = launches_expected + image_launches * batches
@@ -1440,22 +1454,32 @@ def phase_small_reference(tm, bank):
 
 def phase_vit_features(tm, batch=512):
     """One batch of ViT image features through K1, held to the plain
-    attention's; both L2-normalised, as ``bank_logits`` uses them."""
+    attention's; both L2-normalised, as ``bank_logits`` uses them. The
+    rotary launches as ``ln_act_launches`` counts on each path (L an EVA-02
+    encode, 0 otherwise)."""
     from hgr_tpu_torch.models.clip import encode_image
     from hgr_tpu_torch.models.layers import l2_normalize
+    from hgr_tpu_torch.ops.rope import rotary
 
     res = tm.clip_cfg.image_resolution
     gen = torch.Generator(device=tm.device).manual_seed(3)
     images = torch.randn((batch, res, res, 3), generator=gen, device=tm.device)
+    rotaries = (ln_act_launches(tm.clip_cfg, image_batches=1)[K3_NAMES.index("rotary")]
+                if torch.device(tm.device).type == "cuda" else 0)
     with torch.inference_mode():
+        n = rotary.launches
         got = l2_normalize(encode_image(tm.model, images, dtype=tm.dtype)).float()
+        got_rot = rotary.launches - n
         with plain_attention():
             want = l2_normalize(encode_image(tm.model, images, dtype=tm.dtype)).float()
+        want_rot = rotary.launches - n - got_rot
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     err = float((got - want).abs().max())
     log(f"[vit] {batch} images, normalised features, kernel vs plain attention, bf16: "
-        f"max_abs_err {err:.3e} (tol 1e-2), min row cosine {float(cos.min()):.6f} (tol 0.999)")
+        f"max_abs_err {err:.3e} (tol 1e-2), min row cosine {float(cos.min()):.6f} (tol 0.999); "
+        f"rotary launches {got_rot} and {want_rot} (want {rotaries})")
     assert err <= 1e-2 and float(cos.min()) >= 0.999, "ViT features through K1 disagree"
+    assert got_rot == want_rot == rotaries, (got_rot, want_rot, rotaries)
 
 
 def run_counting_launches(fn, *args):
@@ -1463,7 +1487,7 @@ def run_counting_launches(fn, *args):
     test after training: returns the result and ``{"train_steps": n,
     "test": m}``, K2's forward's as ``k2_train_steps`` and ``k2_test``, its
     backward's as ``k2b_train_steps`` and ``k2b_test``, and K3's
-    (add_layer_norm, quick_gelu, glu_layer_norm) as ``k3_train_steps`` and
+    and the rotary's (``K3_NAMES``) as ``k3_train_steps`` and
     ``k3_test``. A
     spy on the path, not on what it computes."""
     from hgr_tpu_torch import driver
@@ -1501,9 +1525,9 @@ def check_k3_train(tag, dev, tm, seen, test_batches, frozen_encodes=0):
     context's gradient) and in the test after them (the bank's text encodes
     and the test batches' ViT encodes)."""
     cuda = dev.type == "cuda"
-    steps = ln_act_launches(tm.clip_cfg, image_batches=frozen_encodes) if cuda else (0, 0, 0)
-    test = ln_act_launches(tm.clip_cfg, bank_chunks(tm), test_batches) if cuda else (0, 0, 0)
-    log(f"[{tag}] K3 launches (add_layer_norm, quick_gelu, glu_layer_norm): "
+    steps = ln_act_launches(tm.clip_cfg, image_batches=frozen_encodes) if cuda else K3_NONE
+    test = ln_act_launches(tm.clip_cfg, bank_chunks(tm), test_batches) if cuda else K3_NONE
+    log(f"[{tag}] K3 and rotary launches ({', '.join(K3_NAMES)}): "
         f"{seen['k3_train_steps']} inside "
         f"the train steps (want {steps}), {seen['k3_test']} in the test after them (want {test})")
     assert seen["k3_train_steps"] == steps, seen
@@ -1690,7 +1714,7 @@ def phase_train_accum(dev, arch="RN50", level_sizes=LEVEL_SIZES, batch=1024, acc
         assert state.opt_state.mini_step == 0 and state.opt_state.count == u + 1
     seen = (attention.launches, bn_act.launches, bn_act_backward.launches, k3_launches())
     k2 = updates * accum * rn_epilogues(tm.clip_cfg) if dev.type == "cuda" else 0
-    want = (0, k2, k2, (0, 0, 0))
+    want = (0, k2, k2, K3_NONE)
     log(f"[train-accum] {arch} bf16 remat, batch {batch} as {accum} x {cfg.batch_size}, "
         f"{num_compare} negatives, {updates} updates: losses {losses}; parameters still after "
         f"each non-last microbatch, moved after the last; last update {update_ms:.1f} ms = "
@@ -2601,10 +2625,108 @@ def check_glu_layer_norm(dev, cases=GLU_CASES):
     return out
 
 
+# the rotary kernel's cases (B, T, rows of the buffer, Dh, dtype), each on the
+# first two thirds of a [B, T, rows, Dh] buffer's rows as the q and k of the
+# q/k/v GEMM's output: EVA02-CLIP-L/14's (16 heads, T = 257) in bf16 and
+# fp32, TEST-EVA's (2 heads, T = 17); then odd sizes: a batch that is not
+# whole row groups (5), a single row of 8 channels, a head of 72 (nine
+# 8-channel chunks), a position's rows of more than 256 chunks (a block's
+# threads loop), and Dh 128
+ROTARY_CASES = [(512, 257, 48, 64, torch.bfloat16), (512, 257, 48, 64, torch.float32),
+                (4, 17, 6, 64, torch.bfloat16), (5, 17, 6, 64, torch.float32),
+                (1, 1, 3, 8, torch.bfloat16), (3, 10, 6, 72, torch.float32),
+                (7, 37, 96, 64, torch.bfloat16), (2, 5, 48, 128, torch.bfloat16)]
+ROTARY_MAIN = ROTARY_CASES[0]
+
+
+def rotary_bytes(B, T, rows, dh, dtype) -> int:
+    """The rotary's bytes: the q and k rows read and written, the fp32
+    tables read."""
+    return 2 * B * T * rows * dh * dtype.itemsize + 2 * T * dh * 4
+
+
+def rotary_three_pass(t, cos, sin):
+    """The EVA-02 tower's rotary before its kernel: the pair swap, ``t *
+    cos`` and ``addcmul`` on the tables cast to ``t``'s dtype ([T, 1, Dh],
+    cast once an encode), each rounded to that dtype."""
+    swapped = t.unflatten(-1, (-1, 2)).flip(-1).flatten(-2)
+    return torch.addcmul(t * cos, swapped, sin)
+
+
+def check_rotary(dev, cases=ROTARY_CASES):
+    """The rotary kernel (``ops.rope.rotary``) against its twin
+    (``models.layers.rotary``) on the card, on the strided q and k rows of
+    a [B, T, 3H, Dh] buffer: within one ulp of the dtype, the share that
+    differs stated; EVA's tables where T is EVA02-CLIP-L/14's or TEST-EVA's,
+    drawn ones elsewhere. At ``ROTARY_MAIN``, the kernel, the twin and the
+    three-pass sequence the tower ran before (``rotary_three_pass``) held
+    to the float64 turn (the largest error in bf16 ulps of ``|x cos| +
+    |x' sin|``: the kernel's at most half of one, as one rounding gives),
+    and the three timed by CUDA-graph replay beside the bytes'
+    bound at 3.35 TB/s. Returns the kernel-table row of ``ROTARY_MAIN``."""
+    from hgr_tpu_torch.models.eva_vit import ROPE_REF_GRID, rope_tables
+    from hgr_tpu_torch.models.layers import rotary as twin, swap_pairs
+    from hgr_tpu_torch.ops.rope import rotary
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = None
+    for case in cases:
+        B, T, rows, dh, dtype = case
+        grid = round((T - 1) ** 0.5)
+        if dh == 64 and grid in (16, 4) and grid * grid + 1 == T:
+            cos, sin = (t.to(dev) for t in rope_tables(grid, ROPE_REF_GRID, dh))
+        else:
+            cos, sin = (torch.rand((T, dh), generator=g, device=dev) * 2 - 1 for _ in range(2))
+        buf = torch.randn((B, T, rows, dh), generator=g, device=dev) * 3
+        x = buf.to(dtype)[:, :, :2 * rows // 3]
+        del buf
+        n = rotary.launches
+        got, want = rotary(x, cos, sin), twin(x, cos, sin)
+        torch.cuda.synchronize()
+        assert rotary.launches == n + 1 and got.is_contiguous() and got.shape == x.shape
+        u = ulps_apart(got, want)
+        name = str(dtype).split(".")[-1]
+        line = (f"[rotary] [{B}, {T}, {x.shape[2]}, {dh}] {name} (row stride {x.stride(1)}): "
+                f"{int((u > 0).sum())} of {u.numel()} values differ from the twin "
+                f"({float((u > 0).float().mean()):.4%}), max {int(u.max())} ulps (tol 1)")
+        assert int(u.max()) <= 1, line
+        if case == ROTARY_MAIN:
+            cos_t, sin_t = (t.to(dtype)[:, None] for t in (cos, sin))
+            old = rotary_three_pass(x, cos_t, sin_t)
+            xc, xs = x.double() * cos.double()[:, None], swap_pairs(x).double() * sin.double()[:, None]
+            y64, ulp = xc + xs, bf16_ulp((xc.abs() + xs.abs()).float()).double()
+            del xc, xs
+            errs = {k: float(((v.double() - y64).abs() / ulp).max())
+                    for k, v in (("kernel", got), ("twin", want), ("three-pass", old))}
+            del y64, ulp, old
+            f64 = (f"[rotary] {name} against the float64 turn: largest error in bf16 ulps of "
+                   f"|x cos| + |x' sin| kernel {errs['kernel']:.4f}, twin {errs['twin']:.4f}, "
+                   f"three-pass sequence {errs['three-pass']:.4f}")
+            log(f64)
+            assert errs["kernel"] <= min(0.5 + 2 ** -6, errs["three-pass"]), f64
+            nbytes = rotary_bytes(B, T, x.shape[2], dh, dtype)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            out = dict(ms=graph_ms(lambda: rotary(x, cos, sin)),
+                       plain_ms=graph_ms(lambda: twin(x, cos, sin)),
+                       three_pass_ms=graph_ms(lambda: rotary_three_pass(x, cos_t, sin_t)),
+                       bound_ms=bound, bound_by="bytes", max_ulps=int(u.max()),
+                       differ_share=float((u > 0).float().mean()), f64_ulps=errs["kernel"],
+                       three_pass_f64_ulps=errs["three-pass"])
+            out["library_ms"] = out["plain_ms"]
+            line += (f" | kernel {out['ms']:.4f} ms, twin {out['plain_ms']:.4f} ms, three-pass "
+                     f"sequence {out['three_pass_ms']:.4f} ms, bound {bound:.4f} ms "
+                     f"({nbytes / 1e9:.3f} GB) | {bound / out['ms']:.1%} of 3.35 TB/s | "
+                     f"{smi_clock_power()}")
+        log(line)
+        del x, got, want, u
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_eva_autograd(tm, batch=8):
     """An EVA-02 image encode with a weight of its last SwiGLU requiring a
-    gradient: the plain blocks run, K3 (its gate among it) launches
-    nothing, and the gradient reaches the weight."""
+    gradient: the plain blocks run, K3 (its gate among it) and the rotary
+    launch nothing, and the gradient reaches the weight."""
     from hgr_tpu_torch.models.clip import encode_image
 
     res = tm.clip_cfg.image_resolution
@@ -2620,9 +2742,10 @@ def check_eva_autograd(tm, batch=8):
     finally:
         w.requires_grad_(False)
         w.grad = None
-    log(f"[eva02] {batch} images under autograd: K3 launches {k3_launches()} (want (0, 0, 0)); "
+    log(f"[eva02] {batch} images under autograd: K3 and rotary launches {k3_launches()} (want "
+        f"{K3_NONE}); "
         f"gradient reached the last block's w1: {reached}")
-    assert k3_launches() == (0, 0, 0) and reached
+    assert k3_launches() == K3_NONE and reached
 
 
 def phase_eva02_l14(dev):
@@ -2630,21 +2753,25 @@ def phase_eva02_l14(dev):
     EVA-02's block, vision 1024 wide, 24 layers of 16 heads, 2-D rotary,
     SwiGLU 2,730 wide, patch 14, so T = 257; the GELU text tower 768 wide,
     12 heads) with seeded weights: K3's gate against its twin
-    (``check_glu_layer_norm``), then ``run_test`` over one batch of 512
-    against the 18,432-row bank (K1: 432 launches in the bank, 24 in the
-    image tower; K3 as ``ln_act_launches`` counts: no QuickGELU, the gate 0
-    in the bank and 24 an image encode), then one batch's features through
-    K1 held to the plain attention's, and through K3 to the plain blocks',
-    and an encode under autograd (no K3). Returns K1's and K3's launches in
-    ``run_test``, K3's in that one encode, and the gate's kernel-table row."""
+    (``check_glu_layer_norm``) and the rotary against its twin
+    (``check_rotary``), then ``run_test`` over one batch of 512 against the
+    18,432-row bank (K1: 432 launches in the bank, 24 in the image tower;
+    K3 and the rotary as ``ln_act_launches`` counts: no QuickGELU, the gate
+    and the rotary 0 in the bank and 24 an image encode), then one batch's
+    features through K1 held to the plain attention's (24 rotaries on each
+    path), and through K3 and the rotary to the plain blocks' (none on the
+    plain path), and an encode under autograd (neither). Returns K1's and
+    K3's launches in ``run_test``, K3's in that one encode, and the gate's
+    and the rotary's kernel-table rows."""
     glu_row = check_glu_layer_norm(dev)
+    rotary_row = check_rotary(dev)
     tm, _, _, launches, _, k3 = phase_slice(dev, arch="EVA02-CLIP-L/14", batches=1,
                                             image_launches=24,
                                             folder="runs/chip_smoke_eva02_l14")
     phase_vit_features(tm)
     k3_encode = phase_ln_features(tm)
     check_eva_autograd(tm)
-    return launches, k3, k3_encode, glu_row
+    return launches, k3, k3_encode, glu_row, rotary_row
 
 
 # SigLIP So400m's two K1 launches at full size: an image batch's (512
@@ -3030,8 +3157,9 @@ def phase_export_text(dev, real, arch="RN50x4", bank_launches=432):
 
 
 def phase_guard(dev):
-    """K1, K2 and K3 refuse a call that autograd would record (K1 and K3
-    have no backward; K2's direct launch records no graph), and K2's
+    """K1, K2, K3 and the rotary refuse a call that autograd would record
+    (K1, K3 and the rotary have no backward; K2's direct launch records no
+    graph), and K2's
     autograd Function takes it: one forward and one backward launch, the
     gradient the twin's."""
     from hgr_tpu_torch.ops.attention import attention
@@ -3092,7 +3220,22 @@ def phase_guard(dev):
         add_layer_norm(x, x, ln)
         quick_gelu(x)
         glu_layer_norm(torch.cat((x, x), -1), ln)
-    assert k3_launches() == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert k3_launches() == (n[0] + 1, n[1] + 1, n[2] + 1, n[3])
+
+    from hgr_tpu_torch.ops.rope import rotary
+
+    x = torch.randn(2, 8, 4, 64, device=dev, requires_grad=True)
+    cos, sin = torch.ones(8, 64, device=dev), torch.zeros(8, 64, device=dev)
+    try:
+        rotary(x, cos, sin)
+    except RuntimeError as e:
+        log(f"[guard] rotary on a CUDA tensor that requires grad raises: {e}")
+    else:
+        raise AssertionError("rotary ran under autograd")
+    assert rotary.launches == n[3]
+    with torch.no_grad():
+        assert torch.equal(rotary(x, cos, sin), x)
+    assert rotary.launches == n[3] + 1
 
 
 # ---- slice 7: the mesh over torch.distributed, and the offline builders ----
@@ -4001,7 +4144,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="hgr_real_inputs_")
     try:
         vit_l14, k3_vit_l14, k3_vit_l14_encode = phase_vit_l14(dev, work)
-        eva02, k3_eva02, k3_eva02_encode, glu_row = phase_eva02_l14(dev)
+        eva02, k3_eva02, k3_eva02_encode, glu_row, rotary_row = phase_eva02_l14(dev)
         siglip, k3_siglip, k3_siglip_encode, _ = phase_siglip_so400m(dev)
         real = phase_real_inputs(dev, work, synthetic_ips=summary["imgs_per_sec"])
         serving = phase_files_and_serving(real)
@@ -4067,7 +4210,7 @@ def main() -> int:
                    "rn50_train_steps": train["k2b_train_steps"],
                    "rn50_accum_train_steps": accum[2],
                    "rn50_flat_train_steps": flat["k2b_train_steps"]}
-    # K3's (add_layer_norm, quick_gelu, glu_layer_norm) launches as each phase counted them
+    # K3's and the rotary's launches (``K3_NAMES``) as each phase counted them
     k3_by_path = {"rn50_eval": k3_rn50, "vit_b32_eval": k3_vit, "vit_b16_eval": k3_vit16,
                   "vit_b16_encode": k3_vit16_encode, "rn50x4_eval": k3_rn50x4,
                   "vit_l14_eval": k3_vit_l14, "vit_l14_encode": k3_vit_l14_encode,
@@ -4107,14 +4250,14 @@ def main() -> int:
     )] + [dict(
         name=name,
         route="cuda",
-        source="hgr_tpu_torch/csrc/ln_act.cu",
-        replaces="none (XLA fuses the transformer block's adds, LayerNorms and QuickGELU on "
+        source="hgr_tpu_torch/csrc/rope.cu" if name == "rotary" else "hgr_tpu_torch/csrc/ln_act.cu",
+        replaces="none (the JAX package has no EVA-02 tower)" if name == "rotary" else
+                 "none (XLA fuses the transformer block's adds, LayerNorms and QuickGELU on "
                  "the TPU)",
         launches=sum(n[i] for n in k3_by_path.values()),
         launches_by_path={path: n[i] for path, n in k3_by_path.items()},
         **row,
-    ) for i, (name, row) in enumerate((("add_layer_norm", ln_row), ("quick_gelu", gelu_row),
-                                       ("glu_layer_norm", glu_row)))]
+    ) for i, (name, row) in enumerate(zip(K3_NAMES, (ln_row, gelu_row, glu_row, rotary_row)))]
     log(json.dumps({"kernels": kernels}))
     log(smi_name_power())
     print(json.dumps({"ok": True, "device": {

@@ -31,12 +31,9 @@ at cos 1 and sin 0, so the class token passes unrotated; ``rope_sin``
 carries ``rotate_half``'s sign (negative on even channels), so the turn is
 ``t * cos + swap_pairs(t) * rope_sin``.
 
-Departure from EVA's arithmetic: EVA turns bf16 q and k against its fp32
-tables and rounds once (``.type_as(v)``). Here the tables are cast to the
-activation dtype once an encode, and the turn rounds at each of its three
-steps (``t * cos``, the swapped product, the ``addcmul``): in bf16 that is
-up to three roundings of q and k where EVA has one, which widens the gap
-to a float32 reference. In float32 the two agree to rounding.
+The turn is EVA's arithmetic on both orders: q and k against the fp32
+tables, each product and the sum in fp32, rounded once to the activation
+dtype (EVA's ``.type_as(v)``); the signed sine changes no product's bits.
 
 Whether autograd would record is asked once an encode
 (``ops.ln_act.autograd_records``). Where it would, the blocks run plain
@@ -48,9 +45,10 @@ add in the LayerNorm after it (the last block's only on the class token's
 row, all ``norm`` reads), and the SwiGLU's gate with its 2,730-wide
 ``ffn_ln`` and the pad through K3's gate (``ops.ln_act.glu_layer_norm``;
 on the plain path its twin ``layers.glu_layer_norm``, the same PyTorch
-ops in the activation dtype). Both orders share the q/k/v product (one
-GEMM over the three weights, k's bias zero), the rotary as PyTorch ops,
-and the SwiGLU's GEMMs over the width padded to 2,736
+ops in the activation dtype), and the rotary of q and k in one launch
+(``ops.rope.rotary``; on the plain path its twin ``layers.rotary``). Both
+orders share the q/k/v product (one GEMM over the three weights, k's bias
+zero) and the SwiGLU's GEMMs over the width padded to 2,736
 (``SwiGLU.forward``). Each
 block records ``vit.attn`` and ``vit.mlp``, as OpenAI's ViT blocks do, and
 inside them ``eva.rope`` (the rotary of q and k) and ``eva.glu`` (the gate
@@ -66,11 +64,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import ln_act
+from ..ops import ln_act, rope
 from ..ops.attention import attention
 from ..utils.profiling import annotate
 from .layers import (Conv2d, LayerNorm, Linear, _param, attention_scores, glu_layer_norm, linear,
-                     normal_)
+                     normal_, rotary)
 
 ROPE_THETA = 10000.0
 ROPE_REF_GRID = 16  # pt_hw_seq_len: 16 in every EVA02-CLIP config
@@ -91,13 +89,6 @@ def rope_tables(grid: int, ref_grid: int, head_dim: int) -> Tuple[torch.Tensor, 
     cos = torch.cat([torch.ones(1, head_dim), ang.cos()])
     sin = torch.cat([torch.zeros(1, head_dim), ang.sin() * sign])
     return cos, sin
-
-
-def rotary(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """``t * cos + swap_pairs(t) * sin`` over the last dim, with ``sin``
-    signed as ``rope_tables`` gives it; tables in ``t``'s dtype."""
-    swapped = t.unflatten(-1, (-1, 2)).flip(-1).flatten(-2)
-    return torch.addcmul(t * cos, swapped, sin)
 
 
 def _merge(a: torch.Tensor) -> torch.Tensor:
@@ -124,14 +115,17 @@ class Attention(nn.Module):
         self.inner_attn_ln = LayerNorm(width, eps)
         self.proj = Linear(width, width)
 
-    def qkv(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-        """q, k (turned) and v of ``h`` [B, T, W], each [B, H, T, Dh]."""
+    def qkv(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, fused: bool = False):
+        """q, k (turned) and v of ``h`` [B, T, W], each [B, H, T, Dh]; the
+        turn in ``layers.rotary``, or with ``fused`` in ``ops.rope.rotary``
+        (the rotary kernel on CUDA), of the q and k rows as the GEMM left
+        them (a row stride of 3 W)."""
         H = self.heads
         w = torch.cat((self.q_proj.weight, self.k_proj.weight, self.v_proj.weight))
         b = torch.cat((self.q_bias, torch.zeros_like(self.q_bias), self.v_bias))
         heads = linear(h, w, b).unflatten(-1, (3 * H, -1))     # [B, T, 3H, Dh]
         with annotate("eva.rope"):
-            qk = rotary(heads[:, :, :2 * H], cos, sin)
+            qk = (rope.rotary if fused else rotary)(heads[:, :, :2 * H], cos, sin)
         q, k = qk.transpose(1, 2).split(H, dim=1)
         return q, k, heads[:, :, 2 * H:].transpose(1, 2)
 
@@ -198,7 +192,8 @@ class Block(nn.Module):
         with annotate("vit.attn"):
             if h is None:
                 h = add_ln(x, None, self.norm1)[1]
-            o = add_ln(_merge(attention(*a.qkv(h, cos, sin))), None, a.inner_attn_ln)[1]
+            o = add_ln(_merge(attention(*a.qkv(h, cos, sin, fused=True))), None,
+                       a.inner_attn_ln)[1]
             x, h = add_ln(x, a.proj(o), self.norm2)
         with annotate("vit.mlp"):
             out = self.mlp(h, fused=True)
@@ -259,7 +254,7 @@ class EVAVisionTransformer(nn.Module):
         x = x.flatten(2).transpose(1, 2)                   # [B, g*g, width]
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, width), x], dim=1)
         x = x + self.pos_embed.to(x.dtype)
-        cos, sin = (t.to(x.dtype)[:, None] for t in (self.rope_cos, self.rope_sin))
+        cos, sin = self.rope_cos, self.rope_sin
         if ln_act.autograd_records(x, self):
             for blk in self.blocks:
                 x = (checkpoint(blk, x, cos, sin, use_reentrant=False) if remat

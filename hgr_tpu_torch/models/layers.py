@@ -65,6 +65,21 @@ def glu_layer_norm(
     return F.pad(g, (0, np_ - n))
 
 
+def swap_pairs(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with the channels of each pair (2j, 2j+1) of its last dim
+    swapped."""
+    return t.unflatten(-1, (-1, 2)).flip(-1).flatten(-2)
+
+
+def rotary(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """EVA-02's rotary turn of ``t`` [..., T, R, Dh] (R rows a position,
+    e.g. the q and k heads): ``t * cos + swap_pairs(t) * sin`` with the fp32
+    tables [T, Dh] (``sin`` carrying ``rotate_half``'s sign), in fp32,
+    rounded once to ``t``'s dtype: the twin of the kernel in
+    ``ops/rope.py``."""
+    return (t.float() * cos[:, None] + swap_pairs(t).float() * sin[:, None]).to(t.dtype)
+
+
 def conv2d(
     x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
     b: Optional[torch.Tensor] = None,

@@ -8,8 +8,9 @@ twin on the card by ``chip_smoke.py``. The argument checks and the
 import-time behaviour of K2 (``ops/bn_act.py``, the ResNet's fused
 BatchNorm epilogue) and K3 (``ops/ln_act.py``, the transformer block's
 add + LayerNorm, QuickGELU and EVA-02's SwiGLU gate with its LayerNorm)
-are held here beside K1's, and K3's wrappers on CPU tensors to their plain
-twins; so is the one rule
+and of EVA-02's rotary (``ops/rope.py``) are held here beside K1's, and K3's
+and the rotary's wrappers on CPU tensors to their plain twins; so is the
+one rule
 (``ops.ln_act.autograd_records``) by which every tower picks the kernels
 or their twins.
 """
@@ -29,12 +30,15 @@ import jax.numpy as jnp  # noqa: E402
 from hgr_tpu.models.layers import attention_scores as jax_attention_scores  # noqa: E402
 from hgr_tpu.models.layers import causal_mask as jax_causal_mask  # noqa: E402
 from hgr_tpu.ops.attention import pallas_attention  # noqa: E402
+from hgr_tpu_torch.models.eva_vit import rope_tables  # noqa: E402
 from hgr_tpu_torch.models.layers import (  # noqa: E402
     attention_scores, causal_mask, glu_layer_norm, layer_norm, mha, quick_gelu)
+from hgr_tpu_torch.models.layers import rotary as rotary_twin  # noqa: E402
 from hgr_tpu_torch.ops import attention as k1  # noqa: E402
 from hgr_tpu_torch.ops import bn_act as k2  # noqa: E402
 from hgr_tpu_torch.ops import build  # noqa: E402
 from hgr_tpu_torch.ops import ln_act as k3  # noqa: E402
+from hgr_tpu_torch.ops import rope  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-6  # fp32, only the summation order differs
@@ -186,7 +190,8 @@ def test_kernel_argument_checks():
     """What the kernel does not take is refused before any launch, each
     case with its own message: arguments, devices other than the CPU and
     CUDA, and calls that autograd would record; K2's and K3's twins, K2's
-    backward and K3's SwiGLU gate among them."""
+    backward, K3's SwiGLU gate and the rotary among them; on a machine with
+    a card, the rotary kernel against its twin."""
     _cuda_route_refuses_other_devices()
     _kernel_refuses_autograd()
     for bad, match in BAD_ARGUMENTS:
@@ -213,6 +218,9 @@ def test_kernel_argument_checks():
             _check_glu_layer_norm_twin(dtype, n)
     for case in GLU_REFUSALS:
         _check_glu_layer_norm_refuses(case)
+    for case in ROPE_REFUSALS:
+        _check_rotary_refuses(case)
+    _check_rotary_kernel_on_card()
 
 
 def _check_head_dim_padding():
@@ -587,6 +595,97 @@ def _check_glu_layer_norm_refuses(case):
     if case == "autograd":
         with torch.no_grad():
             call()
+
+
+def _rope_case(name):
+    """(call, error, message) of one refusal of the rotary's wrapper: each
+    of ``_check``'s, the devices it does not run on, and autograd."""
+    x = torch.zeros(2, 17, 6, 64, dtype=torch.bfloat16)[:, :, :4]
+    cos, sin = torch.ones(17, 64), torch.zeros(17, 64)
+    check = rope._check
+    cases = {
+        "dims": (lambda: check(x[0], cos, sin), r"\[B, T, R, Dh\]"),
+        "dtype": (lambda: check(x.half(), cos, sin), "bfloat16 or float32"),
+        "odd_dh": (lambda: check(torch.zeros(2, 17, 4, 7), cos[:, :7], sin[:, :7]),
+                   "multiples of 8"),
+        "unaligned_dh": (lambda: check(torch.zeros(2, 17, 4, 12), cos[:, :12].contiguous(),
+                                       sin[:, :12].contiguous()), "multiples of 8"),
+        "wide_dh": (lambda: check(torch.zeros(2, 17, 4, 136), torch.ones(17, 136),
+                                  torch.zeros(17, 136)), "up to 128"),
+        "stride": (lambda: check(torch.zeros(2, 17, 4, 128)[..., ::2], cos, sin),
+                   "unit stride"),
+        "misaligned": (lambda: check(torch.zeros(2, 17, 4, 66)[..., 2:], cos, sin),
+                       "16-byte aligned"),
+        "table_shape": (lambda: check(x, cos[1:], sin[1:]), r"float32 \[17, 64\]"),
+        "table_dtype": (lambda: check(x, cos.bfloat16(), sin), "cos table"),
+        "table_layout": (lambda: check(x, cos, torch.zeros(64, 17).t()), "sin table"),
+        "device": (lambda: rope.rotary(x.to("meta"), cos, sin), "cpu or cuda"),
+        "cuda_entry": (lambda: rope.rotary_cuda(x, cos, sin), "CUDA tensors"),
+    }
+    if name == "autograd":
+        y = x.float().requires_grad_(True)
+        return lambda: rope.refuse_autograd(y, cos, sin), RuntimeError, "no backward"
+    return (*cases[name][:1], ValueError, cases[name][1])
+
+
+ROPE_REFUSALS = ("dims", "dtype", "odd_dh", "unaligned_dh", "wide_dh", "stride", "misaligned",
+                 "table_shape", "table_dtype", "table_layout", "device", "cuda_entry",
+                 "autograd")
+
+
+def _check_rotary_refuses(case):
+    """The rotary refuses, before any launch and each with its own message,
+    what its kernel does not take: rows other than [B, T, R, Dh], a dtype
+    other than bf16 or fp32, a head dim that is odd, not a multiple of 8 or
+    over 128, rows that are strided or off 16 bytes, tables that are not
+    contiguous float32 [T, Dh], devices other than the CPU and CUDA, and a
+    call that autograd would record; it takes the q and k rows of a [B, T,
+    3H, Dh] buffer (EVA02-CLIP-L/14's layout) in bf16 and fp32 and head dims
+    8 and 128. On the CPU nothing launches."""
+    for dtype in (torch.bfloat16, torch.float32):
+        rope._check(torch.zeros(2, 17, 6, 64, dtype=dtype)[:, :, :4], torch.ones(17, 64),
+                    torch.zeros(17, 64))
+    for dh in (8, 128):
+        rope._check(torch.zeros(1, 5, 3, dh), torch.ones(5, dh), torch.zeros(5, dh))
+    call, error, match = _rope_case(case)
+    with pytest.raises(error, match=match):
+        call()
+    if case == "autograd":
+        with torch.no_grad():
+            call()
+    assert rope.rotary.launches == 0
+
+
+# the rotary kernel's cases on a card, (B, T, 3H of the buffer, Dh, dtype):
+# EVA02-CLIP-L/14's q and k rows (16 heads, T = 257) in bf16 and fp32, and
+# TEST-EVA's (2 heads, T = 17)
+ROPE_CARD_CASES = [(512, 257, 48, 64, torch.bfloat16), (512, 257, 48, 64, torch.float32),
+                   (4, 17, 6, 64, torch.bfloat16)]
+
+
+def _check_rotary_kernel_on_card():
+    """Where a card is present (never in the CPU test runs; ``chip_smoke.py``
+    makes the same check on the card), the rotary kernel against its twin
+    on the q and k rows, a strided slice, of a [B, T, 3H, Dh] buffer at
+    ``ROPE_CARD_CASES``: within one bf16 ulp everywhere (fp32: equal), with
+    the share of values that differ stated."""
+    if not torch.cuda.is_available():
+        return
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for B, T, h3, dh, dtype in ROPE_CARD_CASES:
+        grid = int(round((T - 1) ** 0.5))
+        cos, sin = (t.cuda() for t in rope_tables(grid, 16, dh))
+        x = (torch.randn(B, T, h3, dh, generator=g, device="cuda") * 4).to(dtype)[
+            :, :, :2 * h3 // 3]
+        got, want = rope.rotary(x, cos, sin), rotary_twin(x, cos, sin)
+        diff = (got.float() - want.float()).abs()
+        one_ulp = torch.ldexp(torch.ones_like(diff),
+                              torch.frexp(want.float().abs().clamp_min(2.0 ** -126))[1] - 8)
+        share = float((got != want).float().mean())
+        line = (f"rotary [{B}, {T}, {2 * h3 // 3}, {dh}] {dtype}: {share:.3%} of values "
+                f"differ from the twin, max |diff| {float(diff.max()):.3e}")
+        print(line)
+        assert bool((diff <= (0 if dtype == torch.float32 else one_ulp)).all()), line
 
 
 def _cuda_route_refuses_other_devices():

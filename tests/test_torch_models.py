@@ -26,6 +26,7 @@ from hgr_tpu.models.convert import convert_state_dict  # noqa: E402
 from hgr_tpu_torch.models import clip as tclip  # noqa: E402
 from hgr_tpu_torch.models import zoo  # noqa: E402
 from hgr_tpu_torch.models.convert import from_jax_params  # noqa: E402
+from hgr_tpu_torch.ops.rope import rotary as rotary_wrapper  # noqa: E402 (its counter)
 
 REL = 1e-5
 
@@ -250,7 +251,8 @@ def test_rn_configs_match_jax():
     and, cut small, to the plain reference (``_check_vit_l14_cut_reference``),
     and EVA02-CLIP-L/14 with its TEST-EVA, held to EVA-CLIP's json and
     layout (``_check_eva02_geometry``), read from a file under EVA-CLIP's
-    ``CustomCLIP`` names (``_check_eva02_checkpoint_layout``) and, cut
+    ``CustomCLIP`` names (``_check_eva02_checkpoint_layout``), its rotary's
+    twin held to EVA's formula in float64 (``_check_rotary_twin``) and, cut
     small, held to the eva02 family's reference
     (``_check_eva02_cut_reference``); and SigLIP-SO400M/14@384 with its
     TEST-SIGLIP, held to the published config.json
@@ -283,6 +285,7 @@ def test_rn_configs_match_jax():
     _check_vit_l14_cut_reference()
     _check_eva02_geometry()
     _check_eva02_checkpoint_layout()
+    _check_rotary_twin()
     _check_eva02_cut_reference()
     _check_siglip_geometry()
     _check_siglip_checkpoint_layout()
@@ -582,6 +585,64 @@ def _check_eva02_checkpoint_layout():
             assert torch.equal(port[k[len("text."):] if k.startswith("text.") else k], v), k
 
 
+def _check_rotary_twin():
+    """The rotary's twin (``models.layers.rotary``: the plain blocks' turn,
+    and what ``ops.rope.rotary`` runs on CPU tensors, launching nothing)
+    against a float64 rendering of EVA's own formula, ``t * freqs_cos +
+    rotate_half(t) * freqs_sin`` with its interleaved pairs, EVA's fp32
+    tables at the ``intp_freq`` positions (the eva02 family's
+    ``rope_tables``) and the class token left out by ``cat``, on the q and k
+    rows (a strided slice) of a [B, T, 3H, Dh] buffer at T = 257 (grid 16)
+    and T = 17 (grid 4). The twin computes in fp32 and rounds once, so in
+    fp32 it lies within the rounding of two products and their sum
+    (``2^-23 (|t cos| + |t' sin|)``, ``tol``) of the float64 result, and in
+    bf16 equals that result rounded once to bf16, except at rounding ties:
+    where the float64 result lies within ``tol`` of a midpoint between two
+    bf16 values, either neighbour is taken."""
+    from hgr_tpu_torch.models.eva_vit import ROPE_REF_GRID, rope_tables
+    from hgr_tpu_torch.models.layers import rotary
+    from hgr_tpu_torch.ops import rope
+
+    def rotate_half(x):  # EVA's: (d r) -> d r, stack(-x2, x1), back
+        x = x.unflatten(-1, (-1, 2))
+        return torch.stack((-x[..., 1], x[..., 0]), dim=-1).flatten(-2)
+
+    fam = _eva02_family()
+    cfg = tclip.get_config("EVA02-CLIP-L/14")
+    g = torch.Generator().manual_seed(11)
+    H, dh = 3, 64
+    for grid in (16, 4):
+        rcfg = _eva_reference_cfg(cfg)
+        rcfg["vision"].update(image_resolution=grid * 14, patch_size=14)
+        fcos, fsin = (t.double() for t in fam.rope_tables(rcfg, "cpu"))
+        cos, sin = rope_tables(grid, ROPE_REF_GRID, dh)
+        T = grid * grid + 1
+        buf = torch.randn(2, T, 3 * H, dh, generator=g) * 4
+        for dtype in (torch.float32, torch.bfloat16):
+            x = buf.to(dtype)[:, :, :2 * H]
+            assert not x.is_contiguous()
+            t = x.double().transpose(1, 2)                     # [B, 2H, T, Dh], EVA's heads
+            r = t[:, :, 1:]
+            want = torch.cat([t[:, :, :1], r * fcos + rotate_half(r) * fsin], dim=2)
+            want = want.transpose(1, 2)
+            mag = torch.cat([t[:, :, :1].abs(), (r * fcos).abs() + (rotate_half(r) * fsin).abs()],
+                            dim=2).transpose(1, 2)
+            tol = 2.0 ** -23 * mag
+            got = rope.rotary(x, cos, sin)
+            assert torch.equal(got, rotary(x, cos, sin)) and rope.rotary.launches == 0
+            assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+            err = (got.double() - want).abs()
+            if dtype == torch.float32:
+                assert bool((err <= tol).all()), (grid, float((err - tol).max()))
+                continue
+            q = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 8)  # bf16 spacing
+            once = torch.round(want / q) * q       # float64 rounded once to bf16, ties to even
+            tie = ((want / q - torch.floor(want / q) - 0.5).abs() * q) <= tol
+            assert bool((got.double() == once)[~tie].all()), grid
+            assert bool((err <= q)[tie].all()), grid
+            assert int(tie.sum()) < 1e-3 * tie.numel(), int(tie.sum())
+
+
 def _check_eva02_cut_reference():
     """The port's CPU path (plain attention) in float32 against the eva02
     family's reference at EVA02-CLIP-L/14's geometry cut small: patch 14 at
@@ -594,12 +655,14 @@ def _check_eva02_cut_reference():
     Tolerance: that of ``_check_vit_l14_cut_reference``, the largest
     absolute difference within 1e-5 of the largest absolute reference
     feature (``REL``): both sides are float32 and differ only in summation
-    order, in how the uint8 pixels are normalised, and in the rotary's
-    arithmetic (the port's signed-sine pair swap against EVA's
-    ``rotate_half`` and class-token ``cat``); measured on three seeds:
-    7.2e-7 to 1.0e-6 of the largest image feature, 0 for the text features.
-    bf16 in the port's place reads 8.3e-3 to 1.5e-2, and has to miss by a
-    hundred times at least."""
+    order and in how the uint8 pixels are normalised; the rotary is EVA's
+    arithmetic on both (fp32 products and sum, the port's signed-sine pair
+    swap giving ``rotate_half``'s values bit for bit, the class token's
+    row turned by cos 1 and sin 0 where EVA leaves it out by ``cat``), and
+    in bf16 the port rounds it once, as EVA does; measured on the draws
+    23-25: 7.0e-7 to 7.7e-7 of the largest image feature, 0 for the text
+    features. bf16 in the port's place reads 8.8e-3 to 1.1e-2, and has to
+    miss by a hundred times at least."""
     fam = _eva02_family()
     cfg = dataclasses.replace(
         tclip.get_config("EVA02-CLIP-L/14"), image_resolution=56, vision_width=128,
@@ -735,38 +798,43 @@ def _check_eva_fused_blocks(monkeypatch, dtype):
     taking ``norm1``, ``inner_attn_ln``, ``norm2`` and the last ``norm`` (on
     the class token's rows), 3L + 1 calls an image encode, each residual
     add in the LayerNorm after it, K1's ``attention`` the attention, no
-    QuickGELU; the GELU text tower 2L + 1 and no QuickGELU either. On the
-    CPU the wrappers are the plain twins, so the features equal the plain
-    blocks' (``autograd_records`` True) bit for bit; with a parameter deep
-    in the tower or the images requiring a gradient the plain blocks run,
-    K3 is not called, and the gradient reaches it. Traced, each block
+    QuickGELU, the rotary's wrapper (``ops.rope.rotary``) L calls; the GELU
+    text tower 2L + 1 and neither QuickGELU nor the rotary. On the CPU the
+    wrappers are the plain twins, so the features equal the plain blocks'
+    (``autograd_records`` True) bit for bit, and the rotary's kernel
+    counter stays 0; with a parameter deep in the tower or the images
+    requiring a gradient the plain blocks run, neither K3 nor the rotary's
+    wrapper is called, and the gradient reaches it. Traced, each block
     records ``vit.attn`` holding ``eva.rope``, then ``vit.mlp`` holding
     ``eva.glu``."""
-    from hgr_tpu_torch.ops import ln_act
+    from hgr_tpu_torch.ops import ln_act, rope
     from hgr_tpu_torch.utils.profiling import clear_spans, recorded_spans
 
     m = tclip.clip_init(tclip.get_config("TEST-EVA"), torch.Generator().manual_seed(0)).eval()
     cfg = m.cfg
-    calls = {"add_layer_norm": 0, "quick_gelu": 0}
-    for name in calls:
-        def counted(*a, _f=getattr(ln_act, name), _n=name):
+    calls = {"add_layer_norm": 0, "quick_gelu": 0, "rotary": 0}
+    for module, name in ((ln_act, "add_layer_norm"), (ln_act, "quick_gelu"), (rope, "rotary")):
+        def counted(*a, _f=getattr(module, name), _n=name):
             calls[_n] += 1
             return _f(*a)
-        monkeypatch.setattr(ln_act, name, counted)
+        monkeypatch.setattr(module, name, counted)
     images = torch.from_numpy(_images(cfg, False))
     toks = torch.from_numpy(_tokens(cfg, [4, 9], 16)).long()
     Li, Lt = cfg.vision_layers[0], cfg.transformer_layers
-    towers = {  # the encode, K3's add_layer_norm calls, the deep parameter, the input
-        "image": (lambda: tclip.encode_image(m, images, dtype=dtype), 3 * Li + 1,
+    towers = {  # the encode, K3's add_layer_norm and the rotary's calls, the deep
+        # parameter, the input
+        "image": (lambda: tclip.encode_image(m, images, dtype=dtype), 3 * Li + 1, Li,
                   m.visual.blocks[-1].mlp.w1.weight, images),
-        "text": (lambda: tclip.encode_text(m, toks, dtype=dtype), 2 * Lt + 1,
+        "text": (lambda: tclip.encode_text(m, toks, dtype=dtype), 2 * Lt + 1, 0,
                  m.transformer.resblocks[-1].mlp.c_fc.weight, None),
     }
-    for tower, (encode, n_ln, deep, given) in towers.items():
-        calls.update(add_layer_norm=0, quick_gelu=0)
+    for tower, (encode, n_ln, n_rot, deep, given) in towers.items():
+        want_calls = {"add_layer_norm": n_ln, "quick_gelu": 0, "rotary": n_rot}
+        calls.update(add_layer_norm=0, quick_gelu=0, rotary=0)
         with torch.inference_mode():
             fused = encode()
-        assert calls == {"add_layer_norm": n_ln, "quick_gelu": 0}, (tower, calls)
+        assert calls == want_calls, (tower, calls)
+        assert rotary_wrapper.launches == 0
         with monkeypatch.context() as mp:
             mp.setattr(ln_act, "autograd_records", lambda *a: True)
             with torch.inference_mode():
@@ -784,7 +852,7 @@ def _check_eva_fused_blocks(monkeypatch, dtype):
             finally:
                 needs.requires_grad_(False)
                 needs.grad = None
-        assert calls == {"add_layer_norm": n_ln, "quick_gelu": 0}, (tower, calls)
+        assert calls == want_calls, (tower, calls)
     clear_spans()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         with torch.inference_mode():
